@@ -1,8 +1,9 @@
 """Typed configuration for the ported slice.
 
 Copied from ``otto_tpu/config.py`` (no jax inside): the config base,
-:class:`DataConfig` and :class:`SGNSConfig`.  The other model families'
-configs are copied with the modules that use them.
+:class:`DataConfig`, :class:`SGNSConfig`, ``COVISIT_KINDS`` and
+:class:`CovisitConfig`.  The other model families' configs are copied with
+the modules that use them.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, Sequence
 
 
 def _asdict(cfg: Any) -> dict:
@@ -77,3 +78,33 @@ class SGNSConfig(ConfigBase):
     steps_per_call: int = 8  # optimizer steps scanned per device dispatch
     seed: int = 42
     table_dtype: str = "float32"
+
+
+COVISIT_KINDS = (
+    "time_weighted",
+    "click_weighted",
+    "cart_weighted",
+    "order_weighted",
+    "click_cart",
+    "click_order",
+    "cart_order",
+)
+
+
+@dataclass(frozen=True)
+class CovisitConfig(ConfigBase):
+    """Covisitation-matrix construction. The reference only *consumes*
+    precomputed shards (src/covisitation/inference.py:87-112); this framework
+    builds all seven kinds on device (see otto_tpu_torch.models.covisitation)."""
+
+    kinds: Sequence[str] = COVISIT_KINDS
+    top_k_wide: int = 50  # per-aid neighbor rows kept for candidate generation ("top_*")
+    top_k_narrow: int = 15  # per-aid rows for the heuristic recommender ("top_15_*")
+    window_seconds: int = 24 * 60 * 60  # pair time window |ts_a - ts_b|
+    max_span: int = 64  # max forward positions paired per event (bounded context)
+    session_tail: int = 30  # most recent events per session considered
+    # Event-type weights applied to the *target* event of a pair.
+    click_weight: float = 1.0
+    cart_weight: float = 6.0
+    order_weight: float = 3.0
+    accumulator_capacity: int = 64 * 1024 * 1024  # running (key, weight) rows on device

@@ -1,2 +1,13 @@
 """Models (port of ``otto_tpu/models``): SGNS inference and the
-embedding-kNN recommender so far."""
+embedding-kNN recommender, frequency statistics, the aid-weight baseline,
+covisitation construction and the covisitation heuristic."""
+
+from otto_tpu_torch.models.covisitation import (
+    CovisitationMatrices,
+    build_covisitation,
+    covisit_heuristic_predictions,
+    session_unique_counts,
+)
+from otto_tpu_torch.models.embeddings import SGNSModel, embedding_knn_predictions
+from otto_tpu_torch.models.frequency import FrequencyStatistics, aid_frequency_predictions
+from otto_tpu_torch.models.recency import aid_weight_predictions

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with :mod:`ctypes` — no PyTorch headers, so a build
-takes seconds.  The build happens at the first CUDA call, into
-``otto_tpu_torch/_build/``; the library's name carries a hash of the sources
-and flags, so an edited source is rebuilt.  Nothing here runs at import time:
-the CPU tests import every module on a machine without ``nvcc``.
+Every source in ``csrc/`` is compiled with one ``nvcc`` call into one
+shared library with a plain C interface, loaded with :mod:`ctypes` — no
+PyTorch headers, so a build takes seconds.  The build happens at the first
+CUDA call, into ``otto_tpu_torch/_build/``; the library's name carries a
+hash of all the sources and the flags, so an edited source is rebuilt.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
 
 The launchers take tensors that the calling wrapper has already checked
 (device, dtype, shape, contiguity), pass their ``data_ptr()`` and PyTorch's
@@ -25,7 +26,7 @@ from pathlib import Path
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (PKG_DIR / "csrc" / "retrieval_kernels.cu",)
+SOURCES = tuple(sorted((PKG_DIR / "csrc").glob("*.cu")))
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,8 +49,9 @@ def _nvcc() -> str:
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libretrieval_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libotto_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -84,6 +86,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = i
             cdll.peel_rows_f32.argtypes = [p, p, p, i, i, i, i, p]
             cdll.peel_rows_f32.restype = i
+            cdll.aid_vote_f32.argtypes = [p, p, p, p, p, i, i, i, p]
+            cdll.aid_vote_f32.restype = i
             _lib = cdll
     return _lib
 
@@ -112,3 +116,13 @@ def launch_peel_rows(x: torch.Tensor, rounds: int, vals: torch.Tensor,
     err = lib().peel_rows_f32(x.data_ptr(), vals.data_ptr(), cols.data_ptr(),
                               x.shape[0], x.shape[1], rounds, x.device.index, _stream(x))
     _check(err, "peel_rows_f32")
+
+
+def launch_aid_vote(aids: torch.Tensor, weights: torch.Tensor, agg: torch.Tensor,
+                    first: torch.Tensor, firstpos: torch.Tensor) -> None:
+    """aids int32 [S, L], weights f32 [S, L] -> agg f32, first and firstpos
+    int32 (all [S, L])."""
+    err = lib().aid_vote_f32(aids.data_ptr(), weights.data_ptr(), agg.data_ptr(),
+                             first.data_ptr(), firstpos.data_ptr(), aids.shape[0],
+                             aids.shape[1], aids.device.index, _stream(aids))
+    _check(err, "aid_vote_f32")

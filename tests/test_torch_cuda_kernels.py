@@ -11,13 +11,17 @@ over 1,867,776 padded columns, the peel over [B, 14,592]).  Tolerances: the
 peel and stage 1 on integer-valued inputs are bit-equal; stage 1 on normal
 data may move a packed maximum by one truncation step and change its 7-bit
 position code, so values agree within 2^8 ulps = 2^-15 relative and the
-window position on >= 99.9% of windows.
+window position on >= 99.9% of windows.  The session vote runs at the
+aid-weight path's shape [4096, 256] (and a ragged L): ``first`` and
+``firstpos`` bit-equal, ``agg`` bit-equal on integer weights and within
+2^-16 * sum_j |w_j| of its row on normal weights.
 """
 
 import pytest
 import torch
 
 from otto_tpu_torch.ops import fused_retrieval as tfr
+from otto_tpu_torch.ops import fused_sessions as tfs
 from otto_tpu_torch.ops import row_topk as trt
 
 N_PAD = 114 * 16384
@@ -96,3 +100,32 @@ def test_cuda_retriever_matches_twin_path(cuda_device):
         gs, gi = gpu.topk(queries, k=20)
         assert torch.equal(gi.cpu(), ci)
         assert torch.equal(gs.cpu(), cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 256), (333, 77)])
+def test_cuda_vote_kernel_matches_twin(cuda_device, shape):
+    S, L = shape
+    g = torch.Generator(device=cuda_device).manual_seed(L)
+    aids = torch.randint(0, 24, shape, generator=g, device=cuda_device, dtype=torch.int32)
+    tail = torch.randint(0, L + 1, (S, 1), generator=g, device=cuda_device)
+    aids[torch.arange(L, device=cuda_device)[None, :] >= L - tail] = -1
+    for w in (torch.randint(1, 7, shape, generator=g, device=cuda_device).float(),
+              torch.randn(shape, generator=g, device=cuda_device)):
+        w = torch.where(aids >= 0, w, 0.0)
+        before = tfs.aid_vote_aggregate.launches
+        ka, kf, kp = tfs.aid_vote_aggregate(aids, w)
+        torch.cuda.synchronize()
+        assert tfs.aid_vote_aggregate.launches == before + 1
+        ra, rf, rp = tfs._vote_reference(aids, w)
+        assert torch.equal(kf, rf) and torch.equal(kp, rp)
+        bound = 2.0**-16 * w.abs().sum(dim=1, keepdim=True)
+        assert bool(((ka - ra).abs() <= bound).all())
+    assert torch.equal(ka[aids < 0], torch.zeros_like(ka[aids < 0]))
+    int_w = torch.randint(1, 7, shape, generator=g, device=cuda_device).float()
+    assert torch.equal(tfs.aid_vote_aggregate(aids, int_w)[0],
+                       tfs._vote_reference(aids, int_w)[0])
+    with pytest.raises(TypeError):
+        tfs.aid_vote_aggregate(aids.long(), w)
+    with pytest.raises(ValueError):
+        tfs.aid_vote_aggregate(aids[:, ::2], w[:, ::2])
