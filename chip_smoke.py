@@ -10,8 +10,12 @@ exit code):
    build the hand-written kernels from ``otto_tpu_torch/csrc`` and print
    each kernel's ptxas report (registers, spills);
 2. each kernel against its plain-torch twin at the full-width shapes
-   (1,855,603 items x 32 dims: stage 1 over 1,867,776 padded items, the
-   peel over [B, 14,592] window maxima), with the times of both;
+   (1,855,603 items x 32 dims: stage 1 over 1,867,776 padded items at 256
+   queries, at 115, the neighbor table's last batch, and at 4,096 x 102,
+   the table's other batches, on the very inputs it is timed on; the peel
+   over [B, 14,592] window maxima), with the times of both at a 4,096-query
+   batch, each kernel's share of its bound, and ``torch.matmul`` on the
+   bare bf16 product as stage 1's yardstick;
 3. full-width retrieval: a seeded 1,855,603 x 32 SGNS table round-tripped
    through ``SGNSModel.save``/``load``, ``FusedRetriever`` queries/s and its
    recall against the exact scan;
@@ -42,7 +46,10 @@ exit code):
    checks of phase 5 on synthetic rows at [1,024, L], and the times of both
    at that shape.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel (its
+launches on its path, largest error against the twin, ms, the twin's ms,
+the bound and what sets it, and ``library_ms``, null where no one PyTorch
+call computes the function); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  The phase functions take the device and the sizes, so a
@@ -99,15 +106,50 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): device
+# memory, bf16 tensor cores, float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time the card could take for a kernel's work, in ms, and
+    what sets it: each input read once and each output written once over
+    the memory rate, or the operations over their peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmul_yardstick_ms(torch, q, t, reps: int) -> tuple[float, int]:
+    """CUDA-event ms of ``torch.matmul`` computing the bf16 product q @ t
+    alone (no pack, no window max), in equal column slices of whole chunks
+    into one reused output; returns (ms summed over the slices, slices).
+    Timed as a yardstick only: the port never calls it."""
+    from otto_tpu_torch.ops.fused_retrieval import CHUNK
+
+    n_pad = t.shape[1]
+    n_chunks = n_pad // CHUNK
+    per = max(d for d in range(1, 17) if n_chunks % d == 0) * CHUNK
+    buf = torch.empty((q.shape[0], per), dtype=torch.bfloat16, device=q.device)
+
+    def run():
+        for c0 in range(0, n_pad, per):
+            torch.matmul(q, t[:, c0:c0 + per], out=buf)
+
+    return cuda_ms(torch, run, reps), n_pad // per
+
+
 def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
-                    b_time: int) -> list[dict]:
+                    b_time: int, b_last: int) -> list[dict]:
     """Phase 2: each kernel against its twin at the shapes a table of
     ``n_items`` gives them; returns the kernels' records.
 
-    Stage 1 on integer-valued inputs is exact, so bit-equal.  On normal data
-    the kernel and cuBLAS sum in other orders: a packed maximum may move by
-    one truncation step (2^7 ulps) and change its 7-bit position code, so
-    the bound is 2^8 ulps = 2^-15 relative.
+    Stage 1 runs at ``b_cmp`` queries and at ``b_last``, the neighbor
+    table's last batch.  On integer-valued inputs it is exact, so bit-equal.
+    On normal data the tensor cores and cuBLAS sum in other orders: a packed
+    maximum may move by one truncation step (2^7 ulps) and change its 7-bit
+    position code, so the bound is 2^8 ulps = 2^-15 relative.
     """
     from otto_tpu_torch.ops import fused_retrieval as fr
     from otto_tpu_torch.ops import row_topk as rt
@@ -115,18 +157,18 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     n_pad = -(-n_items // fr.CHUNK) * fr.CHUNK
     g = torch.Generator(device=dev).manual_seed(SEED)
     k1_err = 0.0
-    for da in (34, 102):
-        q = torch.randint(-8, 9, (b_cmp, da), generator=g, device=dev).to(torch.bfloat16)
+    for b, da in ((b, da) for b in (b_cmp, b_last) for da in (34, 102)):
+        q = torch.randint(-8, 9, (b, da), generator=g, device=dev).to(torch.bfloat16)
         t = torch.randint(-8, 9, (da, n_pad), generator=g, device=dev).to(torch.bfloat16)
         t[:, n_items:] = 0  # pad columns
         k = fr.fused_stage1(q, t)
         r = fr._stage1_reference(q, t)
         sync(torch, dev)
         check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
-              f"stage 1 DA={da}: kernel and twin differ on integer-valued inputs")
+              f"stage 1 DA={da} B={b}: kernel and twin differ on integer-valued inputs")
         # normal data, with a positivity shift in the last dimension as the
         # retriever folds one in
-        qn = torch.randn((b_cmp, da), generator=g, device=dev)
+        qn = torch.randn((b, da), generator=g, device=dev)
         qn[:, -1] = 128.0
         tn = torch.randn((da, n_pad), generator=g, device=dev)
         tn[-1] = 1.0
@@ -136,11 +178,16 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
         rel = ((k - r).abs() / r.abs()).max().item()
         same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
         k1_err = max(k1_err, (k - r).abs().max().item())
-        print(f"stage 1 DA={da} B={b_cmp} N_pad={n_pad}: integer inputs bit-equal; "
-              f"normal inputs max rel err {rel:.3e} (limit 2^-15), same window position "
+        # the float32 instantiation (FMA on the CUDA cores) on the same values
+        kf = fr.fused_stage1(qn.float(), tn.float())
+        rel_fma = ((kf - r).abs() / r.abs()).max().item()
+        del kf
+        print(f"stage 1 DA={da} B={b} N_pad={n_pad}: integer inputs bit-equal; "
+              f"normal inputs max rel err {rel:.3e} (limit 2^-15; the float32 FMA kernel "
+              f"on the same values {rel_fma:.3e}), same window position "
               f"{same:.6f} (limit 0.999)", flush=True)
-        check(rel <= 2.0**-15, f"stage 1 DA={da}: relative error {rel}")
-        check(same >= 0.999, f"stage 1 DA={da}: window positions agree on {same}")
+        check(rel <= 2.0**-15, f"stage 1 DA={da} B={b}: relative error {rel}")
+        check(same >= 0.999, f"stage 1 DA={da} B={b}: window positions agree on {same}")
 
     m = n_pad // 128
     x = torch.randn((peel_rows_cmp, m), generator=g, device=dev)
@@ -167,30 +214,77 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     print(f"FusedRetriever on {items.shape[0]} integer-valued items: card path equals "
           "the CPU twins' path (single, compensated)", flush=True)
 
-    # times at the main path's shapes: a 4096-query batch, compensated table
-    qt = torch.randn((b_time, 102), generator=g, device=dev).to(torch.bfloat16)
-    tt = torch.randn((102, n_pad), generator=g, device=dev).to(torch.bfloat16)
+    # the main path's shape, a 4096-query batch against the compensated
+    # table: integer inputs bit-equal, then the timed normal inputs (with the
+    # positivity shift, pad columns zero) within the limits
+    qi = torch.randint(-8, 9, (b_time, 102), generator=g, device=dev).to(torch.bfloat16)
+    ti = torch.randint(-8, 9, (102, n_pad), generator=g, device=dev).to(torch.bfloat16)
+    ti[:, n_items:] = 0
+    k, r = fr.fused_stage1(qi, ti), fr._stage1_reference(qi, ti)
+    sync(torch, dev)
+    check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+          f"stage 1 DA=102 B={b_time}: kernel and twin differ on integer-valued inputs")
+    del qi, ti
+    qt = torch.randn((b_time, 102), generator=g, device=dev)
+    qt[:, -1] = 128.0
+    tt = torch.randn((102, n_pad), generator=g, device=dev)
+    tt[-1] = 1.0
+    tt[:, n_items:] = 0
+    qt, tt = qt.to(torch.bfloat16), tt.to(torch.bfloat16)
+    k, r = fr.fused_stage1(qt, tt), fr._stage1_reference(qt, tt)
+    live = r >= 1.0  # pad windows pack below 1.0 in both
+    check(torch.equal(live, k >= 1.0), f"stage 1 DA=102 B={b_time}: live windows differ")
+    rel = ((k - r).abs() / r.abs())[live].max().item()
+    same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
+    k1_err = max(k1_err, (k - r).abs().max().item())
+    del k, r
+    print(f"stage 1 DA=102 B={b_time} N_pad={n_pad} (the path's shape): integer inputs "
+          f"bit-equal; normal inputs max rel err {rel:.3e} (limit 2^-15), same window "
+          f"position {same:.6f} (limit 0.999)", flush=True)
+    check(rel <= 2.0**-15, f"stage 1 DA=102 B={b_time}: relative error {rel}")
+    check(same >= 0.999, f"stage 1 DA=102 B={b_time}: window positions agree on {same}")
+
+    # times at that shape, on those inputs
     xt = torch.randn((b_time, m), generator=g, device=dev)
     reps = 3 if dev.type == "cuda" else 1
     timer = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
-    k1_ms = timer(lambda: fr.fused_stage1(qt, tt), reps)
+    k1_ms = timer(lambda: fr.fused_stage1(qt, tt), 10 * reps)
     k1_plain = timer(lambda: fr._stage1_reference(qt, tt), reps)
-    k1_ms2 = timer(lambda: fr.fused_stage1(qt, tt), reps)
+    k1_ms2 = timer(lambda: fr.fused_stage1(qt, tt), 10 * reps)
     k2_ms = timer(lambda: rt.peel_rows(xt, 6), 10 * reps)
     k2_plain = timer(lambda: rt.peel_rows_reference(xt, 6), reps)
     k2_ms2 = timer(lambda: rt.peel_rows(xt, 6), 10 * reps)
+    k1_best, k2_best = min(k1_ms, k1_ms2), min(k2_ms, k2_ms2)
+    if dev.type == "cuda":
+        mm_ms, slices = matmul_yardstick_ms(torch, qt, tt, reps)
+    else:
+        mm_ms, slices = None, 0
+    k1_bound = bound(qt.numel() * 2 + tt.numel() * 2 + b_time * m * 4,
+                     2.0 * qt.numel() * n_pad, BF16_TENSOR_OPS_PER_S)
+    k2_bound = bound(xt.numel() * 4 + 2 * b_time * 6 * (m // 128) * 4,
+                     2.0 * 6 * xt.numel(), F32_OPS_PER_S)
     print(f"stage 1 [{b_time} x 102] x [102 x {n_pad}] bf16: kernel {k1_ms:.3f} / "
-          f"{k1_ms2:.3f} ms, twin {k1_plain:.3f} ms", flush=True)
+          f"{k1_ms2:.3f} ms, twin {k1_plain:.3f} ms; bound {k1_bound[0]:.3f} ms "
+          f"({k1_bound[1]}): {100 * k1_bound[0] / k1_best:.1f}% of it", flush=True)
+    if mm_ms is not None:
+        print(f"torch.matmul yardstick, the bf16 product alone (no pack, no window max) in "
+              f"{slices} column slices: {mm_ms:.3f} ms", flush=True)
     print(f"peel [{b_time}, {m}] R=6: kernel {k2_ms:.3f} / {k2_ms2:.3f} ms, "
-          f"twin {k2_plain:.3f} ms", flush=True)
+          f"twin {k2_plain:.3f} ms; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}): "
+          f"{100 * k2_bound[0] / k2_best:.1f}% of it", flush=True)
     src = "otto_tpu_torch/csrc/retrieval_kernels.cu"
+    # library_ms: no one PyTorch call computes either function (K1 is a
+    # product, a bit pack and a strided window max; torch.topk differs from
+    # K2 on ties, since K2 clears every slot equal to the max)
     return [
         {"name": "fused_stage1", "route": "cuda", "source": src,
          "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
-         "max_abs_err": k1_err, "ms": min(k1_ms, k1_ms2), "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": k1_best, "plain_ms": k1_plain,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "peel_rows", "route": "cuda", "source": src,
          "replaces": "otto_tpu/ops/row_topk.py:38", "launches": 0,
-         "max_abs_err": k2_err, "ms": min(k2_ms, k2_ms2), "plain_ms": k2_plain},
+         "max_abs_err": k2_err, "ms": k2_best, "plain_ms": k2_plain,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
     ]
 
 
@@ -416,7 +510,7 @@ def vote_on_path(torch, dev, target, served: np.ndarray, chunk: int = 1024) -> d
           f"but {int(differ.any(dim=1).sum())} of {S} rows (near-ties)", flush=True)
 
     err = max(err, compare_vote(torch, dev, chunk, L, n_cpu=512, reps=0)["err"])
-    return {"err": err, **time_vote(torch, aids, w, 10)}
+    return {"err": err, "shape": (S, L), **time_vote(torch, aids, w, 10)}
 
 
 def tables_match(got, want) -> tuple[int, int]:
@@ -601,7 +695,8 @@ def main() -> int:
                     print(line.strip(), flush=True)
 
     with phase("2 kernels vs plain twins"):
-        records = compare_kernels(torch, dev, N_AIDS, 256, 2048, QUERY_BATCH)
+        records = compare_kernels(torch, dev, N_AIDS, 256, 2048, QUERY_BATCH,
+                                  N_AIDS % QUERY_BATCH)
 
     workdir = REPO / "tmp" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
@@ -631,11 +726,19 @@ def main() -> int:
 
     with phase("8 session vote at the aid-weight path's shape"):
         on_path = vote_on_path(torch, dev, path["target"], path["aid_weight"])
+    # K3 moves aids and weights in, agg/first/firstpos out (4 bytes each)
+    # and compares and adds each pair of positions of a row; no one PyTorch
+    # call returns its three per-position quantities (library_ms null)
+    s_rows, width = on_path["shape"]
+    k3_bound = bound(s_rows * width * 4 * 5, 2.0 * s_rows * width * width, F32_OPS_PER_S)
     records.append({"name": "aid_vote", "route": "cuda",
                     "source": "otto_tpu_torch/csrc/session_kernels.cu",
                     "replaces": "otto_tpu/ops/pallas_sessions.py:30", "launches": 0,
                     "max_abs_err": max(vote["err"], on_path["err"]), "ms": on_path["ms"],
-                    "plain_ms": on_path["plain_ms"]})
+                    "plain_ms": on_path["plain_ms"], "bound_ms": k3_bound[0],
+                    "bound_by": k3_bound[1], "library_ms": None})
+    print(f"session vote [{s_rows}, {width}]: bound {k3_bound[0]:.4f} ms ({k3_bound[1]}): "
+          f"{100 * k3_bound[0] / on_path['ms']:.1f}% of it", flush=True)
 
     for rec in records:
         rec["launches"] = (heur if rec["name"] == "aid_vote" else knn)[rec["name"]]

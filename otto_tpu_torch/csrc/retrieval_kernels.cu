@@ -5,6 +5,7 @@
 // nothing, and returns cudaGetLastError() so that a refused launch is
 // reported to the wrapper.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -25,42 +26,33 @@ constexpr unsigned LANE_MASK = WINDOW - 1;
 // against the augmented query row, replaces the low 7 bits of each score's
 // float32 bits by a, and keeps the float maximum:
 //     out[b, c*128 + l] = max_a bits_to_float((bits(q_b . t_j) & ~127) | a).
-// The [B, N] score matrix is never stored.
+// The [B, N] score matrix is never stored.  The table is stored transposed,
+// [DA, N_pad], so position a of chunk c is the 128 consecutive columns
+// c*16384 + a*128 .. +127, and lane l is the l-th of them.
 //
-// Design: one block per (query tile of TQ rows, chunk); one thread per lane
-// l, looping over the 128 positions a.  The query tile sits in shared memory
-// as float32, laid out [d][TQ] so that one 16-byte broadcast load feeds four
-// FMAs.  The table is read transposed ([DA, N_pad]): for fixed (d, a) the 128
-// threads of a block read 128 consecutive columns, so the loads coalesce.
-// Scores accumulate in float32 FMA over d in ascending order.  Blocks of one
-// chunk are adjacent in launch order (blockIdx.x runs over query tiles), so
-// the chunk's table slice (DA*16384 elements) is served from L2 to all of
-// them.
-//
-// What bounds it: FMA throughput.  Each table element read feeds TQ FMAs; at
-// DA = 102 (the compensated table) a 4096-query batch over 1,867,776 items is
-// 7.8e11 FMAs.  Tensor cores (wgmma over bf16 tiles, with the pack and max in
-// the epilogue) are the next step; this simple form is the correct baseline.
+// Two instantiations:
+// - bf16 (the retriever's tables): fused_stage1_bf16_kernel, on the tensor
+//   cores (below).
+// - float32: fused_stage1_f32_kernel, float32 FMA on the CUDA cores.  The
+//   tensor cores take float32 only as TF32, which would break the float32
+//   contract of table_dtype=float32.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// --- float32: one thread per lane ------------------------------------------
+//
+// One block per (query tile of TQ rows, chunk); one thread per lane l,
+// looping over the 128 positions a.  The query tile sits in shared memory,
+// laid out [d][TQ] so that one 16-byte broadcast load feeds four FMAs; for
+// fixed (d, a) the 128 threads read 128 consecutive table columns, so the
+// loads coalesce.  Scores accumulate over d in ascending order.  Bound by
+// FMA throughput (each table element read feeds TQ FMAs).
 
 constexpr int K1_TQ = 32;       // queries per block
 constexpr int K1_THREADS = 128; // one thread per lane of the window
 
-template <typename T>
 __global__ void __launch_bounds__(K1_THREADS)
-fused_stage1_kernel(const T* __restrict__ q, const T* __restrict__ t,
-                    float* __restrict__ out, int B, int DA, long long n_pad) {
+fused_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ t,
+                        float* __restrict__ out, int B, int DA, long long n_pad) {
   extern __shared__ float4 qs4[];  // [DA][K1_TQ] float32
   float* qs = reinterpret_cast<float*>(qs4);
   const int b0 = blockIdx.x * K1_TQ;
@@ -71,7 +63,7 @@ fused_stage1_kernel(const T* __restrict__ q, const T* __restrict__ t,
     const int d = i / K1_TQ;
     const int r = i - d * K1_TQ;
     const int b = b0 + r;
-    qs[i] = (b < B) ? to_f32(q[(long long)b * DA + d]) : 0.0f;
+    qs[i] = (b < B) ? q[(long long)b * DA + d] : 0.0f;
   }
   __syncthreads();
 
@@ -79,15 +71,15 @@ fused_stage1_kernel(const T* __restrict__ q, const T* __restrict__ t,
 #pragma unroll
   for (int r = 0; r < K1_TQ; ++r) best[r] = -CUDART_INF_F;
 
-  const T* col0 = t + chunk * CHUNK + l;
+  const float* col0 = t + chunk * CHUNK + l;
   for (int a = 0; a < WINDOW; ++a) {
     float acc[K1_TQ];
 #pragma unroll
     for (int r = 0; r < K1_TQ; ++r) acc[r] = 0.0f;
-    const T* col = col0 + a * WINDOW;
+    const float* col = col0 + a * WINDOW;
 #pragma unroll 2
     for (int d = 0; d < DA; ++d) {
-      const float x = to_f32(col[(long long)d * n_pad]);
+      const float x = col[(long long)d * n_pad];
       const float4* qv = qs4 + d * (K1_TQ / 4);
 #pragma unroll
       for (int r4 = 0; r4 < K1_TQ / 4; ++r4) {
@@ -113,20 +105,354 @@ fused_stage1_kernel(const T* __restrict__ q, const T* __restrict__ t,
   }
 }
 
-template <typename T>
-int launch_fused_stage1(const void* q, const void* t, void* out, int B, int DA,
-                        long long n_pad, int device, void* stream) {
+// --- bf16: wgmma fed by a TMA ring -----------------------------------------
+//
+// One block per (query tile of 128 rows, chunk); query tiles vary fastest,
+// so the blocks of one chunk run together and share its table slice
+// (DA * 16384 bf16, 3.3 MB at DA = 102) in L2.  Three warpgroups:
+//
+// - a producer (warpgroup 2; one thread works, the warpgroup keeps 40
+//   registers) walks the 128 positions a and keeps a ring of `stages` table
+//   tiles in flight.  A tile is [da_pad, 128] bf16, the columns of position
+//   a, loaded by TMA as two boxes of [da_pad, 64] (64 bf16 = one 128-byte
+//   swizzle row) into the 128-byte swizzled layout wgmma reads.  Rows DA ..
+//   da_pad-1 lie outside the tensor and TMA fills them with zeros, which
+//   pads the contraction to wgmma's depth of 16 and adds exactly 0.  Each
+//   slot has a `full` mbarrier (TMA bytes) and an `empty` one (one arrival
+//   per consumer warpgroup).
+// - two consumers (warpgroups 0 and 1, 232 registers each) own 64 query
+//   rows each.  They load their rows once, from device memory straight into
+//   wgmma's A-fragment registers (zeros past DA and past B: a 204-byte
+//   query row does not suit TMA, and A from registers spares the shared
+//   memory bandwidth that two warpgroups re-reading A would take).  For
+//   each position they run da_pad/16 wgmma.m64n128k16 (f32 += bf16 x bf16;
+//   B = the tile, MN-major, "transpose-B") into 64 accumulator registers,
+//   release the slot, and fold the tile into a register-resident best[64]:
+//   in wgmma's accumulator layout a thread holds the same (row, column n)
+//   in the same register for every tile, and column n of position a's tile
+//   is lane n of the window, so the window max is one LOP3 (clear the low
+//   7 bits, OR in a) and one FMNMX per element, with no shuffle and no
+//   shared memory.  While one warpgroup runs that epilogue, the other's
+//   wgmma keeps the tensor cores busy.  After a = 127, best goes to
+//   out[b, c*128 + n] (rows >= B masked).
+//
+// What bounds it: tensor-core operations, 2*B*DA*N_pad (1.56e12 at the
+// path's shape, 1.58 ms at 989 TFLOP/s), with the table read once from
+// device memory.  What holds it above that bound: the contraction is padded
+// from 102 to 112, and each warpgroup waits for its product before it folds
+// it, so the tensor cores idle where the two warpgroups' epilogues meet.
+// Measured on an H100, a deeper ring (7 slots) and a 2-CTA cluster that
+// multicasts each tile (half the L2 reads) moved it by a few percent at
+// most.  A second accumulator set, which would overlap each fold with the
+// next product, does not fit in the registers: ptxas spills it.
+
+constexpr int K1B_ROWS = 128;          // queries per block
+constexpr int K1B_WG_ROWS = 64;        // queries per consumer warpgroup (wgmma M)
+constexpr int K1B_CONSUMERS = 2;
+constexpr int K1B_THREADS = 128 * (K1B_CONSUMERS + 1);
+constexpr int K1B_BOX = 64;            // TMA box width: one 128-byte swizzle row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all in 16-byte units) and the layout (1: 128-byte swizzle).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+// d[64] (+)= A[64 x 16] . B[16 x 128]; A from registers (a thread's four
+// bf16 pairs), B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// Keeps the compiler from moving reads of the accumulators across the
+// asynchronous product's issue and wait.
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// K_STEPS = da_pad / 16 is a template parameter so that the product's k
+// loop unrolls: ptxas serializes wgmma issued from a loop it cannot unroll.
+template <int K_STEPS>
+__global__ void __launch_bounds__(K1B_THREADS, 1)
+fused_stage1_bf16_kernel(const __grid_constant__ CUtensorMap table,
+                         const __nv_bfloat16* __restrict__ q, float* __restrict__ out, int B,
+                         int DA, int stages, long long n_pad) {
+  constexpr int da_pad = 16 * K_STEPS;
+  extern __shared__ uint8_t k1_smem[];
+  // [ring: stages x tile][full x stages][empty x stages], the ring
+  // 1024-byte aligned for the 128-byte swizzle
+  const uint32_t ring = (smem_u32(k1_smem) + 1023u) & ~1023u;
+  const uint32_t tile_bytes = (uint32_t)da_pad * WINDOW * 2;
+  const uint32_t full0 = ring + (uint32_t)stages * tile_bytes;
+  const uint32_t empty0 = full0 + 8u * stages;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const long long chunk = blockIdx.y;
+  const int b0 = blockIdx.x * K1B_ROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8u * s, 1);
+      mbar_init(empty0 + 8u * s, K1B_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == K1B_CONSUMERS) {
+    // ---- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == 0) {
+      const int col0 = (int)(chunk * CHUNK);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int a = 0; a < WINDOW; ++a) {
+        if (a >= stages) mbar_wait(empty0 + 8u * s, phase ^ 1u);
+        const uint32_t full = full0 + 8u * s;
+        const uint32_t dst = ring + (uint32_t)s * tile_bytes;
+        mbar_expect_tx(full, tile_bytes);
+        tma_load_2d(dst, &table, full, col0 + a * WINDOW, 0);
+        tma_load_2d(dst + tile_bytes / 2, &table, full, col0 + a * WINDOW + K1B_BOX, 0);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // this warpgroup's 64 query rows as wgmma A fragments, loaded once: in
+    // k step ks, register r of thread (warp w, lane) holds row
+    // 16w + lane/4 + 8(r&1), columns 16ks + 8(r>>1) + 2(lane%4) + {0, 1};
+    // zeros past DA (the padded contraction) and past B
+    uint32_t afrag[K_STEPS][4];
+    {
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+      for (int ks = 0; ks < K_STEPS; ++ks) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int b = b0 + wg * K1B_WG_ROWS + 16 * warp + (lane >> 2) + 8 * (r & 1);
+          const int k = 16 * ks + 8 * (r >> 1) + 2 * (lane & 3);
+          const __nv_bfloat16* row = q + (long long)b * DA;
+          const __nv_bfloat16 lo = (b < B && k < DA) ? row[k] : zero;
+          const __nv_bfloat16 hi = (b < B && k + 1 < DA) ? row[k + 1] : zero;
+          afrag[ks][r] = (uint32_t)__bfloat16_as_ushort(lo) |
+                         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+        }
+      }
+    }
+    float acc[64], best[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.0f;
+      best[i] = -CUDART_INF_F;
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int a = 0; a < WINDOW; ++a) {
+      const uint32_t tile = ring + (uint32_t)s * tile_bytes;
+      mbar_wait(full0 + 8u * s, phase);
+      // B: 128-byte swizzle, MN-major: the leading offset is the next 64
+      // columns (the second TMA box), the stride offset the next 8 k rows
+      // (1024 B); one k step of 16 rows is +2048 B
+      const uint64_t desc_b = gmma_desc(tile, tile_bytes / 2, 1024, 1);
+      fence_operands(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < K_STEPS; ++k)
+        wgmma_m64n128k16(acc, afrag[k], desc_b + (uint64_t)(128 * k), k);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_operands(acc);
+      if (tid == 0) mbar_arrive(empty0 + 8u * s);
+      const unsigned code = (unsigned)a;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        best[i] = fmaxf(best[i], __uint_as_float((__float_as_uint(acc[i]) & ~LANE_MASK) | code));
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+
+    // accumulator layout of m64nNk16: register 4n + 2i + j of thread
+    // (warp w, lane) holds row 16w + lane/4 + 8i, column 8n + 2(lane%4) + j
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const long long nw = n_pad / WINDOW;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = b0 + wg * K1B_WG_ROWS + warp * 16 + (lane >> 2) + 8 * i;
+        if (b < B) {
+          const long long col = chunk * WINDOW + 8 * n + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(out + (long long)b * nw + col) =
+              make_float2(best[4 * n + 2 * i], best[4 * n + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is fetched
+// through the runtime's entry-point query, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+constexpr int K1B_MAX_DA = 256;   // a TMA box has at most 256 rows
+constexpr int K1B_MAX_STAGES = 4;
+
+// Launch shape: the contraction padded to wgmma's depth of 16, and as many
+// ring slots (up to 4) as the card's per-block shared memory holds beside
+// two mbarriers per slot and 1024 bytes of slack for the ring's alignment.
+// Errors: a cudaError_t, or -1 when cuTensorMapEncodeTiled is not found, or -(CUresult)
+// - 1000 when the tensor map is refused.
+int launch_fused_stage1_bf16(const void* q, const void* t, void* out, int B, int DA,
+                             long long n_pad, int device, void* stream) {
+  if (DA < 1 || DA > K1B_MAX_DA) return (int)cudaErrorInvalidValue;
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  int smem_max = 0;
+  dev_err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int da_pad = (DA + 15) / 16 * 16;
+  const int slot_bytes = da_pad * WINDOW * 2 + 16;  // a tile and its two mbarriers
+  int stages = (smem_max - 1024) / slot_bytes;
+  if (stages > K1B_MAX_STAGES) stages = K1B_MAX_STAGES;
+  if (stages < 1) return (int)cudaErrorInvalidConfiguration;
+  const int smem = 1024 + stages * slot_bytes;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)DA};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)K1B_BOX, (cuuint32_t)da_pad};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t), dims,
+                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return -1000 - (int)r;
+  typedef void (*Kernel)(const CUtensorMap, const __nv_bfloat16*, float*, int, int, int,
+                         long long);
+  static const Kernel kernels[] = {
+      fused_stage1_bf16_kernel<1>,  fused_stage1_bf16_kernel<2>,  fused_stage1_bf16_kernel<3>,
+      fused_stage1_bf16_kernel<4>,  fused_stage1_bf16_kernel<5>,  fused_stage1_bf16_kernel<6>,
+      fused_stage1_bf16_kernel<7>,  fused_stage1_bf16_kernel<8>,  fused_stage1_bf16_kernel<9>,
+      fused_stage1_bf16_kernel<10>, fused_stage1_bf16_kernel<11>, fused_stage1_bf16_kernel<12>,
+      fused_stage1_bf16_kernel<13>, fused_stage1_bf16_kernel<14>, fused_stage1_bf16_kernel<15>,
+      fused_stage1_bf16_kernel<16>};
+  const Kernel kernel = kernels[da_pad / 16 - 1];
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + K1B_ROWS - 1) / K1B_ROWS, (unsigned)(n_pad / CHUNK));
+  kernel<<<grid, K1B_THREADS, smem, (cudaStream_t)stream>>>(
+      map, static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), B, DA, stages,
+      n_pad);
+  return (int)cudaGetLastError();
+}
+
+int launch_fused_stage1_f32(const void* q, const void* t, void* out, int B, int DA,
+                            long long n_pad, int device, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const dim3 grid((B + K1_TQ - 1) / K1_TQ, (unsigned)(n_pad / CHUNK));
   const size_t smem = (size_t)DA * K1_TQ * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_stage1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_stage1_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_stage1_kernel<T><<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(t), static_cast<float*>(out),
+  fused_stage1_f32_kernel<<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(t), static_cast<float*>(out),
       B, DA, n_pad);
   return (int)cudaGetLastError();
 }
@@ -195,12 +521,12 @@ extern "C" {
 
 int fused_stage1_bf16(const void* q, const void* t, void* out, int B, int DA,
                       long long n_pad, int device, void* stream) {
-  return launch_fused_stage1<__nv_bfloat16>(q, t, out, B, DA, n_pad, device, stream);
+  return launch_fused_stage1_bf16(q, t, out, B, DA, n_pad, device, stream);
 }
 
 int fused_stage1_f32(const void* q, const void* t, void* out, int B, int DA,
                      long long n_pad, int device, void* stream) {
-  return launch_fused_stage1<float>(q, t, out, B, DA, n_pad, device, stream);
+  return launch_fused_stage1_f32(q, t, out, B, DA, n_pad, device, stream);
 }
 
 int peel_rows_f32(const void* x, void* vals, void* cols, int B, int M, int rounds,

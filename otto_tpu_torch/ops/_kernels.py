@@ -80,10 +80,10 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             cdll = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for name in ("fused_stage1_bf16", "fused_stage1_f32"):
-                fn = getattr(cdll, name)
-                fn.argtypes = [p, p, p, i, i, ll, i, p]
-                fn.restype = i
+            cdll.fused_stage1_bf16.argtypes = [p, p, p, i, i, ll, i, p]
+            cdll.fused_stage1_bf16.restype = i
+            cdll.fused_stage1_f32.argtypes = [p, p, p, i, i, ll, i, p]
+            cdll.fused_stage1_f32.restype = i
             cdll.peel_rows_f32.argtypes = [p, p, p, i, i, i, i, p]
             cdll.peel_rows_f32.restype = i
             cdll.aid_vote_f32.argtypes = [p, p, p, p, p, i, i, i, p]
@@ -101,13 +101,21 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_fused_stage1(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
-    """q [B, DA], t [DA, N_pad] (both bf16 or both f32), out [B, N_pad/128] f32."""
-    name = "fused_stage1_bf16" if t.dtype == torch.bfloat16 else "fused_stage1_f32"
-    err = getattr(lib(), name)(q.data_ptr(), t.data_ptr(), out.data_ptr(),
-                               q.shape[0], q.shape[1], t.shape[1], t.device.index,
-                               _stream(t))
-    _check(err, name)
+def launch_fused_stage1_bf16(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
+    """q [B, DA], t [DA, N_pad] bf16 (DA <= 256), out [B, N_pad/128] f32;
+    the launcher works out the padded depth and the ring from DA.  Besides
+    CUDA errors it returns -1 (``cuTensorMapEncodeTiled`` not found) and
+    -1000 - CUresult (tensor map refused)."""
+    err = lib().fused_stage1_bf16(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0],
+                                  q.shape[1], t.shape[1], t.device.index, _stream(t))
+    _check(err, "fused_stage1_bf16")
+
+
+def launch_fused_stage1_f32(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
+    """q [B, DA], t [DA, N_pad] f32, out [B, N_pad/128] f32."""
+    err = lib().fused_stage1_f32(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0],
+                                 q.shape[1], t.shape[1], t.device.index, _stream(t))
+    _check(err, "fused_stage1_f32")
 
 
 def launch_peel_rows(x: torch.Tensor, rounds: int, vals: torch.Tensor,

@@ -50,6 +50,10 @@ LIVE_BITS = 0x3F800000  # bits of 1.0: every real score is >= 1
 # columns in whole chunks so that one step holds at most this many elements.
 _REFERENCE_STEP_ELEMS = 1 << 28
 
+# The bf16 stage-1 kernel loads a table tile of DA rows as one TMA box,
+# which has at most 256 rows.
+K1_MAX_DA = 256
+
 
 def _pack_window_max(s: torch.Tensor) -> torch.Tensor:
     """[B, n_chunks*16384] float32 scores -> [B, n_chunks*128] packed maxima."""
@@ -82,8 +86,9 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
     against items_aug_t [DA, N_pad] (the counterpart of ``_stage1``).
 
     Both operands bf16, or both float32; N_pad a multiple of 16384.  On a
-    CUDA tensor this launches the kernel ``fused_stage1_kernel``; on a CPU
-    tensor it runs :func:`_stage1_reference`.
+    CUDA tensor this launches ``fused_stage1_bf16_kernel`` (tensor cores,
+    DA <= 256) or ``fused_stage1_f32_kernel``; on a CPU tensor it runs
+    :func:`_stage1_reference`.
     """
     b, da = q_aug.shape
     da_t, n_pad = items_aug_t.shape
@@ -103,9 +108,17 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
         raise ValueError(f"fused_stage1: {n_pad} items exceed the kernel's grid")
     q_aug = q_aug.contiguous()
     items_aug_t = items_aug_t.contiguous()
+    bf16 = q_aug.dtype == torch.bfloat16
+    if bf16 and da > K1_MAX_DA:
+        raise ValueError(f"fused_stage1: the bf16 kernel takes DA <= {K1_MAX_DA}, got {da}")
+    if bf16 and items_aug_t.data_ptr() % 16:
+        raise ValueError("fused_stage1: the table must start on a 16-byte boundary (TMA)")
     out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q_aug.device)
     if b:
-        _kernels.launch_fused_stage1(q_aug, items_aug_t, out)
+        if bf16:
+            _kernels.launch_fused_stage1_bf16(q_aug, items_aug_t, out)
+        else:
+            _kernels.launch_fused_stage1_f32(q_aug, items_aug_t, out)
         fused_stage1.launches += 1
     return out
 

@@ -7,7 +7,9 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Shapes are the full-width ones of the serving path (1,855,603 items: stage 1
-over 1,867,776 padded columns, the peel over [B, 14,592]).  Tolerances: the
+over 1,867,776 padded columns, the peel over [B, 14,592]; the bf16 stage-1
+kernel also at the neighbor table's batches, 4096 and 115 queries, over 6
+chunks).  Tolerances: the
 peel and stage 1 on integer-valued inputs are bit-equal; stage 1 on normal
 data may move a packed maximum by one truncation step and change its 7-bit
 position code, so values agree within 2^8 ulps = 2^-15 relative and the
@@ -52,12 +54,15 @@ def test_cuda_peel_kernel_bit_equal_to_twin(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n_pad", [(256, N_PAD), (115, 6 * 16384), (4096, 6 * 16384)])
 @pytest.mark.parametrize("da", [34, 102])
-def test_cuda_stage1_kernel_matches_twin(cuda_device, da):
-    g = torch.Generator(device=cuda_device).manual_seed(da)
-    q = torch.randint(-8, 9, (256, da), generator=g, device=cuda_device).to(torch.bfloat16)
-    t = torch.randint(-8, 9, (da, N_PAD), generator=g, device=cuda_device).to(torch.bfloat16)
-    t[:, 1_855_603:] = 0  # pad columns
+def test_cuda_stage1_kernel_matches_twin(cuda_device, da, b, n_pad):
+    """The bf16 (wgmma) kernel at full width, and at the neighbor table's
+    batch sizes (4096, and 115 for the last batch) on a slice of 6 chunks."""
+    g = torch.Generator(device=cuda_device).manual_seed(da + b)
+    q = torch.randint(-8, 9, (b, da), generator=g, device=cuda_device).to(torch.bfloat16)
+    t = torch.randint(-8, 9, (da, n_pad), generator=g, device=cuda_device).to(torch.bfloat16)
+    t[:, n_pad - 12_173:] = 0  # pad columns (as many as the full table has)
     before = tfr.fused_stage1.launches
     k = tfr.fused_stage1(q, t)
     torch.cuda.synchronize()
@@ -65,15 +70,35 @@ def test_cuda_stage1_kernel_matches_twin(cuda_device, da):
     r = tfr._stage1_reference(q, t)
     assert torch.equal(k.view(torch.int32), r.view(torch.int32))
 
-    qn = torch.randn((256, da), generator=g, device=cuda_device)
+    qn = torch.randn((b, da), generator=g, device=cuda_device)
     qn[:, -1] = 128.0
-    tn = torch.randn((da, N_PAD), generator=g, device=cuda_device)
+    tn = torch.randn((da, n_pad), generator=g, device=cuda_device)
     tn[-1] = 1.0
     k = tfr.fused_stage1(qn.to(torch.bfloat16), tn.to(torch.bfloat16))
     r = tfr._stage1_reference(qn.to(torch.bfloat16), tn.to(torch.bfloat16))
     torch.testing.assert_close(k, r, rtol=2.0**-15, atol=0)
     same = (k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)
     assert same.float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("da", [1, 198, 256])
+def test_cuda_stage1_kernel_contraction_depths(cuda_device, da):
+    """The bf16 kernel at the other depths it takes: one k step, a 64-dim
+    compensated table (198), and its deepest (256, a 3-slot ring); deeper
+    contractions raise.  The queries carry the retriever's positive shift
+    in their last dimension, so no row is all zeros (whose scores the
+    padded product would give as +0.0 where the twin gives -0.0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(da)
+    q = torch.randint(-8, 9, (130, da), generator=g, device=cuda_device).to(torch.bfloat16)
+    q[:, -1] = 64
+    t = torch.randint(-8, 9, (da, 2 * 16384), generator=g, device=cuda_device).to(torch.bfloat16)
+    k = tfr.fused_stage1(q, t)
+    r = tfr._stage1_reference(q, t)
+    assert torch.equal(k.view(torch.int32), r.view(torch.int32))
+    with pytest.raises(ValueError):
+        tfr.fused_stage1(torch.zeros((4, 257), dtype=torch.bfloat16, device=cuda_device),
+                         torch.zeros((257, 16384), dtype=torch.bfloat16, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -113,17 +113,58 @@ def test_stage1_twin_bit_equal_on_integer_inputs(da, dtype):
     np.testing.assert_array_equal(p.view(np.int32), j.view(np.int32))
 
 
-def test_stage1_twin_close_on_normal_inputs():
+@pytest.mark.parametrize("da,dtype", [(34, torch.float32), (34, torch.bfloat16),
+                                      (102, torch.bfloat16)])
+def test_stage1_twin_close_on_normal_inputs(da, dtype):
     rng = np.random.default_rng(5)
-    q = rng.normal(size=(8, 34)).astype(np.float32)
+    q = rng.normal(size=(8, da)).astype(np.float32)
     q[:, -1] = 64.0  # the positivity shift: every score > 0, as in the retriever
-    t = rng.normal(size=(34, 2 * 16384)).astype(np.float32)
+    t = rng.normal(size=(da, 2 * 16384)).astype(np.float32)
     t[-1] = 1.0
-    j, p = _stage1_both(q, t, torch.float32)
+    j, p = _stage1_both(q, t, dtype)
     np.testing.assert_allclose(p, j, rtol=2.0**-15, atol=0)
     jb, pb = j.view(np.int32), p.view(np.int32)
     same_pos = (jb & 127) == (pb & 127)
     assert same_pos.mean() >= 0.999
+
+
+def _pad_contraction(q, t, da_pad):
+    """Zero-pad the contraction of q [B, DA] and t [DA, N] to da_pad."""
+    da = q.shape[1]
+    return (np.pad(q, ((0, 0), (0, da_pad - da))), np.pad(t, ((0, da_pad - da), (0, 0))))
+
+
+# the path's contractions (34 single, 102 compensated), the compensated one
+# of a 64-dim table (198), and the bf16 kernel's limits (1, 256)
+@pytest.mark.parametrize("da", [1, 34, 102, 198, 256])
+def test_stage1_twin_unchanged_by_zero_padded_contraction(da):
+    """The invariant the bf16 kernel rests on: padding the contraction to
+    wgmma's depth (a multiple of 16) with zeros in both operands leaves the
+    packed maxima bit-equal.  The queries carry a positive shift in their
+    last dimension, as the retriever's do: a query row of zeros would score
+    -0.0 against negative entries unpadded and +0.0 padded."""
+    rng = np.random.default_rng(11)
+    q = _int_data(rng, (8, da))
+    q[:, -1] = 64.0
+    t = _int_data(rng, (da, 2 * 16384))
+    t[:, -300:] = 0.0
+    qp, tp = _pad_contraction(q, t, -(-da // 16) * 16)
+    for dtype in (torch.bfloat16, torch.float32):
+        base = tfr.fused_stage1(torch.from_numpy(q).to(dtype), torch.from_numpy(t).to(dtype))
+        padded = tfr.fused_stage1(torch.from_numpy(qp).to(dtype), torch.from_numpy(tp).to(dtype))
+        np.testing.assert_array_equal(padded.numpy().view(np.int32), base.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("q_shape,t_shape,dtypes,error", [
+    ((4, 34), (33, 16384), (torch.bfloat16, torch.bfloat16), ValueError),  # DA differs
+    ((4, 34), (34, 16384 + 128), (torch.bfloat16, torch.bfloat16), ValueError),  # ragged N_pad
+    ((4, 34), (34, 16384), (torch.bfloat16, torch.float32), TypeError),  # mixed dtypes
+    ((4, 34), (34, 16384), (torch.float16, torch.float16), TypeError),  # no float16 kernel
+])
+def test_stage1_rejects_bad_operands(q_shape, t_shape, dtypes, error):
+    with pytest.raises(error):
+        tfr.fused_stage1(torch.zeros(q_shape, dtype=dtypes[0]),
+                         torch.zeros(t_shape, dtype=dtypes[1]))
 
 
 def test_bf16_casts_round_to_nearest_even():
