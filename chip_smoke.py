@@ -12,23 +12,33 @@ exit code):
 2. each kernel against its plain-torch twin at the full-width shapes
    (1,855,603 items x 32 dims: stage 1 over 1,867,776 padded items at 256
    queries, at 115, the neighbor table's last batch, and at 4,096 x 102,
-   the table's other batches, on the very inputs it is timed on; the peel
-   over [B, 14,592] window maxima), with the times of both at a 4,096-query
-   batch, each kernel's share of its bound, and ``torch.matmul`` on the
-   bare bf16 product as stage 1's yardstick;
+   the table's other batches, on the very inputs it is timed on; stage 1's
+   FMA route for bf16 deeper than 256 at DA 300; the peel on those batches'
+   packed maxima and on tie-heavy and -inf rows, R = 1, 6, 21, 40), with
+   the times of both at a 4,096-query batch (the peel's by CUDA graphs:
+   device time alone), each kernel's share of its bound, ``torch.matmul``
+   on the bare bf16 product as stage 1's yardstick and a windowed
+   ``torch.topk`` as the peel's context (it differs on ties);
 3. full-width retrieval: a seeded 1,855,603 x 32 SGNS table round-tripped
    through ``SGNSModel.save``/``load``, ``FusedRetriever`` queries/s and its
    recall against the exact scan;
+3b. ``FusedRetriever`` on a seeded 1,000,000 x 96 table (compensated: a
+   contraction of 294, past the wgmma kernel's 256, so stage 1 runs its FMA
+   route), recall against the exact scan, with the counters zeroed before
+   and read after; then that route against its twin on the retriever's own
+   operands, and the times of both;
 4. the serving path in the order of ``otto_tpu.pipelines.run_embedding_knn``:
    ``neighbor_table(k=21)`` over every aid, ``embedding_knn_predictions`` on
    20,000 synthetic sessions, ``evaluate_predictions``; the kernels' launch
    counters are zeroed just before and read just after (its recency route
    launches the session vote);
-5. the session vote against its twin at [4096, 256] (duplicates common, -1
-   tails): ``first``/``firstpos`` bit-equal, ``agg`` bit-equal on integer
-   weights and within 2^-16 * sum_j |w_j| of its row on normal weights,
+5. the session vote against its twin at [4096, 256] and [1024, 300] (the
+   block kernel for rows longer than 128; duplicates common, -1 tails):
+   ``first``/``firstpos`` bit-equal, ``agg`` bit-equal on integer weights
+   and within 2^-16 * sum_j |w_j| of its row on normal weights,
    ``per_aid_weight_top_fused`` against ``per_aid_weight_top`` and the CPU
-   twin path; the times of both;
+   twin path; the kernel's times warm and cold (CUDA graphs; cold over
+   rotating input copies of more than 50 MB) and the twin's;
 6. ``build_covisitation`` on the card over the bench's data
    (``artifacts/bench_e2e/bench_fit.json``: ``synthetic_events_v2`` then
    ``split_by_time``) against the committed tables of
@@ -40,16 +50,16 @@ exit code):
    zeroed before and read after; then the heuristic re-served on the host
    routes: the covisitation route must equal the device route;
 8. the session vote at the shape phase 7's aid-weight runner gave it (the
-   whole packed target, [20,000, L] with L the longest session, rarely a
-   multiple of 32): on the runner's own inputs against the twin, the
-   runner's lists against the twin's ranking (equal up to near-ties), the
-   checks of phase 5 on synthetic rows at [1,024, L], and the times of both
-   at that shape.
+   whole packed target, [20,000, L] with L the longest session; the warp
+   kernel for rows up to 128): on the runner's own inputs against the
+   twin, the runner's lists against the twin's ranking (equal up to
+   near-ties), the checks of phase 5 on synthetic rows at [1,024, L], and
+   the times of both at that shape, warm and cold.
 
 The line before the last is a JSON object describing each kernel (its
-launches on its path, largest error against the twin, ms, the twin's ms,
-the bound and what sets it, and ``library_ms``, null where no one PyTorch
-call computes the function); the last
+launches on the path it serves and on each path, largest error against the
+twin, ms, the twin's ms, the bound and what sets it, and ``library_ms``,
+null where no one PyTorch call computes the function); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  The phase functions take the device and the sizes, so a
@@ -76,6 +86,7 @@ K_NNS = 21                # run_embedding_knn's validation n_nns
 QUERY_BATCH = 4096        # build_neighbor_table's query batch
 
 REPO = Path(__file__).resolve().parent
+K1_SOURCE = "otto_tpu_torch/csrc/retrieval_kernels.cu"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -92,7 +103,8 @@ def phase(name: str):
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn`` on the card, by CUDA events."""
+    """Mean milliseconds of ``fn`` on the card, by CUDA events around a
+    loop of calls (the host's launch cost shows where a call is short)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +116,46 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fns, reps: int = 5) -> float:
+    """Mean device milliseconds of one call of ``fns`` (a list of calls,
+    each on its own inputs), captured once in a CUDA graph and replayed
+    ``reps`` times: the kernel's time without the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(max(1, 20 // len(fns))):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * max(1, 20 // len(fns)) * len(fns))
+
+
+def warm_cold_ms(torch, call, inputs, min_bytes: float = 64e6) -> tuple[float, float]:
+    """Device ms of ``call(*inputs)`` on the same inputs every time (warm:
+    they stay in the 50 MB L2), and over rotating copies of the inputs
+    that together exceed ``min_bytes`` (cold)."""
+    per = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(int(min_bytes // per))]
+    warm = graph_ms(torch, [lambda: call(*inputs)])
+    cold = graph_ms(torch, [lambda c=c: call(*c) for c in copies])
+    return warm, cold
 
 
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): device
@@ -119,6 +171,15 @@ def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     the memory rate, or the operations over their peak rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stage1_bound(q, t) -> tuple[float, str]:
+    """Stage 1's bound: q [B, DA] and t [DA, N_pad] read once, [B, N_pad/128]
+    float32 written once, 2 B DA N_pad operations at the bf16 tensor rate."""
+    n_pad = t.shape[1]
+    return bound(q.numel() * q.element_size() + t.numel() * t.element_size()
+                 + q.shape[0] * (n_pad // 128) * 4, 2.0 * q.numel() * n_pad,
+                 BF16_TENSOR_OPS_PER_S)
 
 
 def matmul_yardstick_ms(torch, q, t, reps: int) -> tuple[float, int]:
@@ -149,7 +210,10 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     table's last batch.  On integer-valued inputs it is exact, so bit-equal.
     On normal data the tensor cores and cuBLAS sum in other orders: a packed
     maximum may move by one truncation step (2^7 ulps) and change its 7-bit
-    position code, so the bound is 2^8 ulps = 2^-15 relative.
+    position code, so the bound is 2^8 ulps = 2^-15 relative.  Its FMA
+    route (bf16 deeper than 256) is held to the same limits at DA 300.  The
+    peel is pure selection, bit-equal on the path's own packed maxima and on
+    tie-heavy and -inf rows of ``peel_rows_cmp`` rows.
     """
     from otto_tpu_torch.ops import fused_retrieval as fr
     from otto_tpu_torch.ops import row_topk as rt
@@ -189,17 +253,6 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
         check(rel <= 2.0**-15, f"stage 1 DA={da} B={b}: relative error {rel}")
         check(same >= 0.999, f"stage 1 DA={da} B={b}: window positions agree on {same}")
 
-    m = n_pad // 128
-    x = torch.randn((peel_rows_cmp, m), generator=g, device=dev)
-    x[:, 5] = x[:, 7] = x[:, 100] = 9.0  # ties inside a window
-    x[:, 128:256] = 3.0
-    kv, kc = rt.peel_rows(x, 6)
-    rv, rc = rt.peel_rows_reference(x, 6)
-    check(torch.equal(kv.view(torch.int32), rv.view(torch.int32)) and torch.equal(kc, rc),
-          "peel: kernel and twin differ")
-    k2_err = torch.where(kv == rv, 0.0, (kv - rv).abs()).max().item()
-    print(f"peel [{peel_rows_cmp}, {m}] R=6: kernel and twin bit-equal", flush=True)
-
     # the whole fused top-k on a small integer-valued table: the card's path
     # (kernels) equals the CPU's (twins), indices and scores
     gc = torch.Generator().manual_seed(SEED)
@@ -231,57 +284,112 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     tt[-1] = 1.0
     tt[:, n_items:] = 0
     qt, tt = qt.to(torch.bfloat16), tt.to(torch.bfloat16)
-    k, r = fr.fused_stage1(qt, tt), fr._stage1_reference(qt, tt)
+    packed, r = fr.fused_stage1(qt, tt), fr._stage1_reference(qt, tt)
     live = r >= 1.0  # pad windows pack below 1.0 in both
-    check(torch.equal(live, k >= 1.0), f"stage 1 DA=102 B={b_time}: live windows differ")
-    rel = ((k - r).abs() / r.abs())[live].max().item()
-    same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
-    k1_err = max(k1_err, (k - r).abs().max().item())
-    del k, r
+    check(torch.equal(live, packed >= 1.0), f"stage 1 DA=102 B={b_time}: live windows differ")
+    rel = ((packed - r).abs() / r.abs())[live].max().item()
+    same = ((packed.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
+    k1_err = max(k1_err, (packed - r).abs().max().item())
+    del r
     print(f"stage 1 DA=102 B={b_time} N_pad={n_pad} (the path's shape): integer inputs "
           f"bit-equal; normal inputs max rel err {rel:.3e} (limit 2^-15), same window "
           f"position {same:.6f} (limit 0.999)", flush=True)
     check(rel <= 2.0**-15, f"stage 1 DA=102 B={b_time}: relative error {rel}")
     check(same >= 0.999, f"stage 1 DA=102 B={b_time}: window positions agree on {same}")
 
-    # times at that shape, on those inputs
-    xt = torch.randn((b_time, m), generator=g, device=dev)
-    reps = 3 if dev.type == "cuda" else 1
-    timer = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
-    k1_ms = timer(lambda: fr.fused_stage1(qt, tt), 10 * reps)
-    k1_plain = timer(lambda: fr._stage1_reference(qt, tt), reps)
-    k1_ms2 = timer(lambda: fr.fused_stage1(qt, tt), 10 * reps)
-    k2_ms = timer(lambda: rt.peel_rows(xt, 6), 10 * reps)
-    k2_plain = timer(lambda: rt.peel_rows_reference(xt, 6), reps)
-    k2_ms2 = timer(lambda: rt.peel_rows(xt, 6), 10 * reps)
-    k1_best, k2_best = min(k1_ms, k1_ms2), min(k2_ms, k2_ms2)
+    # stage 1's FMA route: bf16 deeper than the wgmma kernel's 256, at DA 300
+    # over 2 chunks (a compensated table of 98 dims)
+    fma_n = 2 * fr.CHUNK
+    qi = torch.randint(-8, 9, (b_last, 300), generator=g, device=dev).to(torch.bfloat16)
+    qi[:, -1] = 64
+    ti = torch.randint(-8, 9, (300, fma_n), generator=g, device=dev).to(torch.bfloat16)
+    k, r = fr.fused_stage1(qi, ti), fr._stage1_reference(qi, ti)
+    sync(torch, dev)
+    check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+          "stage 1 FMA route DA=300: kernel and twin differ on integer-valued inputs")
+    qf = torch.randn((b_time, 300), generator=g, device=dev)
+    qf[:, -1] = 128.0
+    tf = torch.randn((300, fma_n), generator=g, device=dev)
+    tf[-1] = 1.0
+    qf, tf = qf.to(torch.bfloat16), tf.to(torch.bfloat16)
+    k, r = fr.fused_stage1(qf, tf), fr._stage1_reference(qf, tf)
+    rel_fma = ((k - r).abs() / r.abs()).max().item()
+    check(rel_fma <= 2.0**-15, f"stage 1 FMA route DA=300: relative error {rel_fma}")
+    print(f"stage 1 FMA route, bf16 DA=300 over {fma_n} columns: integer inputs bit-equal "
+          f"(B={b_last}); normal inputs (B={b_time}) max rel err {rel_fma:.3e} (limit 2^-15)",
+          flush=True)
+
+    # the peel on the path's own packed maxima (this batch and the table's
+    # last), and on tie-heavy (few distinct values) and -inf rows, for the
+    # path's R = 6 and for R = 1, 21, 40
+    m = n_pad // 128
+    ties = torch.randint(0, 6, (peel_rows_cmp, m), generator=g, device=dev).float()
+    ties[:, 128:256] = 3.0
+    neginf = torch.randn((peel_rows_cmp, m), generator=g, device=dev)
+    neginf[torch.rand((peel_rows_cmp, m), generator=g, device=dev) < 0.3] = float("-inf")
+    neginf[:, 256:384] = float("-inf")
+    k2_err = 0.0
+    for name, x in (("K1's packed maxima", packed),
+                    ("K1's packed maxima, last batch", fr.fused_stage1(qt[:b_last], tt)),
+                    ("tie-heavy rows", ties), ("-inf rows", neginf)):
+        for rounds in (1, 6, 21, 40):
+            kv, kc = rt.peel_rows(x, rounds)
+            rv, rc = rt.peel_rows_reference(x, rounds)
+            check(torch.equal(kv.view(torch.int32), rv.view(torch.int32)) and torch.equal(kc, rc),
+                  f"peel {name} R={rounds}: kernel and twin differ")
+            k2_err = max(k2_err, torch.where(kv == rv, 0.0, (kv - rv).abs()).max().item())
+        print(f"peel {name} {list(x.shape)} R=1, 6, 21, 40: kernel and twin bit-equal",
+              flush=True)
+    del ties, neginf
+
+    # times at the path's shapes, on those inputs: loops of calls for the
+    # long kernels, CUDA graphs (device time alone) for the peel
+    reps = 3
     if dev.type == "cuda":
-        mm_ms, slices = matmul_yardstick_ms(torch, qt, tt, reps)
-    else:
-        mm_ms, slices = None, 0
-    k1_bound = bound(qt.numel() * 2 + tt.numel() * 2 + b_time * m * 4,
-                     2.0 * qt.numel() * n_pad, BF16_TENSOR_OPS_PER_S)
-    k2_bound = bound(xt.numel() * 4 + 2 * b_time * 6 * (m // 128) * 4,
-                     2.0 * 6 * xt.numel(), F32_OPS_PER_S)
-    print(f"stage 1 [{b_time} x 102] x [102 x {n_pad}] bf16: kernel {k1_ms:.3f} / "
+        loop_ms = lambda fn, n: cuda_ms(torch, fn, n)  # noqa: E731
+        dev_ms = lambda fn: graph_ms(torch, [fn])  # noqa: E731
+    else:  # a rehearsal on the CPU
+        loop_ms, dev_ms = _host_ms, lambda fn: _host_ms(fn, 1)  # noqa: E731
+    k1_ms = loop_ms(lambda: fr.fused_stage1(qt, tt), 10 * reps)
+    k1_plain = loop_ms(lambda: fr._stage1_reference(qt, tt), reps)
+    k1_ms2 = loop_ms(lambda: fr.fused_stage1(qt, tt), 10 * reps)
+    fma_ms = loop_ms(lambda: fr.fused_stage1(qf, tf), 5)
+    fma_plain = loop_ms(lambda: fr._stage1_reference(qf, tf), reps)
+    k2_ms = dev_ms(lambda: rt.peel_rows(packed, 6))
+    k2_plain = loop_ms(lambda: rt.peel_rows_reference(packed, 6), reps)
+    k2_ms2 = dev_ms(lambda: rt.peel_rows(packed, 6))
+    w = m // 128
+    topk_ms = loop_ms(lambda: packed.view(b_time, w, 128).topk(6, dim=2), reps)
+    k1_best, k2_best = min(k1_ms, k1_ms2), min(k2_ms, k2_ms2)
+    mm_ms, slices = (matmul_yardstick_ms(torch, qt, tt, reps) if dev.type == "cuda"
+                     else (None, 0))
+    k1_bound = stage1_bound(qt, tt)
+    fma_bound = stage1_bound(qf, tf)
+    k2_bound = bound(packed.numel() * 4 + 2 * b_time * 6 * w * 4,
+                     2.0 * 6 * packed.numel(), F32_OPS_PER_S)
+    print(f"stage 1 [{b_time} x 102] x [102 x {n_pad}] bf16 (wgmma): kernel {k1_ms:.3f} / "
           f"{k1_ms2:.3f} ms, twin {k1_plain:.3f} ms; bound {k1_bound[0]:.3f} ms "
           f"({k1_bound[1]}): {100 * k1_bound[0] / k1_best:.1f}% of it", flush=True)
     if mm_ms is not None:
         print(f"torch.matmul yardstick, the bf16 product alone (no pack, no window max) in "
               f"{slices} column slices: {mm_ms:.3f} ms", flush=True)
-    print(f"peel [{b_time}, {m}] R=6: kernel {k2_ms:.3f} / {k2_ms2:.3f} ms, "
-          f"twin {k2_plain:.3f} ms; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}): "
-          f"{100 * k2_bound[0] / k2_best:.1f}% of it", flush=True)
-    src = "otto_tpu_torch/csrc/retrieval_kernels.cu"
+    print(f"stage 1 FMA route [{b_time} x 300] x [300 x {fma_n}] bf16: kernel {fma_ms:.3f} ms, "
+          f"twin {fma_plain:.3f} ms; bound {fma_bound[0]:.4f} ms ({fma_bound[1]}): "
+          f"{100 * fma_bound[0] / fma_ms:.1f}% of it", flush=True)
+    print(f"peel [{b_time}, {m}] R=6 on K1's packed maxima: kernel {k2_ms:.4f} / "
+          f"{k2_ms2:.4f} ms (CUDA graph), twin {k2_plain:.3f} ms; bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}): {100 * k2_bound[0] / k2_best:.1f}% of it; context, not the same "
+          f"function (it differs on ties): x.view(B, W, 128).topk(6, dim=2) {topk_ms:.3f} ms",
+          flush=True)
     # library_ms: no one PyTorch call computes either function (K1 is a
     # product, a bit pack and a strided window max; torch.topk differs from
     # K2 on ties, since K2 clears every slot equal to the max)
     return [
-        {"name": "fused_stage1", "route": "cuda", "source": src,
+        {"name": "fused_stage1", "route": "cuda", "source": K1_SOURCE,
          "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
          "max_abs_err": k1_err, "ms": k1_best, "plain_ms": k1_plain,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
-        {"name": "peel_rows", "route": "cuda", "source": src,
+        {"name": "peel_rows", "route": "cuda", "source": K1_SOURCE,
          "replaces": "otto_tpu/ops/row_topk.py:38", "launches": 0,
          "max_abs_err": k2_err, "ms": k2_best, "plain_ms": k2_plain,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
@@ -343,6 +451,75 @@ def retrieval(torch, dev, n_aids: int, n_queries: int, n_recall: int, workdir: P
     return model
 
 
+def wide_retrieval(torch, dev, n_items: int, dim: int, n_queries: int):
+    """Phase 3b: ``FusedRetriever`` (euclidean, compensated) on a seeded
+    ``n_items`` x ``dim`` table with dim >= 84, so that the contraction
+    3(dim + 2) passes the wgmma kernel's 256 and stage 1 takes its FMA
+    route; recall against the exact scan.  The caller zeroes the launch
+    counters before and reads them after.  Returns the retriever and the
+    queries."""
+    from otto_tpu_torch.ops.fused_retrieval import FusedRetriever
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    rng = np.random.default_rng(SEED + 3)
+    items = torch.as_tensor(rng.standard_normal((n_items, dim), dtype=np.float32), device=dev)
+    q = items[torch.as_tensor(rng.choice(n_items, n_queries, replace=False), device=dev)]
+    t0 = time.perf_counter()
+    retriever = FusedRetriever(items, metric="euclidean", precision="compensated", device=dev)
+    s, i = retriever.topk(q, k=K_NNS)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    check(bool(torch.isfinite(s).all()) and i.shape == (n_queries, K_NNS), "wide top-k output")
+    _, ei = topk_scan(q, items, k=K_NNS, metric="euclidean")
+    rec = overlap(i.cpu().numpy(), ei.cpu().numpy())
+    print(f"FusedRetriever(euclidean, compensated) {n_items} x {dim} (contraction "
+          f"{retriever.items_aug_t.shape[0]}), {n_queries} queries k={K_NNS}: {secs:.2f} s "
+          f"with the table's preparation; recall vs exact scan {rec:.4f} (limit 0.99)",
+          flush=True)
+    check(rec >= 0.99, f"wide-table recall {rec} < 0.99")
+    return retriever, q
+
+
+def wide_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
+    """Phase 3b, after its counters are read: stage 1's FMA route against its
+    twin on the wide table's own operands (the retriever's augmented table,
+    and the queries augmented and split as ``FusedRetriever.topk`` does),
+    then the times of both.  The kernel sums each product in ascending d,
+    cuBLAS's float32 matmul in another order, so as in phase 2 the live
+    windows agree within 2^-15 relative and the window positions on >= 0.999
+    of cells.  Returns the route's record for the kernels line."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+
+    q_aug, _ = fr._augment_queries(q, retriever.max_sq, retriever.metric)
+    qhi, qlo = fr._bf16_split(q_aug)
+    q_aug = torch.cat([qhi, qhi, qlo], dim=1)
+    t = retriever.items_aug_t
+    k, r = fr.fused_stage1(q_aug, t), fr._stage1_reference(q_aug, t)
+    sync(torch, dev)
+    live = r >= 1.0  # pad windows pack below 1.0 in both
+    check(torch.equal(live, k >= 1.0), "stage 1 FMA route on the wide table: live windows differ")
+    rel = ((k - r).abs() / r.abs())[live].max().item()
+    same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
+    err = (k - r).abs().max().item()
+    check(rel <= 2.0**-15, f"stage 1 FMA route on the wide table: relative error {rel}")
+    check(same >= 0.999, f"stage 1 FMA route on the wide table: positions agree on {same}")
+    del k, r
+    loop_ms = ((lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms)
+    ms = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
+    plain_ms = loop_ms(lambda: fr._stage1_reference(q_aug, t), reps)
+    ms2 = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
+    b = stage1_bound(q_aug, t)
+    print(f"stage 1 FMA route on the wide table's operands [{q_aug.shape[0]} x {t.shape[0]}] x "
+          f"[{t.shape[0]} x {t.shape[1]}] bf16: max rel err {rel:.3e} (limit 2^-15), same "
+          f"window position {same:.6f} (limit 0.999); kernel {ms:.3f} / {ms2:.3f} ms, twin "
+          f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}): {100 * b[0] / min(ms, ms2):.1f}% "
+          f"of it", flush=True)
+    return {"name": "fused_stage1_fma", "route": "cuda", "source": K1_SOURCE,
+            "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
+            "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
 def serve(torch, dev, model, n_sessions: int, n_check: int):
     """Phase 4: the serving path of run_embedding_knn, then its checks."""
     from otto_tpu_torch.data.splits import split_by_fraction
@@ -395,6 +572,17 @@ def vote_bound(torch, w):
     return 2.0**-16 * w.abs().sum(dim=1, keepdim=True)
 
 
+def vote_time_bound(torch, aids) -> tuple[float, str]:
+    """The session vote's bound on these rows: aids and weights read, agg,
+    first and firstpos written, 4 bytes each a position; or its operations,
+    a compare and an add for each pair of positions in a row's live prefix
+    (up to its last aid >= 0; no later slot can match a real aid)."""
+    S, L = aids.shape
+    live = aids >= 0
+    hi = torch.where(live.any(dim=1), L - live.flip(1).to(torch.int32).argmax(dim=1), 0)
+    return bound(S * L * 4 * 5, 2.0 * float((hi.double() ** 2).sum()), F32_OPS_PER_S)
+
+
 def compare_vote(torch, dev, S: int, L: int, n_cpu: int, reps: int = 20) -> dict:
     """The session vote against its twin on synthetic rows at [S, L]: the
     largest ``agg`` error and, when ``reps`` > 0, the times of both."""
@@ -437,20 +625,22 @@ def compare_vote(torch, dev, S: int, L: int, n_cpu: int, reps: int = 20) -> dict
 
     if not reps:
         return {"err": err}
-    return {"err": err, **time_vote(torch, aids, w_norm, reps)}
+    return {"err": err, "bound": vote_time_bound(torch, aids),
+            **time_vote(torch, aids, w_norm, reps)}
 
 
 def time_vote(torch, aids, w, reps: int) -> dict:
-    """Kernel and twin ms on the same inputs, by CUDA events: kernel, twin,
-    kernel."""
+    """The kernel's device ms warm (the same inputs, in L2) and cold (over
+    rotating copies of the inputs, more than 50 MB in all), each by a CUDA
+    graph, twice, in turns with the twin's ms by a loop of calls."""
     from otto_tpu_torch.ops import fused_sessions as fs
 
-    k_ms = cuda_ms(torch, lambda: fs.aid_vote_aggregate(aids, w), reps)
+    warm, cold = warm_cold_ms(torch, fs.aid_vote_aggregate, (aids, w))
     plain_ms = cuda_ms(torch, lambda: fs._vote_reference(aids, w), reps)
-    k_ms2 = cuda_ms(torch, lambda: fs.aid_vote_aggregate(aids, w), reps)
-    print(f"vote {list(aids.shape)}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, twin "
-          f"{plain_ms:.4f} ms", flush=True)
-    return {"ms": min(k_ms, k_ms2), "plain_ms": plain_ms}
+    warm2, cold2 = warm_cold_ms(torch, fs.aid_vote_aggregate, (aids, w))
+    print(f"vote {list(aids.shape)}: kernel warm {warm:.4f} / {warm2:.4f} ms, cold "
+          f"{cold:.4f} / {cold2:.4f} ms (CUDA graphs), twin {plain_ms:.4f} ms", flush=True)
+    return {"ms": min(cold, cold2), "warm_ms": min(warm, warm2), "plain_ms": plain_ms}
 
 
 def vote_on_path(torch, dev, target, served: np.ndarray, chunk: int = 1024) -> dict:
@@ -477,8 +667,9 @@ def vote_on_path(torch, dev, target, served: np.ndarray, chunk: int = 1024) -> d
     aids = torch.where(mask, t(packed.aids), -1).to(torch.int32)
     w = torch.where(mask, w, 0.0)
     S, L = aids.shape
-    print(f"aid-weight path's vote input [{S}, {L}], {int(mask.sum())} events: the kernel "
-          f"pads each row to {-(-L // 32) * 32} slots", flush=True)
+    print(f"aid-weight path's vote input [{S}, {L}], {int(mask.sum())} events, "
+          f"{int(mask.sum()) / S:.2f} a session: the kernel scans each row's live prefix",
+          flush=True)
     ka, kf, kp = fs.aid_vote_aggregate(aids, w)
     ra, rf, rp = (torch.cat(x) for x in zip(*(
         fs._vote_reference(aids[i:i + chunk], w[i:i + chunk]) for i in range(0, S, chunk))))
@@ -510,7 +701,8 @@ def vote_on_path(torch, dev, target, served: np.ndarray, chunk: int = 1024) -> d
           f"but {int(differ.any(dim=1).sum())} of {S} rows (near-ties)", flush=True)
 
     err = max(err, compare_vote(torch, dev, chunk, L, n_cpu=512, reps=0)["err"])
-    return {"err": err, "shape": (S, L), **time_vote(torch, aids, w, 10)}
+    return {"err": err, "shape": (S, L), "bound": vote_time_bound(torch, aids),
+            **time_vote(torch, aids, w, 5)}
 
 
 def tables_match(got, want) -> tuple[int, int]:
@@ -660,16 +852,18 @@ def main() -> int:
         return 2
     from otto_tpu_torch.ops import _kernels, fused_retrieval, fused_sessions, row_topk
 
-    counters = {"fused_stage1": fused_retrieval.fused_stage1,
-                "peel_rows": row_topk.peel_rows,
-                "aid_vote": fused_sessions.aid_vote_aggregate}
+    # each kernel's launch counter: (the wrapper, its attribute)
+    counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
+                "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
+                "peel_rows": (row_topk.peel_rows, "launches"),
+                "aid_vote": (fused_sessions.aid_vote_aggregate, "launches")}
 
     def zero_counters():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counters(path: str, expected) -> dict:
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         print(f"kernel launches in the {path}: {launches}", flush=True)
         for name in expected:
             check(launches[name] > 0, f"{name} was not launched by the {path}")
@@ -707,6 +901,14 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     zero_counters()
+    with phase("3b wide-table retrieval (stage 1's FMA route)"):
+        retriever, wide_q = wide_retrieval(torch, dev, 1_000_000, 96, 256)
+    wide = read_counters("wide-table retrieval", ("fused_stage1_fma", "peel_rows"))
+    with phase("3b stage 1's FMA route vs its twin on the wide table"):
+        records.insert(1, wide_stage1_vs_twin(torch, dev, retriever, wide_q))
+    del retriever, wide_q
+
+    zero_counters()
     with phase("4 serving path"):
         serve(torch, dev, model, 20_000, 256)
     knn = read_counters("embedding-kNN serving path", ("fused_stage1", "peel_rows", "aid_vote"))
@@ -715,6 +917,11 @@ def main() -> int:
 
     with phase("5 session vote vs plain twin"):
         vote = compare_vote(torch, dev, 4096, 256, 512)
+        vote["err"] = max(vote["err"], compare_vote(torch, dev, 1024, 300, 256, reps=0)["err"])
+        b5 = vote["bound"]
+        print(f"session vote [4096, 256]: bound {b5[0]:.4f} ms ({b5[1]}): cold "
+              f"{100 * b5[0] / vote['ms']:.1f}%, warm {100 * b5[0] / vote['warm_ms']:.1f}% of it",
+              flush=True)
 
     with phase("6 covisitation build vs committed tables"):
         covisit_build(torch, dev)
@@ -726,11 +933,11 @@ def main() -> int:
 
     with phase("8 session vote at the aid-weight path's shape"):
         on_path = vote_on_path(torch, dev, path["target"], path["aid_weight"])
-    # K3 moves aids and weights in, agg/first/firstpos out (4 bytes each)
-    # and compares and adds each pair of positions of a row; no one PyTorch
-    # call returns its three per-position quantities (library_ms null)
+    # No one PyTorch call returns K3's three per-position quantities
+    # (library_ms null).  Its ms is the cold one, over input copies that do
+    # not fit in L2.
     s_rows, width = on_path["shape"]
-    k3_bound = bound(s_rows * width * 4 * 5, 2.0 * s_rows * width * width, F32_OPS_PER_S)
+    k3_bound = on_path["bound"]
     records.append({"name": "aid_vote", "route": "cuda",
                     "source": "otto_tpu_torch/csrc/session_kernels.cu",
                     "replaces": "otto_tpu/ops/pallas_sessions.py:30", "launches": 0,
@@ -738,10 +945,16 @@ def main() -> int:
                     "plain_ms": on_path["plain_ms"], "bound_ms": k3_bound[0],
                     "bound_by": k3_bound[1], "library_ms": None})
     print(f"session vote [{s_rows}, {width}]: bound {k3_bound[0]:.4f} ms ({k3_bound[1]}): "
-          f"{100 * k3_bound[0] / on_path['ms']:.1f}% of it", flush=True)
+          f"cold {100 * k3_bound[0] / on_path['ms']:.1f}%, warm "
+          f"{100 * k3_bound[0] / on_path['warm_ms']:.1f}% of it", flush=True)
 
+    # launches: each kernel's count on the path it serves (the FMA route on
+    # the wide table, the vote on the baselines' path, whose shape is timed)
+    paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur}
+    home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur}
     for rec in records:
-        rec["launches"] = (heur if rec["name"] == "aid_vote" else knn)[rec["name"]]
+        rec["launches"] = home[rec["name"]][rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int WINDOW = 128;            // items per strided window
@@ -30,28 +32,35 @@ constexpr unsigned LANE_MASK = WINDOW - 1;
 // [DA, N_pad], so position a of chunk c is the 128 consecutive columns
 // c*16384 + a*128 .. +127, and lane l is the l-th of them.
 //
-// Two instantiations:
-// - bf16 (the retriever's tables): fused_stage1_bf16_kernel, on the tensor
-//   cores (below).
-// - float32: fused_stage1_f32_kernel, float32 FMA on the CUDA cores.  The
-//   tensor cores take float32 only as TF32, which would break the float32
-//   contract of table_dtype=float32.
+// Two routes, chosen by the wrapper from the dtype and DA:
+// - bf16 with DA <= 256 (the retriever's tables): fused_stage1_bf16_kernel,
+//   on the tensor cores (below).
+// - float32, and bf16 with DA > 256: fused_stage1_fma_kernel<T>, float32 FMA
+//   on the CUDA cores.  The tensor cores take float32 only as TF32, which
+//   would break the float32 contract of table_dtype=float32; a bf16 table
+//   deeper than one TMA box (256 rows) is converted to float32 as it loads.
 // ---------------------------------------------------------------------------
 
-// --- float32: one thread per lane ------------------------------------------
+// --- FMA: one thread per lane ----------------------------------------------
 //
 // One block per (query tile of TQ rows, chunk); one thread per lane l,
-// looping over the 128 positions a.  The query tile sits in shared memory,
-// laid out [d][TQ] so that one 16-byte broadcast load feeds four FMAs; for
-// fixed (d, a) the 128 threads read 128 consecutive table columns, so the
-// loads coalesce.  Scores accumulate over d in ascending order.  Bound by
-// FMA throughput (each table element read feeds TQ FMAs).
+// looping over the 128 positions a.  The query tile sits in shared memory as
+// float32, laid out [d][TQ] so that one 16-byte broadcast load feeds four
+// FMAs; for fixed (d, a) the 128 threads read 128 consecutive table columns,
+// so the loads coalesce.  Scores accumulate over d in ascending order.
+// Bound by FMA throughput (each table element read feeds TQ FMAs).  The
+// query tile limits the depth: DA * TQ * 4 bytes of shared memory, so DA <=
+// 1,816 on an H100 (232,448 bytes a block).
 
 constexpr int K1_TQ = 32;       // queries per block
 constexpr int K1_THREADS = 128; // one thread per lane of the window
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
 __global__ void __launch_bounds__(K1_THREADS)
-fused_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ t,
+fused_stage1_fma_kernel(const T* __restrict__ q, const T* __restrict__ t,
                         float* __restrict__ out, int B, int DA, long long n_pad) {
   extern __shared__ float4 qs4[];  // [DA][K1_TQ] float32
   float* qs = reinterpret_cast<float*>(qs4);
@@ -63,7 +72,7 @@ fused_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ t
     const int d = i / K1_TQ;
     const int r = i - d * K1_TQ;
     const int b = b0 + r;
-    qs[i] = (b < B) ? q[(long long)b * DA + d] : 0.0f;
+    qs[i] = (b < B) ? to_f32(q[(long long)b * DA + d]) : 0.0f;
   }
   __syncthreads();
 
@@ -71,15 +80,15 @@ fused_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ t
 #pragma unroll
   for (int r = 0; r < K1_TQ; ++r) best[r] = -CUDART_INF_F;
 
-  const float* col0 = t + chunk * CHUNK + l;
+  const T* col0 = t + chunk * CHUNK + l;
   for (int a = 0; a < WINDOW; ++a) {
     float acc[K1_TQ];
 #pragma unroll
     for (int r = 0; r < K1_TQ; ++r) acc[r] = 0.0f;
-    const float* col = col0 + a * WINDOW;
+    const T* col = col0 + a * WINDOW;
 #pragma unroll 2
     for (int d = 0; d < DA; ++d) {
-      const float x = col[(long long)d * n_pad];
+      const float x = to_f32(col[(long long)d * n_pad]);
       const float4* qv = qs4 + d * (K1_TQ / 4);
 #pragma unroll
       for (int r4 = 0; r4 < K1_TQ / 4; ++r4) {
@@ -440,20 +449,27 @@ int launch_fused_stage1_bf16(const void* q, const void* t, void* out, int B, int
   return (int)cudaGetLastError();
 }
 
-int launch_fused_stage1_f32(const void* q, const void* t, void* out, int B, int DA,
+// Errors: a cudaError_t; cudaErrorInvalidValue when the query tile of DA
+// rows does not fit in the card's per-block shared memory.
+template <typename T>
+int launch_fused_stage1_fma(const void* q, const void* t, void* out, int B, int DA,
                             long long n_pad, int device, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const dim3 grid((B + K1_TQ - 1) / K1_TQ, (unsigned)(n_pad / CHUNK));
+  int smem_max = 0;
+  dev_err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
   const size_t smem = (size_t)DA * K1_TQ * sizeof(float);
+  if (DA < 1 || smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_stage1_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_stage1_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_stage1_f32_kernel<<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(t), static_cast<float*>(out),
-      B, DA, n_pad);
+  const dim3 grid((B + K1_TQ - 1) / K1_TQ, (unsigned)(n_pad / CHUNK));
+  fused_stage1_fma_kernel<T><<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(t), static_cast<float*>(out), B, DA,
+      n_pad);
   return (int)cudaGetLastError();
 }
 
@@ -464,55 +480,198 @@ int launch_fused_stage1_f32(const void* q, const void* t, void* out, int B, int 
 // For every row b and every 128-column window w, R rounds: take the window's
 // maximum, write it to vals[b, r, w] and the first column holding it to
 // cols[b, r, w] = w*128 + argmax, then set every slot equal to that maximum
-// to -inf (the reference clears all equal slots, not only the first).
+// to -inf (the reference clears all equal slots, not only the first).  Put
+// another way: the R largest distinct values of the window, each with its
+// smallest column; once the window holds no value above -inf, every later
+// round gives (-inf, w*128 + 0).
 //
-// Design: one warp per (row, window).  Lane i holds window positions
-// i, i+32, i+64, i+96 in registers, so each of the four loads of a warp reads
-// 128 consecutive bytes.  A round is a butterfly shuffle max, then a ballot
-// per register slot: with this layout ballot bit order is position order, so
-// the first set bit of the first non-empty ballot is the first-match argmax.
+// Design: one thread per window, one warp per tile of 32 windows of a row
+// (16 KB, the last tile of a row shorter), on a persistent grid.
+// - Staging.  Each warp owns one shared-memory slot.  Its lanes copy their
+//   windows (512 bytes each) with one cp.async.bulk apiece, completing on
+//   the warp's mbarrier, into rows of 528 bytes: the 16-byte pad puts the
+//   float4 q of lanes t..t+7 in distinct banks, so a lane reads its window
+//   into 32 float4 registers with no bank conflict and with the column of
+//   every register known at compile time.  As soon as the window is in
+//   registers the warp starts the copy of its next tile into the same slot,
+//   so those bytes are in flight while the rounds run.
+// - Rounds.  Round r is one pass over the 128 registers: the largest value
+//   strictly below round r-1's value, and the first column holding it
+//   ("v < prev && v > best", kept in four independent chains, one per
+//   column mod 4, merged with ties to the smaller column).  Four
+//   instructions an element a round, no shuffles, no ballots, no
+//   divergence, and any R with the same registers.  A window that runs out
+//   of values skips the passes left.
+// - Stores.  Lane t writes vals[b, r, w0 + t] and cols[b, r, w0 + t]: each
+//   round's stores of a warp are two 128-byte transactions.
+// - Float rules: comparisons only, no arithmetic on the values, so
+//   denormals (K1's pad windows pack to bit patterns in [0, 128)) stay
+//   distinct; built without fast math or flush-to-zero.  NaN is outside the
+//   contract.
 //
-// What bounds it: device-memory bytes.  The input is read once
-// ([B, 14,592] float32 at full width) and R*W (value, column) pairs are
-// written per row; there is no reuse to exploit.
+// What bounds it: the bytes set the least time (the input read once and R
+// (value, column) pairs a window written: 239 MB + 22.4 MB at [4096,
+// 14,592], R = 6, 0.078 ms at 3.35 TB/s), but the rounds take the time:
+// their compares and selects issue at half a warp a clock on Hopper's
+// integer/compare pipe.  On an H100 (700 W) the staging and loads alone run
+// in ~0.085 ms and the whole kernel in ~0.136 ms at that shape; the cost of
+// the rounds grows with R.
 // ---------------------------------------------------------------------------
 
-constexpr int K2_WARPS = 8;
+constexpr int K2_TILE = 32;                       // windows per warp tile, one per lane
+constexpr int K2_WARPS = 4;                       // warps per block
+constexpr int K2_ROW_BYTES = (WINDOW + 4) * 4;    // a staged window, padded: 528
+constexpr int K2_SLOT_BYTES = K2_TILE * K2_ROW_BYTES;
+constexpr int K2_SMEM = K2_WARPS * K2_SLOT_BYTES + 8 * K2_WARPS;  // slots, then mbarriers
 
-__global__ void __launch_bounds__(K2_WARPS * 32)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One round over a window in registers: the largest value strictly below
+// `below` (any value when kFirst) and the smallest column holding it, or
+// (-inf, 0) when there is none.
+template <bool kFirst>
+__device__ __forceinline__ void peel_round(const float4 (&v)[K2_TILE], float below, float& best,
+                                           int& col) {
+  float b[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  int c[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int q = 0; q < K2_TILE; ++q) {
+    const float e[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // columns ascend within a chain, so ">" keeps the first of equals
+      if ((kFirst || e[k] < below) && e[k] > b[k]) {
+        b[k] = e[k];
+        c[k] = 4 * q + k;
+      }
+    }
+  }
+  best = b[0];
+  col = c[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (b[k] > best || (b[k] == best && c[k] < col)) {
+      best = b[k];
+      col = c[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K2_WARPS * 32, 3)
 peel_rows_kernel(const float* __restrict__ x, float* __restrict__ vals,
                  int* __restrict__ cols, int B, int M, int rounds) {
+  extern __shared__ __align__(16) uint8_t k2_smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long g = (long long)blockIdx.x * K2_WARPS + (threadIdx.x >> 5);
+  const uint32_t slot = smem_u32(k2_smem) + warp * K2_SLOT_BYTES;
+  const uint32_t bar = smem_u32(k2_smem) + K2_WARPS * K2_SLOT_BYTES + 8u * warp;
+  const float4* mine =
+      reinterpret_cast<const float4*>(k2_smem + warp * K2_SLOT_BYTES + lane * K2_ROW_BYTES);
   const int W = M / WINDOW;
-  if (g >= (long long)B * W) return;  // whole warps exit together
-  const long long b = g / W;
-  const int w = (int)(g - b * W);
+  const int per_row = (W + K2_TILE - 1) / K2_TILE;
+  const long long n_tiles = (long long)B * per_row;
+  const long long stride = (long long)gridDim.x * K2_WARPS;
+  long long g = (long long)blockIdx.x * K2_WARPS + warp;
+  if (g >= n_tiles) return;  // whole warps exit together
 
-  const float* src = x + b * M + (long long)w * WINDOW;
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = src[lane + 32 * i];
-
-  const long long out_row = b * (long long)rounds * W;
-  for (int r = 0; r < rounds; ++r) {
-    float mx = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    int pos = WINDOW;
-#pragma unroll
-    for (int i = 3; i >= 0; --i) {
-      const unsigned m = __ballot_sync(0xffffffffu, v[i] == mx);
-      if (m) pos = 32 * i + (__ffs(m) - 1);
-    }
-    if (lane == 0) {
-      vals[out_row + (long long)r * W + w] = mx;
-      cols[out_row + (long long)r * W + w] = w * WINDOW + pos;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = (v[i] == mx) ? -CUDART_INF_F : v[i];
+  if (lane == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncwarp();
+
+  // lane 0 arms the barrier for the tile's bytes, then each lane with a
+  // window copies it
+  auto issue = [&](long long tile) {
+    const long long b = tile / per_row;
+    const int w0 = (int)(tile - b * per_row) * K2_TILE;
+    const int n = min(K2_TILE, W - w0);
+    if (lane == 0) mbar_expect_tx(bar, (uint32_t)n * WINDOW * 4);
+    __syncwarp();
+    if (lane < n)
+      bulk_load(slot + lane * K2_ROW_BYTES, x + b * M + (long long)(w0 + lane) * WINDOW,
+                WINDOW * 4, bar);
+  };
+
+  issue(g);
+  uint32_t phase = 0;
+  for (; g < n_tiles; g += stride) {
+    const long long b = g / per_row;
+    const int w0 = (int)(g - b * per_row) * K2_TILE;
+    const bool live = lane < W - w0;
+    mbar_wait(bar, phase);
+    phase ^= 1u;
+    float4 v[K2_TILE];
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < K2_TILE; ++q) v[q] = mine[q];
+    }
+    // every lane's reads of the slot come before the next copy into it
+    __syncwarp();
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (g + stride < n_tiles) issue(g + stride);
+    if (!live) continue;
+
+    const int w = w0 + lane;
+    float* vo = vals + b * rounds * W + w;
+    int* co = cols + b * rounds * W + w;
+    float m;
+    int c;
+    peel_round<true>(v, 0.0f, m, c);
+    vo[0] = m;
+    co[0] = w * WINDOW + c;
+    for (int r = 1; r < rounds; ++r) {
+      if (m == -CUDART_INF_F) {
+        c = 0;  // nothing left above -inf: the window's first slot
+      } else {
+        const float prev = m;
+        peel_round<false>(v, prev, m, c);
+      }
+      vo[(long long)r * W] = m;
+      co[(long long)r * W] = w * WINDOW + c;
+    }
+  }
+}
+
+// Persistent grid: as many blocks as fit on the card at once (three per SM
+// on an H100), capped by the tile count.  The grid size and the shared-memory
+// opt-in are worked out once per device.
+int launch_peel_rows(const void* x, void* vals, void* cols, int B, int M, int rounds,
+                     int device, void* stream) {
+  constexpr int MAX_DEVICES = 64;
+  static int resident[MAX_DEVICES] = {0};  // blocks the card holds at once
+  if (device < 0 || device >= MAX_DEVICES || B < 1 || M < WINDOW || M % WINDOW ||
+      rounds < 1 || reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (resident[device] == 0) {
+    e = cudaFuncSetAttribute(peel_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K2_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, peel_rows_kernel, K2_WARPS * 32,
+                                                      K2_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[device] = sms * per_sm;
+  }
+  const int W = M / WINDOW;
+  const long long tiles = (long long)B * ((W + K2_TILE - 1) / K2_TILE);
+  const long long blocks =
+      std::min((tiles + K2_WARPS - 1) / K2_WARPS, (long long)resident[device]);
+  peel_rows_kernel<<<(unsigned)blocks, K2_WARPS * 32, K2_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(cols), B, M,
+      rounds);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -526,19 +685,17 @@ int fused_stage1_bf16(const void* q, const void* t, void* out, int B, int DA,
 
 int fused_stage1_f32(const void* q, const void* t, void* out, int B, int DA,
                      long long n_pad, int device, void* stream) {
-  return launch_fused_stage1_f32(q, t, out, B, DA, n_pad, device, stream);
+  return launch_fused_stage1_fma<float>(q, t, out, B, DA, n_pad, device, stream);
+}
+
+int fused_stage1_bf16_fma(const void* q, const void* t, void* out, int B, int DA,
+                          long long n_pad, int device, void* stream) {
+  return launch_fused_stage1_fma<__nv_bfloat16>(q, t, out, B, DA, n_pad, device, stream);
 }
 
 int peel_rows_f32(const void* x, void* vals, void* cols, int B, int M, int rounds,
                   int device, void* stream) {
-  cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const long long warps = (long long)B * (M / WINDOW);
-  const unsigned blocks = (unsigned)((warps + K2_WARPS - 1) / K2_WARPS);
-  peel_rows_kernel<<<blocks, K2_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(cols),
-      B, M, rounds);
-  return (int)cudaGetLastError();
+  return launch_peel_rows(x, vals, cols, B, M, rounds, device, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every source in ``csrc/`` is compiled with one ``nvcc`` call into one
-shared library with a plain C interface, loaded with :mod:`ctypes` — no
-PyTorch headers, so a build takes seconds.  The build happens at the first
+Every source in ``csrc/`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with :mod:`ctypes` — no PyTorch headers, so a
+build takes seconds.  The build happens at the first
 CUDA call, into ``otto_tpu_torch/_build/``; the library's name carries a
 hash of all the sources and the flags, so an edited source is rebuilt.
 Nothing here runs at import time: the CPU tests import every module on a
@@ -28,8 +29,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((PKG_DIR / "csrc").glob("*.cu")))
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,31 +47,70 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(sources=SOURCES) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libotto_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for this exact source exists.
-    Raises with nvcc's output if the compile fails.  The ptxas report
-    (registers, shared memory, spills) is kept beside the library."""
-    out = library_path()
+def build(sources=SOURCES, out: Path | None = None) -> Path:
+    """Compile ``sources`` (the package's, by default) into the library
+    ``out`` (by default named by their hash in ``_build/``) unless it
+    exists.  Raises with nvcc's output if a compile or the link fails.  The
+    ptxas report (registers, shared memory, spills) is kept beside the
+    library."""
+    out = out or library_path(sources)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    reports = [proc.communicate()[0] for proc in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    try:
+        for cmd, proc, report in zip(cmds, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{report}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".ptxas.txt").write_text("".join(reports))
     os.replace(tmp, out)
     return out
+
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C entry points and their arguments; each returns a cudaError_t
+ENTRY_POINTS = {
+    "fused_stage1_bf16": [_p, _p, _p, _i, _i, _ll, _i, _p],
+    "fused_stage1_f32": [_p, _p, _p, _i, _i, _ll, _i, _p],
+    "fused_stage1_bf16_fma": [_p, _p, _p, _i, _i, _ll, _i, _p],
+    "peel_rows_f32": [_p, _p, _p, _i, _i, _i, _i, _p],
+    "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
+}
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare those of :data:`ENTRY_POINTS`
+    that it defines."""
+    cdll = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRY_POINTS.items():
+        if hasattr(cdll, name):
+            fn = getattr(cdll, name)
+            fn.argtypes, fn.restype = argtypes, _i
+    return cdll
 
 
 def lib() -> ctypes.CDLL:
@@ -78,17 +118,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            cdll.fused_stage1_bf16.argtypes = [p, p, p, i, i, ll, i, p]
-            cdll.fused_stage1_bf16.restype = i
-            cdll.fused_stage1_f32.argtypes = [p, p, p, i, i, ll, i, p]
-            cdll.fused_stage1_f32.restype = i
-            cdll.peel_rows_f32.argtypes = [p, p, p, i, i, i, i, p]
-            cdll.peel_rows_f32.restype = i
-            cdll.aid_vote_f32.argtypes = [p, p, p, p, p, i, i, i, p]
-            cdll.aid_vote_f32.restype = i
-            _lib = cdll
+            _lib = load(build())
     return _lib
 
 
@@ -102,7 +132,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def launch_fused_stage1_bf16(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
-    """q [B, DA], t [DA, N_pad] bf16 (DA <= 256), out [B, N_pad/128] f32;
+    """q [B, DA], t [DA, N_pad] bf16 (DA <= 256), out [B, N_pad/128] f32,
+    on the wgmma kernel;
     the launcher works out the padded depth and the ring from DA.  Besides
     CUDA errors it returns -1 (``cuTensorMapEncodeTiled`` not found) and
     -1000 - CUresult (tensor map refused)."""
@@ -111,16 +142,21 @@ def launch_fused_stage1_bf16(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor
     _check(err, "fused_stage1_bf16")
 
 
-def launch_fused_stage1_f32(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
-    """q [B, DA], t [DA, N_pad] f32, out [B, N_pad/128] f32."""
-    err = lib().fused_stage1_f32(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0],
-                                 q.shape[1], t.shape[1], t.device.index, _stream(t))
-    _check(err, "fused_stage1_f32")
+def launch_fused_stage1_fma(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
+    """q [B, DA], t [DA, N_pad], both f32 or both bf16, out [B, N_pad/128]
+    f32, on the CUDA-core FMA kernel (``fused_stage1_fma_kernel<T>``).  The
+    launcher returns cudaErrorInvalidValue when the query tile of DA rows
+    does not fit in shared memory."""
+    fn = lib().fused_stage1_f32 if q.dtype == torch.float32 else lib().fused_stage1_bf16_fma
+    err = fn(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], t.shape[1],
+             t.device.index, _stream(t))
+    _check(err, "fused_stage1_fma")
 
 
 def launch_peel_rows(x: torch.Tensor, rounds: int, vals: torch.Tensor,
                      cols: torch.Tensor) -> None:
-    """x [B, M] f32 -> vals [B, rounds, M/128] f32, cols int32 (same shape)."""
+    """x [B, M] f32, 16-byte aligned -> vals [B, rounds, M/128] f32, cols
+    int32 (same shape)."""
     err = lib().peel_rows_f32(x.data_ptr(), vals.data_ptr(), cols.data_ptr(),
                               x.shape[0], x.shape[1], rounds, x.device.index, _stream(x))
     _check(err, "peel_rows_f32")

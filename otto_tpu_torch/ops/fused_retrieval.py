@@ -50,9 +50,13 @@ LIVE_BITS = 0x3F800000  # bits of 1.0: every real score is >= 1
 # columns in whole chunks so that one step holds at most this many elements.
 _REFERENCE_STEP_ELEMS = 1 << 28
 
-# The bf16 stage-1 kernel loads a table tile of DA rows as one TMA box,
-# which has at most 256 rows.
-K1_MAX_DA = 256
+# Routes of stage 1 on the card, chosen by dtype and depth: the bf16 wgmma
+# kernel loads a table tile of DA rows as one TMA box, which has at most 256
+# rows; float32 tables, and bf16 tables deeper than that, go to the FMA
+# kernel, whose [DA, 32] float32 query tile must fit in a block's 232,448
+# bytes of shared memory on an H100.
+K1_WGMMA_MAX_DA = 256
+K1_FMA_MAX_DA = 232_448 // (32 * 4)  # 1,816
 
 
 def _pack_window_max(s: torch.Tensor) -> torch.Tensor:
@@ -87,8 +91,10 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
 
     Both operands bf16, or both float32; N_pad a multiple of 16384.  On a
     CUDA tensor this launches ``fused_stage1_bf16_kernel`` (tensor cores,
-    DA <= 256) or ``fused_stage1_f32_kernel``; on a CPU tensor it runs
-    :func:`_stage1_reference`.
+    bf16 with DA <= 256; counted in ``fused_stage1.launches``) or
+    ``fused_stage1_fma_kernel`` (CUDA-core FMA: float32, and bf16 with DA >
+    256; counted in ``fused_stage1.fma_launches``), and raises for DA >
+    1,816; on a CPU tensor it runs :func:`_stage1_reference`.
     """
     b, da = q_aug.shape
     da_t, n_pad = items_aug_t.shape
@@ -108,22 +114,24 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
         raise ValueError(f"fused_stage1: {n_pad} items exceed the kernel's grid")
     q_aug = q_aug.contiguous()
     items_aug_t = items_aug_t.contiguous()
-    bf16 = q_aug.dtype == torch.bfloat16
-    if bf16 and da > K1_MAX_DA:
-        raise ValueError(f"fused_stage1: the bf16 kernel takes DA <= {K1_MAX_DA}, got {da}")
-    if bf16 and items_aug_t.data_ptr() % 16:
+    if da > K1_FMA_MAX_DA:
+        raise ValueError(f"fused_stage1: the kernels take DA <= {K1_FMA_MAX_DA}, got {da}")
+    wgmma = q_aug.dtype == torch.bfloat16 and da <= K1_WGMMA_MAX_DA
+    if wgmma and items_aug_t.data_ptr() % 16:
         raise ValueError("fused_stage1: the table must start on a 16-byte boundary (TMA)")
     out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q_aug.device)
     if b:
-        if bf16:
+        if wgmma:
             _kernels.launch_fused_stage1_bf16(q_aug, items_aug_t, out)
+            fused_stage1.launches += 1
         else:
-            _kernels.launch_fused_stage1_f32(q_aug, items_aug_t, out)
-        fused_stage1.launches += 1
+            _kernels.launch_fused_stage1_fma(q_aug, items_aug_t, out)
+            fused_stage1.fma_launches += 1
     return out
 
 
-fused_stage1.launches = 0  # kernel launches made by this wrapper
+fused_stage1.launches = 0      # launches of the wgmma kernel made by this wrapper
+fused_stage1.fma_launches = 0  # launches of the FMA kernel made by this wrapper
 
 
 def _bf16_split(x: torch.Tensor):

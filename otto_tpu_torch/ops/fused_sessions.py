@@ -2,9 +2,10 @@
 
 Port of ``otto_tpu/ops/pallas_sessions.py``.  The plain path builds the
 pairwise equality tensor ``eq [S, L, L]`` in device memory before reducing
-it; :func:`aid_vote_aggregate` launches the hand-written CUDA kernel
-``aid_vote_kernel`` (``csrc/session_kernels.cu``), which computes per
-session row, with the ``[L, L]`` tile never leaving the chip:
+it; :func:`aid_vote_aggregate` launches a hand-written CUDA kernel
+(``csrc/session_kernels.cu``: ``aid_vote_rows_kernel`` for L <= 128,
+``aid_vote_block_kernel`` for longer rows), which computes per session row,
+with the ``[L, L]`` tile never leaving the chip:
 
 - ``agg[i]      = sum_j weights[j] * (aids[i] == aids[j])``  (the Counter sum)
 - ``first[i]    = no j < i with aids[j] == aids[i]``          (first occurrence)
@@ -13,7 +14,8 @@ session row, with the ``[L, L]`` tile never leaving the chip:
 Padding positions arrive with ``aids == -1`` and come out as ``agg 0``,
 ``first 0``, ``firstpos L``.  On a CPU tensor the wrapper runs the plain
 twin :func:`_vote_reference`.  The reference's ``session_tile`` padding (a
-TPU block shape) has no counterpart: one CUDA block serves one row.
+TPU block shape) has no counterpart: a warp (L <= 128) or a block (longer
+rows) serves one row at a time.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 
 from otto_tpu_torch.ops import _kernels
 
-MAX_L = 1024  # one thread per position, one block per row
+# Rows of L <= 128 run one warp a row; longer rows one block a row and one
+# thread a position, so L <= 1,024 (threads a block).
+MAX_L = 1024
 
 
 def _vote_reference(aids: torch.Tensor, weights: torch.Tensor):
@@ -44,8 +48,9 @@ def aid_vote_aggregate(aids: torch.Tensor, weights: torch.Tensor):
     and weights float32 [S, L].
 
     Returns (agg float32 [S, L], first int32 [S, L], firstpos int32 [S, L]).
-    On a CUDA tensor this launches ``aid_vote_kernel`` (int32/float32,
-    contiguous, L <= 1024; anything else raises); on a CPU tensor it runs
+    On a CUDA tensor this launches ``aid_vote_rows_kernel`` or
+    ``aid_vote_block_kernel``, chosen by L (int32/float32, contiguous,
+    L <= 1,024; anything else raises); on a CPU tensor it runs
     :func:`_vote_reference`.
     """
     if aids.ndim != 2 or aids.shape != weights.shape:

@@ -57,8 +57,9 @@ def peel_rows(x: torch.Tensor, rounds: int):
     minimum, so rows with fewer than ``rounds`` live entries per window
     repeat the fill value.
 
-    On a CUDA tensor this launches the kernel (float32 only; other dtypes
-    raise); on a CPU tensor it runs :func:`peel_rows_reference`.
+    On a CUDA tensor this launches the kernel (float32 only, any
+    ``rounds``; other dtypes raise); on a CPU tensor it runs
+    :func:`peel_rows_reference`.
     """
     b, m = x.shape
     if m % WINDOW:
@@ -72,6 +73,8 @@ def peel_rows(x: torch.Tensor, rounds: int):
     if x.dtype != torch.float32:
         raise TypeError(f"peel_rows: the CUDA kernel takes float32, got {x.dtype}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies 512-byte windows with cp.async.bulk
+        x = x.clone()
     w = m // WINDOW
     vals = torch.empty((b, rounds, w), dtype=torch.float32, device=x.device)
     cols = torch.empty((b, rounds, w), dtype=torch.int32, device=x.device)

@@ -62,6 +62,79 @@ def test_peel_twin_bit_equal_to_pallas(rounds):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
 
+def _peel_edge_input(case, rng, b, m):
+    """Windows that stress the peel's contract: ties, fewer distinct values
+    than rounds, -inf slots and whole -inf windows, all-equal windows."""
+    if case == "ties":
+        return rng.integers(0, 6, (b, m)).astype(np.float32)
+    if case == "few_distinct":
+        x = rng.choice(np.array([-1.5, 0.25, 7.0], np.float32), size=(b, m))
+        x[:, 128:256] = rng.choice(np.array([3.0, -2.0], np.float32), size=(b, 128))
+        return x
+    if case == "neginf":
+        x = rng.normal(size=(b, m)).astype(np.float32)
+        x[rng.random((b, m)) < 0.4] = -np.inf
+        x[:, 128:256] = -np.inf
+        x[:, 300:384] = -np.inf  # a window whose first live slot is past its start
+        return x
+    if case == "all_equal":
+        x = np.full((b, m), 2.5, np.float32)
+        x[:, 256:384] = rng.normal(size=(b, 128)).astype(np.float32)
+        return x
+    if case == "denormal":  # K1's pad windows: bit patterns in [0, 128)
+        return rng.integers(0, 128, (b, m)).astype(np.int32).view(np.float32)
+    raise ValueError(case)
+
+
+def _peel_model(x, rounds):
+    """The peel's contract in numpy: per 128-column window, its ``rounds``
+    largest distinct values, each with its smallest column, then
+    (-inf, the window's first column) once the values run out."""
+    b, m = x.shape
+    w = m // 128
+    vals = np.full((b, rounds, w), -np.inf, np.float32)
+    cols = np.tile((np.arange(w, dtype=np.int32) * 128)[None, None, :], (b, rounds, 1))
+    for i in range(b):
+        for j in range(w):
+            win = x[i, 128 * j:128 * (j + 1)]
+            live = np.unique(win[win > -np.inf])[::-1][:rounds]
+            for r, v in enumerate(live):
+                vals[i, r, j] = v
+                cols[i, r, j] = 128 * j + int(np.flatnonzero(win == v)[0])
+    return vals.reshape(b, -1), cols.reshape(b, -1)
+
+
+@pytest.mark.parametrize("rounds", [1, 6, 21])
+@pytest.mark.parametrize("case", ["ties", "few_distinct", "neginf", "all_equal", "denormal"])
+def test_peel_twin_edge_cases_match_contract(case, rounds):
+    """The twin against the numpy model of the contract.  Denormals stay
+    distinct: the card's peel compares without flushing them."""
+    x = _peel_edge_input(case, np.random.default_rng(13), 37, 4 * 128)
+    mv, mc = _peel_model(x, rounds)
+    tv, tc = trt.peel_rows(torch.from_numpy(x), rounds)
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), mv.view(np.int32))
+    np.testing.assert_array_equal(tc.numpy(), mc)
+
+
+@pytest.mark.parametrize("rounds", [1, 6, 21])
+@pytest.mark.parametrize("case", ["ties", "few_distinct", "neginf", "all_equal"])
+def test_peel_twin_edge_cases_bit_equal_to_pallas(case, rounds):
+    """B = 37 is not a multiple of the Pallas row block, so the JAX input
+    is padded with rows of zeros and its outputs cut back."""
+    rng = np.random.default_rng(12)
+    x = _peel_edge_input(case, rng, 37, 4 * 128)
+    xp = np.concatenate([x, np.zeros((3, x.shape[1]), np.float32)])
+    jv, jc = jrt.peel_rows(jnp.asarray(xp), rounds, row_block=8, interpret=True)
+    tv, tc = trt.peel_rows(torch.from_numpy(x), rounds)
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), np.asarray(jv)[:37].view(np.int32))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc)[:37])
+    if case == "neginf" and rounds == 21:
+        # an exhausted window repeats (-inf, its first column)
+        w = tv.numpy().reshape(37, rounds, 4)[:, :, 1]
+        c = tc.numpy().reshape(37, rounds, 4)[:, :, 1]
+        assert np.isneginf(w).all() and (c == 128).all()
+
+
 def test_peel_twin_int32_matches_pallas():
     rng = np.random.default_rng(1)
     x = rng.integers(0, 50, (8, 512)).astype(np.int32)  # many ties
@@ -101,8 +174,11 @@ def _stage1_both(q, t, dtype):
     return np.asarray(jout), tout.numpy()
 
 
+# DA 257 and 300 are past the wgmma kernel's depth: on the card they take
+# the FMA route, which must give the same packed maxima
 @pytest.mark.parametrize("da,dtype", [(34, torch.bfloat16), (102, torch.bfloat16),
-                                      (34, torch.float32)])
+                                      (34, torch.float32), (257, torch.bfloat16),
+                                      (300, torch.bfloat16)])
 def test_stage1_twin_bit_equal_on_integer_inputs(da, dtype):
     rng = np.random.default_rng(4)
     q = _int_data(rng, (8, da))

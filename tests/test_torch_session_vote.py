@@ -55,6 +55,43 @@ def test_vote_twin_matches_pallas_interpret(integer):
         assert (np.abs(ta - ja) <= bound).all()
 
 
+def _vote_edge_inputs(case, rng):
+    """Rows at the kernels' edges: a one-position row, an all-padding row,
+    an all-equal row, interior padding, and rows longer than 256."""
+    L = {"one": 1, "long": 300, "short_sessions": 76}.get(case, 40)
+    S = 9
+    aids = rng.integers(0, 6, (S, L)).astype(np.int32)
+    if case == "short_sessions":  # left-aligned sessions, as the aid-weight path packs them
+        n = rng.integers(0, 12, S)
+        n[0] = L
+        aids[np.arange(L)[None, :] >= n[:, None]] = -1
+    aids[1] = -1            # all padding
+    aids[2] = 3             # all equal
+    aids[3, ::3] = -1       # interior padding
+    if case == "one":
+        aids[4:, 0] = rng.integers(-1, 3, S - 4)
+    w = rng.integers(1, 5, (S, L)).astype(np.float32)
+    w[aids < 0] = 0
+    return aids, w
+
+
+@pytest.mark.parametrize("case", ["one", "mixed", "short_sessions", "long"])
+def test_vote_twin_edge_cases_match_pallas_interpret(case):
+    aids, w = _vote_edge_inputs(case, np.random.default_rng(21))
+    L = aids.shape[1]
+    ja, jf, jp = map(np.asarray, jps.aid_vote_aggregate(aids, w, session_tile=4,
+                                                        interpret=True))
+    ta, tf, tp = (x.numpy() for x in tfs.aid_vote_aggregate(torch.from_numpy(aids),
+                                                           torch.from_numpy(w)))
+    valid = aids >= 0
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tp[valid], jp[valid])
+    np.testing.assert_array_equal(ta, ja)  # integer weights: exact in any order
+    assert (ta[~valid] == 0).all() and (tf[~valid] == 0).all() and (tp[~valid] == L).all()
+    assert (tf[1] == 0).all() and (tp[1] == L).all()          # all padding
+    assert tf[2].sum() == 1 and (tp[2] == 0).all() and (ta[2] == w[2].sum()).all()  # all equal
+
+
 def test_vote_wrapper_rejects_bad_inputs():
     a = torch.zeros((2, 8), dtype=torch.int32)
     w = torch.zeros((2, 8))

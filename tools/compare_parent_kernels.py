@@ -1,0 +1,188 @@
+"""Time a parent commit's CUDA kernels against this tree's, in turns, on one card.
+
+    git archive <parent> otto_tpu_torch/csrc | tar -x -C tmp/parent
+    python3 tools/compare_parent_kernels.py tmp/parent/otto_tpu_torch/csrc
+
+Builds both sides with ``otto_tpu_torch.ops._kernels`` (its nvcc, flags and
+build), and first times this tree's build two ways, in turns: one nvcc over
+all sources into the library, and the package's build (one nvcc a source,
+all started together, then a link).  Then it calls each kernel through the C
+entry point of that name in each library, checks that both sides give the
+same outputs, and times each pair by CUDA graphs (device time alone, no host
+launch cost) in turns: parent, this tree, this tree, parent.
+
+- K1 (``fused_stage1_bf16``) at [4096 x 102] x [102 x 1,867,776], the
+  neighbor table's batch, seeded normal bf16 operands;
+- K2 (``peel_rows_f32``) at [4096, 14,592], R = 6, on K1's packed maxima of
+  that batch (the path's own input);
+- K3 (``aid_vote_f32``) on the aid-weight runner's own input (200,000
+  synthetic sessions over 1,855,603 aids, the packed target) warm and cold
+  (over rotating input copies of more than 50 MB), and at [4096, 256] on rows
+  with uniform -1 tails.
+
+An entry point that either library lacks is skipped.  Prints the card's
+name and power limit and one JSON line: seconds for the builds, milliseconds
+for the kernels.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+N_PAD = 114 * 16384
+N_ITEMS = 1_855_603
+
+
+def agree(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"the parent's and this tree's {what} differ")
+
+
+def timed_builds(_kernels, work: Path) -> dict:
+    """Seconds of this tree's build as one nvcc call and as the package
+    builds it, in turns, each into a fresh library."""
+    srcs = list(map(str, _kernels.SOURCES))
+    res: dict[str, list] = {}
+    for n, how in enumerate(("one_nvcc", "nvcc_per_source", "nvcc_per_source", "one_nvcc")):
+        out = work / f"build_{n}.so"
+        t0 = time.perf_counter()
+        if how == "one_nvcc":
+            subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(out),
+                            *srcs], check=True, capture_output=True)
+        else:
+            _kernels.build(_kernels.SOURCES, out)
+        res.setdefault(f"build_s_{how}", []).append(time.perf_counter() - t0)
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.data.synthetic import synthetic_events_v2
+    from otto_tpu_torch.models.recency import VALIDATION_COEFFICIENTS
+    from otto_tpu_torch.ops import _kernels
+    from otto_tpu_torch.ops import sessions as ses
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    (REPO / "tmp").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="parent_kernels_", dir=REPO / "tmp"))
+    res = timed_builds(_kernels, work)
+    libs = {"parent": _kernels.load(_kernels.build(sorted(Path(sys.argv[1]).glob("*.cu")),
+                                                   work / "parent.so")),
+            "tree": _kernels.load(work / "build_1.so")}
+    both = {name for name in _kernels.ENTRY_POINTS
+            if all(hasattr(lib, name) for lib in libs.values())}
+    print(f"entry points of both sides: {sorted(both)}", flush=True)
+
+    dev = torch.device("cuda", 0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def turns(key, fns: dict) -> None:
+        """fns: side -> list of calls, each timed as one graph."""
+        for side in ("parent", "tree", "tree", "parent"):
+            res.setdefault(f"{key}_{side}", []).append(cs.graph_ms(torch, fns[side]))
+
+    # K1 at the neighbor table's batch
+    q = torch.randn((4096, 102), generator=g, device=dev)
+    q[:, -1] = 128.0
+    t = torch.randn((102, N_PAD), generator=g, device=dev)
+    t[-1] = 1.0
+    t[:, N_ITEMS:] = 0
+    q, t = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    x = torch.empty((4096, N_PAD // 128), device=dev)
+    if "fused_stage1_bf16" in both:
+        packed = {s: torch.empty_like(x) for s in libs}
+        k1 = {s: [lambda s=s: libs[s].fused_stage1_bf16(q.data_ptr(), t.data_ptr(),
+                                                        packed[s].data_ptr(), 4096, 102, N_PAD,
+                                                        0, stream())] for s in libs}
+        for fns in k1.values():
+            fns[0]()
+        torch.cuda.synchronize()
+        agree(torch.equal(packed["parent"].view(torch.int32), packed["tree"].view(torch.int32)),
+              "stage-1 maxima")
+        turns("k1", k1)
+        x = packed["tree"]
+    else:
+        libs["tree"].fused_stage1_bf16(q.data_ptr(), t.data_ptr(), x.data_ptr(), 4096, 102,
+                                       N_PAD, 0, stream())
+    del t
+
+    # K2 on K1's packed maxima
+    m, rounds = N_PAD // 128, 6
+    if "peel_rows_f32" in both:
+        outs = {s: (torch.empty((4096, rounds, m // 128), device=dev),
+                    torch.empty((4096, rounds, m // 128), device=dev, dtype=torch.int32))
+                for s in libs}
+        k2 = {s: [lambda s=s: libs[s].peel_rows_f32(x.data_ptr(), outs[s][0].data_ptr(),
+                                                    outs[s][1].data_ptr(), 4096, m, rounds, 0,
+                                                    stream())] for s in libs}
+        for fns in k2.values():
+            fns[0]()
+        torch.cuda.synchronize()
+        agree(torch.equal(outs["parent"][0].view(torch.int32), outs["tree"][0].view(torch.int32))
+              and torch.equal(outs["parent"][1], outs["tree"][1]), "peels")
+        turns("k2", k2)
+
+    # K3 on the aid-weight runner's own input and on [4096, 256], warm and cold
+    if "aid_vote_f32" in both:
+        sp = split_by_fraction(synthetic_events_v2(n_sessions=200_000, n_aids=N_ITEMS,
+                                                   seed=cs.SEED))
+        pk = pipelines._packed(sp.val_input)
+        to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        mask = to(pk.mask)
+        coef = torch.tensor(VALIDATION_COEFFICIENTS, dtype=torch.float32, device=dev)
+        w = ses.recency_event_weights(to(pk.aids), to(pk.types), mask, to(pk.lengths), coef)
+        runner = (torch.where(mask, to(pk.aids), -1).to(torch.int32).contiguous(),
+                  torch.where(mask, w, 0.0).contiguous())
+        gt = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+        aids = torch.randint(0, 48, (4096, 256), generator=gt, device=dev, dtype=torch.int32)
+        tail = torch.randint(0, 257, (4096, 1), generator=gt, device=dev)
+        aids[torch.arange(256, device=dev)[None, :] >= 256 - tail] = -1
+        tails = (aids, torch.where(aids >= 0, torch.randn((4096, 256), generator=gt, device=dev),
+                                   0.0))
+        for key, (a, wt) in (("k3_runner", runner), ("k3_4096x256", tails)):
+            S, L = a.shape
+            o = {s: (torch.empty((S, L), device=dev),
+                     torch.empty((S, L), device=dev, dtype=torch.int32),
+                     torch.empty((S, L), device=dev, dtype=torch.int32)) for s in libs}
+
+            def vote(s, a_, w_):
+                libs[s].aid_vote_f32(a_.data_ptr(), w_.data_ptr(), *(y.data_ptr() for y in o[s]),
+                                     S, L, 0, stream())
+
+            for s in libs:
+                vote(s, a, wt)
+            torch.cuda.synchronize()
+            agree(all(torch.equal(u, v) for u, v in zip(o["parent"], o["tree"])),
+                  f"votes ({key})")
+            copies = [(a, wt)] + [(a.clone(), wt.clone())
+                                  for _ in range(int(64e6 // (a.numel() * 8)))]
+            turns(f"{key}_warm", {s: [lambda s=s: vote(s, a, wt)] for s in libs})
+            turns(f"{key}_cold", {s: [lambda s=s, c=c: vote(s, *c) for c in copies]
+                                  for s in libs})
+            res[f"{key}_shape"] = [S, L]
+            res[f"{key}_mean_live"] = [float(np.mean((a >= 0).sum(1).cpu().numpy()))]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
