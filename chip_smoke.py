@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving paths once on one NVIDIA card: the
-embedding-kNN path, and the baselines with the covisitation heuristic.
+embedding-kNN path, the baselines with the covisitation heuristic, and the
+two-stage prediction path.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,21 @@ exit code):
    kernel for rows up to 128): on the runner's own inputs against the
    twin, the runner's lists against the twin's ranking (equal up to
    near-ties), the checks of phase 5 on synthetic rows at [1,024, L], and
-   the times of both at that shape, warm and cold.
+   the times of both at that shape, warm and cold;
+9. the two-stage artifact replay, in the order of
+   ``bench.py::e2e_artifact_bench``: phase 6's data, the committed
+   covisitation tables and fold models of ``artifacts/bench_e2e``, aid
+   features over train + target against the committed ``aid_feats.npz``,
+   the first 8,000 training-disjoint sessions, the heuristic on the host
+   routes, ``predict_two_stage`` on the card (counters zeroed before, read
+   after; each stage's seconds), recall, lift and the paired bootstrap held
+   to the CPU replay's numbers in ``BENCH_r05.json``; then the card's lists
+   against the CPU twin path on 512 sessions (bit-equal), the forest kernel
+   against its twin on the path's own rows of each type (bit-equal; CUDA
+   events and a CUDA graph), and the path once more with an SGNS model in
+   the artifacts, so the kNN candidate route launches stage 1 and the
+   peel: on the full catalog (phase 3's model, phase 7's tables and
+   sessions), since a 20,000-aid table takes the dense route.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -163,6 +178,9 @@ def warm_cold_ms(torch, call, inputs, min_bytes: float = 64e6) -> tuple[float, f
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+# int32 operations outside the tensor cores: 132 SMs x 64 int32 lanes x
+# 1.98 GHz (Hopper white paper)
+INT32_OPS_PER_S = 16.7e12
 
 
 def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -757,7 +775,7 @@ def covisit_build(torch, dev) -> dict:
           f"dispatch {stats['dispatch_s']} s, drain {stats['drain_s']} s", flush=True)
     print(f"tables vs artifacts/bench_e2e/covisitation: six kinds bit-equal; time_weighted "
           f"{swapped} of {live} ids swapped at near-ties", flush=True)
-    return {"build_s": build_s, "events": n_ev}
+    return {"build_s": build_s, "events": n_ev, "split": split}
 
 
 def baselines(torch, dev, n_sessions: int) -> dict:
@@ -839,8 +857,322 @@ def baselines(torch, dev, n_sessions: int) -> dict:
           f"({target.n_sessions / serve_s:.0f} sessions/s); host routes {host_s:.2f} s; "
           f"covisitation route device == host; recency route rows equal to the host's f64 "
           f"route: {agree}", flush=True)
-    return {"serve_s": serve_s, "target": target,
-            "aid_weight": runs["aid_weight"][0].predictions["clicks"]}
+    return {"serve_s": serve_s, "target": target, "train": sp.train, "mats": built["mats"],
+            "heur": heur, "aid_weight": runs["aid_weight"][0].predictions["clicks"]}
+
+
+# What the JAX package's CPU replay of bench.py::e2e_artifact_bench recorded
+# for the 8,000 training-disjoint sessions (BENCH_r05.json, "e2e"): rows
+# scored by the rankers, the weighted recalls and lift to four decimals, and
+# the paired bootstrap (300 draws, seed 0).
+REPLAY_SESSIONS = 8000
+REPLAY_EXPECTED = {
+    "rows": 4_416_000, "weighted": 0.6372, "heuristic": 0.6226, "lift": 0.0145,
+    "bootstrap": {"lift": 0.014549, "weighted_a": 0.637178, "weighted_b": 0.622629,
+                  "ci95": [0.008279, 0.021078], "p_le_0": 0.0, "boot_mean": 0.014389,
+                  "boot_std": 0.003385, "n_sessions": 8000, "n_boot": 300,
+                  "significant": True},
+}
+FOREST_SOURCE = "otto_tpu_torch/csrc/forest_kernels.cu"
+
+
+def forest_bound(x, pack) -> tuple[float, str]:
+    """The forest pass's bound on these rows: the binned rows and the model
+    (nodes and leaves as the kernel reads them) read once and the scores
+    written once; or its operations, one int32 operation for each node step
+    (rows x trees x depth)."""
+    n = x.shape[0]
+    n_bytes = (x.numel() + 4 * n + 4 * (pack.nodes.numel() + pack.leaf.numel())
+               + 8 * pack.n_folds)
+    return bound(n_bytes, float(n) * pack.feat.shape[0] * pack.depth, INT32_OPS_PER_S)
+
+
+def forest_twin(torch, x, pack):
+    """The fold average of ``_predict_forest_reference`` as
+    ``predict_forest`` forms it on a CPU tensor, here on ``x``'s device."""
+    from otto_tpu_torch.ops import forest
+
+    acc = None
+    for feat, thr, leaf, base in pack.folds():
+        r = forest._predict_forest_reference(x, feat, thr, leaf, base, pack.depth)
+        acc = r if acc is None else acc + r
+    return acc * torch.tensor(np.float32(1.0 / pack.n_folds), device=x.device)
+
+
+def two_stage_artifacts(sgns=None, matrices=None):
+    """The committed artifacts of ``artifacts/bench_e2e`` for the port: the
+    covisitation tables the JAX package wrote (or ``matrices``), the three
+    GBDT fold models, the training-time settings of meta.json, and ``sgns``
+    if given."""
+    from otto_tpu_torch.models.covisitation import CovisitationMatrices
+    from otto_tpu_torch.models.gbdt import load_ranker_model
+    from otto_tpu_torch.twostage import TwoStageArtifacts
+
+    art = REPO / "artifacts" / "bench_e2e"
+    meta = json.loads((art / "meta.json").read_text())
+    rankers = {n: load_ranker_model(art / f"ranker_{n}.npz") for n in meta["ranker_names"]}
+    if matrices is None:
+        matrices = CovisitationMatrices.load(art / "covisitation")
+    return TwoStageArtifacts(
+        matrices=matrices, sgns=sgns, candidates=None,
+        rankers=rankers, predictions={}, report=None, max_recall=meta.get("max_recall", {}),
+        heuristic_union=meta.get("heuristic_union", True), feature_list=meta["feature_list"])
+
+
+def two_stage_replay(torch, dev, split, n_eval: int, n_boot: int, zero_counters,
+                     read_counters) -> dict:
+    """Phase 9: ``bench.py::e2e_artifact_bench`` in artifact mode on the
+    port, in its order: the bench's data (``split``), the committed tables
+    and fold models, aid features over train + target (against the
+    committed ``aid_feats.npz``), the first ``n_eval`` training-disjoint
+    sessions, the heuristic on the host routes, ``predict_two_stage`` on the
+    card with the launch counters zeroed before and read after, recall,
+    lift and the paired bootstrap, printed beside ``REPLAY_EXPECTED`` (the
+    caller holds them to it).  Returns the path's launches, the forest
+    pass's inputs (the binned rows and the packed model of each type, kept
+    on their way into ``predict_binned_folds``) and the evaluated
+    sessions."""
+    from otto_tpu_torch import EVENT_TYPES, streaming
+    from otto_tpu_torch.eval.harness import evaluate_predictions, paired_bootstrap_lift
+    from otto_tpu_torch.features import compute_aid_features
+    from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
+    from otto_tpu_torch.models.frequency import FrequencyStatistics
+    from otto_tpu_torch.models.gbdt import GBDTRankerModel
+    from otto_tpu_torch.twostage import predict_two_stage
+
+    art = REPO / "artifacts" / "bench_e2e"
+    fit = json.loads((art / "bench_fit.json").read_text())
+    n_aids = fit["aids"]
+    artifacts = two_stage_artifacts()
+
+    t0 = time.perf_counter()
+    aid_feats = compute_aid_features(streaming._union_stats_store(split.train, split.val_input),
+                                     n_aids)
+    feats_s = time.perf_counter() - t0
+    worst, worst_key, differ = 0.0, None, []
+    with np.load(art / "aid_feats.npz") as z:
+        check(set(z.files) == set(aid_feats), "aid feature names differ from aid_feats.npz")
+        for k in sorted(z.files):
+            a, b = aid_feats[k], z[k]
+            check(np.array_equal(np.isnan(a), np.isnan(b)), f"aid feature {k}: NaN pattern")
+            fin = ~np.isnan(b)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rel = float(np.max(np.abs(a[fin] - b[fin]) / np.abs(b[fin]), initial=0.0,
+                                   where=b[fin] != 0))
+            rel = max(rel, float(np.max(np.abs(a[fin]), initial=0.0, where=b[fin] == 0)))
+            if rel > 0:
+                differ.append(f"{k} {rel:.3e}")
+            if rel >= worst:
+                worst, worst_key = rel, k
+    print(f"aid features over train + target ({len(aid_feats)} keys, {feats_s:.2f} s) vs "
+          f"artifacts/bench_e2e/aid_feats.npz: NaN in the same places; largest relative "
+          f"difference {worst:.3e} ({worst_key}); keys that differ: "
+          f"{', '.join(differ) if differ else 'none'}", flush=True)
+    check(worst <= 1e-6, f"aid features: relative difference {worst} ({worst_key})")
+
+    S = split.val_input.n_sessions
+    fit_idx = streaming.train_subset_indices(S, fit["train_sessions"], fit["train_subset_seed"])
+    pool = np.ones(S, bool)
+    pool[fit_idx] = False
+    eval_idx = np.flatnonzero(pool)[:n_eval]
+    emask = np.zeros(S, bool)
+    emask[eval_idx] = True
+    sub = split.val_input.select_sessions(emask)
+    sub_labels = split.val_labels.take(eval_idx)
+
+    t0 = time.perf_counter()
+    stats = FrequencyStatistics.compute(split.train, n_aids=n_aids, device=dev)
+    heur = covisit_heuristic_predictions(
+        sub, artifacts.matrices, {t: stats.top_by_type[t] for t in EVENT_TYPES},
+        chunk_sessions=512, recency_host_f64=True, covisit_host=True, device=dev)
+    heur_s = time.perf_counter() - t0
+
+    captured = []
+    real = GBDTRankerModel.predict_binned_folds
+
+    def keep_inputs(self, binned, *, device):  # the path's own forest inputs, kept
+        captured.append((binned, self))
+        return real(self, binned, device=device)
+
+    pstats: dict = {}
+    GBDTRankerModel.predict_binned_folds = keep_inputs
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        preds = predict_two_stage(artifacts, split.train, sub, n_aids, aid_feats=aid_feats,
+                                  heuristic_preds=heur, chunk_sessions=512, stats_out=pstats,
+                                  device=dev)
+        sync(torch, dev)
+        predict_s = time.perf_counter() - t0
+        launches = read_counters("two-stage path", ("predict_forest",))
+    finally:
+        GBDTRankerModel.predict_binned_folds = real
+    rows = sum(v for k, v in pstats.items() if k.startswith("rows_"))
+    print(f"predict_two_stage on {sub.n_sessions} training-disjoint sessions: {predict_s:.2f} s "
+          f"({sub.n_sessions / predict_s:.0f} sessions/s, {rows / predict_s:.0f} ranker rows/s); "
+          f"{rows} ranker rows", flush=True)
+    print("stages (s): " + ", ".join(
+        f"{k[:-2]} {pstats[k]:.3f}" for k in ("candidates_s", "union_s", "features_s",
+                                               "binning_s", "forest_s", "blend_s"))
+          + f"; heuristic on the host routes (given to the path) {heur_s:.3f}", flush=True)
+
+    for t in EVENT_TYPES:
+        p = preds[t]
+        check(p.shape == (sub.n_sessions, 20) and p.min() >= -1 and p.max() < n_aids,
+              f"two-stage {t}: prediction shape/range")
+    rep = evaluate_predictions(sub_labels, preds["clicks"], preds["carts"], preds["orders"],
+                               device=dev)
+    heur_rep = evaluate_predictions(sub_labels, heur["clicks"], heur["carts"], heur["orders"],
+                                    device=dev)
+    boot = paired_bootstrap_lift(sub_labels, preds, heur, n_boot=n_boot)
+    got = {"rows": rows, "weighted": round(rep.weighted, 4),
+           "heuristic": round(heur_rep.weighted, 4),
+           "lift": round(rep.weighted - heur_rep.weighted, 4), "bootstrap": boot}
+    print(f"weighted recall@20 {rep.weighted:.6f} (clicks {rep.clicks:.6f}, carts "
+          f"{rep.carts:.6f}, orders {rep.orders:.6f}); heuristic {heur_rep.weighted:.6f}; lift "
+          f"{rep.weighted - heur_rep.weighted:+.6f}; paired bootstrap {json.dumps(boot)}",
+          flush=True)
+    same = {k: got[k] == v for k, v in REPLAY_EXPECTED.items()}
+    print(f"against BENCH_r05.json's CPU replay (rows, recalls and lift to four decimals, the "
+          f"bootstrap): equal {same} (held to it once phase 9's other checks have run)",
+          flush=True)
+    check(len(captured) == 3 and (dev.type != "cuda" or launches["predict_forest"] == 3),
+          "the path did not make one forest launch a type")
+    forest_inputs = [(torch.as_tensor(b, device=dev), m.packed(dev)) for b, m in captured]
+    return {"launches": launches, "forest_inputs": forest_inputs, "artifacts": artifacts,
+            "replay": got, "sub": sub, "heur": heur, "aid_feats": aid_feats,
+            "n_aids": n_aids}
+
+
+def two_stage_parity(torch, dev, split, replay: dict, n_parity: int) -> None:
+    """Phase 9: on the first ``n_parity`` replay sessions, the card's lists
+    equal those of the port's CPU twin path (kernels' plain twins, the same
+    numpy host stages), bit for bit.  (Not the full run's lists: the
+    per-candidate-aid interaction features aggregate over the sessions
+    scored together.)"""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.twostage import predict_two_stage
+
+    sub = replay["sub"]
+    keep = np.zeros(sub.n_sessions, bool)
+    keep[:n_parity] = True
+    part = sub.select_sessions(keep)
+    heur = {t: h[:n_parity] for t, h in replay["heur"].items()}
+    kw = dict(aid_feats=replay["aid_feats"], heuristic_preds=heur, chunk_sessions=512)
+    t0 = time.perf_counter()
+    on_card = predict_two_stage(replay["artifacts"], split.train, part, replay["n_aids"],
+                                device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = predict_two_stage(replay["artifacts"], split.train, part, replay["n_aids"],
+                               device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    for t in EVENT_TYPES:
+        check(np.array_equal(on_card[t], on_cpu[t]), f"two-stage {t}: card and CPU twin differ")
+    print(f"{n_parity} sessions: the card's lists equal the CPU twin path's, bit for bit "
+          f"(card {card_s:.2f} s, CPU {cpu_s:.2f} s)", flush=True)
+
+
+def forest_vs_twin(torch, dev, replay: dict) -> dict:
+    """Phase 9: the forest kernel against its twin on the path's own binned
+    rows of each type, bit-equal; then its time by CUDA events over a loop
+    of calls and by a CUDA graph (device time alone), the twin's, and the
+    bound.  Returns the kernel's record (at the clicks launch, the largest
+    model)."""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.ops import forest
+
+    rec = None
+    for etype, (x, pack) in zip(EVENT_TYPES, replay["forest_inputs"]):
+        k, r = forest.predict_forest(x, pack), forest_twin(torch, x, pack)
+        sync(torch, dev)
+        check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+              f"forest kernel {etype}: differs from its twin on the path's rows")
+        err = (k - r).abs().max().item()
+        if dev.type == "cuda":
+            loop = cuda_ms(torch, lambda: forest.predict_forest(x, pack), 10)
+            dev_ms = graph_ms(torch, [lambda: forest.predict_forest(x, pack)])
+            plain = cuda_ms(torch, lambda: forest_twin(torch, x, pack), 1)
+        else:  # a rehearsal on the CPU
+            loop = dev_ms = _host_ms(lambda: forest.predict_forest(x, pack), 1)
+            plain = _host_ms(lambda: forest_twin(torch, x, pack), 1)
+        b = forest_bound(x, pack)
+        trees = pack.feat.shape[0]
+        print(f"forest {etype} [{x.shape[0]} x {x.shape[1]}] uint8, {pack.n_folds} folds, "
+              f"{trees} trees of depth {pack.depth}: kernel bit-equal to its twin; kernel "
+              f"{loop:.4f} ms (loop) / {dev_ms:.4f} ms (CUDA graph), twin {plain:.3f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}: {x.shape[0] * trees * pack.depth:.3e} node steps): "
+              f"{100 * b[0] / dev_ms:.1f}% of it", flush=True)
+        if rec is None:
+            rec = {"name": "predict_forest", "route": "cuda", "source": FOREST_SOURCE,
+                   "replaces": "otto_tpu/models/gbdt.py:334 (XLA, not Pallas)", "launches": 0,
+                   "max_abs_err": err, "ms": dev_ms, "plain_ms": plain, "bound_ms": b[0],
+                   "bound_by": b[1], "library_ms": None}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return rec
+
+
+def two_stage_knn(torch, dev, model, base: dict, n_sessions: int, zero_counters,
+                  read_counters) -> dict:
+    """Phase 9: ``predict_two_stage`` with an SGNS model in the artifacts, so
+    the candidates take the kNN route.  At the bench's 20,000 aids the
+    neighbor table takes the dense route in both packages (a table of at
+    most 4 x 16,384 padded items is scored by one matmul, no stage 1), so
+    this pass runs on the full catalog: phase 3's seeded 1,855,603 x 32
+    model, phase 7's covisitation tables and heuristic lists, and the first
+    ``n_sessions`` of phase 7's target, with the committed fold models.  The
+    counters are zeroed before and read after: stage 1, the peel and the
+    forest pass must all launch.  No equality demand (the table is
+    approximate): the path's own table against the exact scan on 256 aids,
+    overlap >= 0.99.  Returns the launches."""
+    from otto_tpu_torch.ops.retrieval import topk_scan
+    from otto_tpu_torch.twostage import predict_two_stage
+
+    n_aids = model.w_in.shape[0]
+    artifacts = two_stage_artifacts(sgns=model, matrices=base["mats"])
+    keep = np.zeros(base["target"].n_sessions, bool)
+    keep[:n_sessions] = True
+    sub = base["target"].select_sessions(keep)
+    heur = {t: h[:n_sessions] for t, h in base["heur"].items()}
+    tables = []
+    real = model.neighbor_table
+
+    def keep_table(k, **kw):  # the path's own neighbor table, kept for the check
+        tables.append(real(k, **kw))
+        return tables[-1]
+
+    pstats: dict = {}
+    model.neighbor_table = keep_table
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        preds = predict_two_stage(artifacts, base["train"], sub, n_aids, heuristic_preds=heur,
+                                  chunk_sessions=512, stats_out=pstats, device=dev)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters("two-stage path with an SGNS model",
+                                 ("fused_stage1", "peel_rows", "predict_forest"))
+    finally:
+        del model.neighbor_table
+    rows = sum(v for k, v in pstats.items() if k.startswith("rows_"))
+    for t, p in preds.items():
+        check(p.shape == (n_sessions, 20) and p.min() >= -1 and p.max() < n_aids,
+              f"two-stage with SGNS {t}: prediction shape/range")
+    table = tables[0]
+    sample = np.random.default_rng(SEED + 10).choice(n_aids, 256, replace=False)
+    _, ei = topk_scan(model.w_in[torch.as_tensor(sample, device=dev)], model.w_in, k=21,
+                      metric="euclidean")
+    ei = ei.cpu().numpy()
+    exact = np.stack([r[r != a][:20] for r, a in zip(ei, sample)])
+    rec = overlap(table[sample], exact)
+    print(f"predict_two_stage with a {n_aids} x {model.w_in.shape[1]} SGNS model over "
+          f"{n_sessions} sessions ({rows} ranker rows): {secs:.2f} s, of which candidates "
+          f"(the neighbor table included) {pstats['candidates_s']:.2f}, features "
+          f"{pstats['features_s']:.2f}, binning {pstats['binning_s']:.2f}, forest "
+          f"{pstats['forest_s']:.3f}; its neighbor table (k=20) vs the exact scan on 256 aids: "
+          f"overlap {rec:.4f} (limit 0.99)", flush=True)
+    check(rec >= 0.99, f"two-stage SGNS neighbor-table overlap {rec} < 0.99")
+    return launches
 
 
 def main() -> int:
@@ -850,13 +1182,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
               "CUDA card", file=sys.stderr)
         return 2
-    from otto_tpu_torch.ops import _kernels, fused_retrieval, fused_sessions, row_topk
+    from otto_tpu_torch.ops import _kernels, forest, fused_retrieval, fused_sessions, row_topk
 
     # each kernel's launch counter: (the wrapper, its attribute)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
-                "aid_vote": (fused_sessions.aid_vote_aggregate, "launches")}
+                "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
+                "predict_forest": (forest.predict_forest, "launches")}
 
     def zero_counters():
         for fn, attr in counters.values():
@@ -912,7 +1245,6 @@ def main() -> int:
     with phase("4 serving path"):
         serve(torch, dev, model, 20_000, 256)
     knn = read_counters("embedding-kNN serving path", ("fused_stage1", "peel_rows", "aid_vote"))
-    del model
     torch.cuda.empty_cache()
 
     with phase("5 session vote vs plain twin"):
@@ -924,7 +1256,7 @@ def main() -> int:
               flush=True)
 
     with phase("6 covisitation build vs committed tables"):
-        covisit_build(torch, dev)
+        bench_split = covisit_build(torch, dev)["split"]
 
     zero_counters()
     with phase("7 baselines and covisitation heuristic"):
@@ -948,10 +1280,29 @@ def main() -> int:
           f"cold {100 * k3_bound[0] / on_path['ms']:.1f}%, warm "
           f"{100 * k3_bound[0] / on_path['warm_ms']:.1f}% of it", flush=True)
 
+    with phase("9 two-stage artifact replay (bench.py::e2e_artifact_bench on the card)"):
+        replay = two_stage_replay(torch, dev, bench_split, REPLAY_SESSIONS, 300, zero_counters,
+                                  read_counters)
+    two_stage = replay["launches"]
+    with phase("9 two-stage: card vs CPU twin path on 512 sessions"):
+        two_stage_parity(torch, dev, bench_split, replay, 512)
+    with phase("9 forest kernel vs its twin on the path's rows"):
+        records.append(forest_vs_twin(torch, dev, replay))
+    check(replay["replay"] == REPLAY_EXPECTED, f"two-stage replay {replay['replay']} differs "
+          f"from BENCH_r05.json's {REPLAY_EXPECTED}")
+    del replay, bench_split
+    with phase("9 two-stage with an SGNS model on the full catalog (the kNN candidate route)"):
+        two_stage_sgns = two_stage_knn(torch, dev, model, path, 2000, zero_counters,
+                                       read_counters)
+    del model, path
+
     # launches: each kernel's count on the path it serves (the FMA route on
-    # the wide table, the vote on the baselines' path, whose shape is timed)
-    paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur}
-    home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur}
+    # the wide table, the vote on the baselines' path, whose shape is timed;
+    # the forest pass on the two-stage path)
+    paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
+             "two_stage": two_stage, "two_stage_sgns": two_stage_sgns}
+    home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
+            "predict_forest": two_stage}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}

@@ -4,14 +4,24 @@
 layout and names, so each module's counterpart sits at the same path.  It
 imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
-Ported so far (the embedding-kNN serving slice):
+Ported so far (the embedding-kNN, baseline and two-stage prediction paths):
 
-- ``otto_tpu_torch.data``    event store, labels, splits, synthetic data (copied numpy)
-- ``otto_tpu_torch.eval``    recall@20 metrics and the validation harness
-- ``otto_tpu_torch.ops``     fused retrieval (hand-written CUDA kernels for the
-                             stage-1 window max and the window peel), exact
-                             scan, neighbor tables, session recency ranking
-- ``otto_tpu_torch.models``  SGNS inference and the embedding-kNN recommender
+- ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy)
+- ``otto_tpu_torch.eval``     recall@20 and MAP@k metrics, the validation
+                              harness, the paired bootstrap of a lift
+- ``otto_tpu_torch.features`` aid, session and interaction features (copied
+                              numpy, with the native segment-stats engine)
+- ``otto_tpu_torch.ops``      fused retrieval (hand-written CUDA kernels for the
+                              stage-1 window max and the window peel), exact
+                              scan, neighbor tables, session ranking and the
+                              session vote kernel, multiset and covisitation
+                              ops, forest routing (a CUDA kernel)
+- ``otto_tpu_torch.models``   SGNS inference and the embedding-kNN recommender,
+                              frequency and recency baselines, covisitation
+                              and its heuristic, candidate generators, GBDT
+                              inference
+- ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
+                              prediction with trained artifacts
 
 Constants are those of ``otto_tpu/__init__.py``.
 """

@@ -8,7 +8,8 @@ reference (src/metrics.py:4-61):
 - **cart/order recall**: ``tp / min(20, tp + fn)`` per session; sessions with
   no labels are excluded.
 - **weighted recall@20** = 0.1*click + 0.3*cart + 0.6*order.
-- **corpus-level recall**: ``sum(hits) / sum(clip(|labels|, 0, 20))``.
+- **corpus-level recall**: ``sum(hits) / sum(clip(|labels|, 0, 20))``;
+- **MAP@k** over candidate lists, the GBDTs' early-stopping metric.
 
 Inputs are padded tensors — predictions ``[S, K]`` and labels ``[S, M]``
 padded with ``-1`` — and the work runs on their device.  Ratios are taken in
@@ -70,3 +71,31 @@ def corpus_recall_at_k(predictions: torch.Tensor, labels: torch.Tensor, k: int =
 def weighted_recall(click: float, cart: float, order: float) -> float:
     w_click, w_cart, w_order = TYPE_WEIGHTS
     return w_click * click + w_cart * cart + w_order * order
+
+
+def map_at_k(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+             k: int = 20) -> torch.Tensor:
+    """Mean average precision @ k over per-session candidate lists — the
+    reference GBDTs' training eval metric (models/lightgbm/config.yaml:94-96,
+    ``map`` with ``eval_at: 20/50``).
+
+    scores: float [S, C] (higher = ranked earlier; -inf for invalid),
+    labels: {0,1} int [S, C], mask: bool [S, C].  Sessions with no positive
+    candidates are excluded from the mean (LightGBM semantics).  Returns a
+    float32 scalar.  The order is ``jax.lax.top_k``'s: float32 total order
+    (+0.0 above -0.0), ties to the lower column (a stable descending sort of
+    the bits mapped to ordered integers).
+    """
+    S, C = scores.shape
+    kk = min(k, C)
+    bits = torch.where(mask, scores.to(torch.float32), float("-inf")).view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    order = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :kk]
+    rel = torch.gather(torch.where(mask, labels, 0).to(torch.float32), 1, order)
+    ranks = torch.arange(1, kk + 1, dtype=torch.float32, device=scores.device)[None, :]
+    cum_rel = torch.cumsum(rel, dim=1)
+    precision_at_hit = (cum_rel / ranks) * rel
+    n_pos = torch.where(mask, labels, 0).sum(dim=1).to(torch.float32)
+    denom = n_pos.clamp(max=float(kk))
+    ap = torch.where(denom > 0, precision_at_hit.sum(dim=1) / denom.clamp(min=1.0), torch.nan)
+    return torch.nanmean(ap)

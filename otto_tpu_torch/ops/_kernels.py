@@ -91,7 +91,7 @@ def build(sources=SOURCES, out: Path | None = None) -> Path:
     return out
 
 
-_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the C entry points and their arguments; each returns a cudaError_t
 ENTRY_POINTS = {
     "fused_stage1_bf16": [_p, _p, _p, _i, _i, _ll, _i, _p],
@@ -99,6 +99,7 @@ ENTRY_POINTS = {
     "fused_stage1_bf16_fma": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "peel_rows_f32": [_p, _p, _p, _i, _i, _i, _i, _p],
     "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "predict_forest": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p],
 }
 
 
@@ -170,3 +171,16 @@ def launch_aid_vote(aids: torch.Tensor, weights: torch.Tensor, agg: torch.Tensor
                              first.data_ptr(), firstpos.data_ptr(), aids.shape[0],
                              aids.shape[1], aids.device.index, _stream(aids))
     _check(err, "aid_vote_f32")
+
+
+def launch_predict_forest(binned: torch.Tensor, nodes: torch.Tensor, leaves: torch.Tensor,
+                          fold_end: torch.Tensor, base: torch.Tensor, out: torch.Tensor,
+                          depth: int, inv: float) -> None:
+    """binned uint8 [N, F], nodes int32 [T, 2^depth - 1] ((thr << 16) |
+    feat), leaves f32 [T, 2^depth], fold_end int32 and base f32 [n_folds]
+    -> out f32 [N], the fold sum times ``inv``."""
+    err = lib().predict_forest(binned.data_ptr(), nodes.data_ptr(), leaves.data_ptr(),
+                               fold_end.data_ptr(), base.data_ptr(), out.data_ptr(),
+                               binned.shape[0], binned.shape[1], fold_end.shape[0], depth,
+                               inv, binned.device.index, _stream(binned))
+    _check(err, "predict_forest")

@@ -17,7 +17,9 @@ the window position on >= 99.9% of windows.  The session vote runs at the
 aid-weight path's shape [20,000, 76], at [4096, 256], at a ragged L and at
 L = 300 (the block kernel): ``first`` and ``firstpos`` bit-equal, ``agg``
 bit-equal on integer weights and within 2^-16 * sum_j |w_j| of its row on
-normal weights.
+normal weights.  The forest kernel routes the committed fold models at 1,
+115 and 1,472,000 rows (the two-stage replay's rows a type): bit-equal to
+its twin (the same float32 additions in the same order).
 """
 
 import pytest
@@ -190,3 +192,55 @@ def test_cuda_vote_kernel_matches_twin(cuda_device, shape):
         tfs.aid_vote_aggregate(aids.long(), w)
     with pytest.raises(ValueError):  # a strided view, non-contiguous at every L
         tfs.aid_vote_aggregate(aids.repeat(1, 2)[:, ::2], w.repeat(1, 2)[:, ::2])
+
+
+def _forest_rows(n, seed):
+    """Random bins [n, 55] with all-NaN rows (bin 0) and rows of bin 255;
+    the committed models hold nodes with thr = 256, which every bin passes
+    to the left."""
+    g = torch.Generator().manual_seed(seed)
+    b = torch.randint(0, 256, (n, 55), generator=g, dtype=torch.int32).to(torch.uint8)
+    b[: max(n // 8, 1)] = 0
+    b[n // 8: n // 4] = 255
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", ["clicks", "carts", "orders"])
+@pytest.mark.parametrize("n", [1, 115, 1_472_000])
+def test_cuda_forest_kernel_bit_equal_to_twin(cuda_device, etype, n):
+    """The committed fold models (three folds, depth 7) at one row, a
+    ragged block and the replay's 1,472,000 rows a type: the kernel's
+    fold-averaged scores bit-equal to the twin's fold loop."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from otto_tpu_torch.models.gbdt import load_ranker_model
+    from otto_tpu_torch.ops import forest as tfo
+
+    model = load_ranker_model(Path(__file__).resolve().parent.parent / "artifacts" /
+                              "bench_e2e" / f"ranker_{etype}.npz")
+    assert max(int(f.thr.max()) for f in model.forests) == 256
+    pack = model.packed(cuda_device)
+    x = _forest_rows(n, n).to(cuda_device)
+    before = tfo.predict_forest.launches
+    k = tfo.predict_forest(x, pack)
+    torch.cuda.synchronize()
+    assert tfo.predict_forest.launches == before + 1
+    acc = None
+    for feat, thr, leaf, base in pack.folds():
+        r = tfo._predict_forest_reference(x, feat, thr, leaf, base, pack.depth)
+        acc = r if acc is None else acc + r
+    want = acc * torch.tensor(np.float32(1 / 3), device=cuda_device)
+    assert torch.equal(k.view(torch.int32), want.view(torch.int32))
+    if n == 115:
+        cpu = tfo.predict_forest(x.cpu(), model.packed("cpu"))
+        assert torch.equal(k.cpu().view(torch.int32), cpu.view(torch.int32))
+        with pytest.raises(ValueError):  # rows and model on different devices
+            tfo.predict_forest(x, model.packed("cpu"))
+        with pytest.raises(ValueError):  # rows wider than the kernel stages
+            tfo.predict_forest(torch.zeros((4, 385), dtype=torch.uint8, device=cuda_device),
+                               pack)
+        with pytest.raises(ValueError):  # a strided view
+            tfo.predict_forest(x.repeat(1, 2)[:, ::2], pack)
