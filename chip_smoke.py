@@ -62,11 +62,14 @@ exit code):
    features over train + target against the committed ``aid_feats.npz``,
    the first 8,000 training-disjoint sessions, the heuristic on the host
    routes, ``predict_two_stage`` on the card (counters zeroed before, read
-   after; each stage's seconds), recall, lift and the paired bootstrap held
-   to the CPU replay's numbers in ``BENCH_r05.json``; then the card's lists
-   against the CPU twin path on 512 sessions (bit-equal), the forest kernel
-   against its twin on the path's own rows of each type (bit-equal; CUDA
-   events and a CUDA graph), and the path once more with an SGNS model in
+   after: one float-row forest launch a type, no host binning; each
+   stage's seconds), recall, lift and the paired bootstrap held to the CPU
+   replay's numbers in ``BENCH_r05.json``; then the card's lists against
+   the CPU twin path on 512 sessions (bit-equal); the pre-binned scoring
+   path (``predict_binned_folds`` on numpy bins: the kernel's uint8 entry);
+   the forest kernel's two entries against their twins on the path's own
+   rows of each type and on rows of edge and special values (bit-equal;
+   CUDA events and a CUDA graph), and the path once more with an SGNS model in
    the artifacts, so the kNN candidate route launches stage 1 and the
    peel: on the full catalog (phase 3's model, phase 7's tables and
    sessions), since a 20,000-aid table takes the dense route.
@@ -876,15 +879,40 @@ REPLAY_EXPECTED = {
 FOREST_SOURCE = "otto_tpu_torch/csrc/forest_kernels.cu"
 
 
-def forest_bound(x, pack) -> tuple[float, str]:
-    """The forest pass's bound on these rows: the binned rows and the model
-    (nodes and leaves as the kernel reads them) read once and the scores
-    written once; or its operations, one int32 operation for each node step
-    (rows x trees x depth)."""
-    n = x.shape[0]
-    n_bytes = (x.numel() + 4 * n + 4 * (pack.nodes.numel() + pack.leaf.numel())
+def forest_bound(x, pack, edges=None) -> tuple[float, str]:
+    """The forest pass's bound on these rows: the rows (uint8 bins, or
+    float32 rows with ``edges``, the [F, 256] edges the kernel reads) and the
+    model (its slices, as the kernel reads them) read once and the scores
+    written once; or its operations at the int32 rate: one for each node step
+    (rows x trees x depth), and for float rows 8 compares a value (the edge
+    search)."""
+    n, F = x.shape
+    n_bytes = (x.numel() * x.element_size() + 4 * n + 4 * pack.model.numel()
                + 8 * pack.n_folds)
-    return bound(n_bytes, float(n) * pack.feat.shape[0] * pack.depth, INT32_OPS_PER_S)
+    ops = float(n) * pack.n_trees * pack.depth
+    if edges is not None:
+        n_bytes += edges.numel() * 4
+        ops += 8.0 * n * F
+    return bound(n_bytes, ops, INT32_OPS_PER_S)
+
+
+def edge_rows(edges: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """Float32 rows [n, F] against a model's ``edges`` [F, E]: lognormal
+    values, with a third of the cells an edge value, the float above or below
+    one, or a special value (NaN, +-inf, +-0.0, denormals, float32 max)."""
+    rng = np.random.default_rng(seed)
+    F, E = edges.shape
+    e = edges[np.arange(F)[None, :], rng.integers(0, E, (n, F))]
+    fmax = np.finfo(np.float32).max
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 5e-40, -5e-40,
+                        1.1754942e-38, fmax, -fmax], np.float32)
+    x = rng.lognormal(size=(n, F)).astype(np.float32)
+    kind = rng.integers(0, 9, (n, F))
+    x = np.where(kind == 0, e, x)
+    with np.errstate(over="ignore"):
+        x = np.where(kind == 1, np.nextafter(e, np.float32(np.inf)), x)
+        x = np.where(kind == 2, np.nextafter(e, np.float32(-np.inf)), x)
+    return np.where(kind == 3, special[rng.integers(0, len(special), (n, F))], x)
 
 
 def forest_twin(torch, x, pack):
@@ -928,13 +956,15 @@ def two_stage_replay(torch, dev, split, n_eval: int, n_boot: int, zero_counters,
     sessions, the heuristic on the host routes, ``predict_two_stage`` on the
     card with the launch counters zeroed before and read after, recall,
     lift and the paired bootstrap, printed beside ``REPLAY_EXPECTED`` (the
-    caller holds them to it).  Returns the path's launches, the forest
-    pass's inputs (the binned rows and the packed model of each type, kept
-    on their way into ``predict_binned_folds``) and the evaluated
-    sessions."""
+    caller holds them to it).  On the card the path must make one launch of
+    the float-row forest kernel a type and call the host binning
+    (``bin_features``) not once.  Returns the path's launches, the forest
+    pass's inputs (the float32 rows on the card and the model of each type,
+    kept on their way into ``predict_rows``) and the evaluated sessions."""
     from otto_tpu_torch import EVENT_TYPES, streaming
     from otto_tpu_torch.eval.harness import evaluate_predictions, paired_bootstrap_lift
     from otto_tpu_torch.features import compute_aid_features
+    from otto_tpu_torch.models import gbdt
     from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
     from otto_tpu_torch.models.frequency import FrequencyStatistics
     from otto_tpu_torch.models.gbdt import GBDTRankerModel
@@ -987,15 +1017,19 @@ def two_stage_replay(torch, dev, split, n_eval: int, n_boot: int, zero_counters,
         chunk_sessions=512, recency_host_f64=True, covisit_host=True, device=dev)
     heur_s = time.perf_counter() - t0
 
-    captured = []
-    real = GBDTRankerModel.predict_binned_folds
+    captured, host_binning = [], []
+    real, real_bin = GBDTRankerModel.predict_rows, gbdt.bin_features
 
-    def keep_inputs(self, binned, *, device):  # the path's own forest inputs, kept
-        captured.append((binned, self))
-        return real(self, binned, device=device)
+    def keep_inputs(self, x, stats=None):  # the path's own forest inputs, kept
+        captured.append((x, self))
+        return real(self, x, stats)
+
+    def count_binning(*args):  # host binning calls on the path
+        host_binning.append(1)
+        return real_bin(*args)
 
     pstats: dict = {}
-    GBDTRankerModel.predict_binned_folds = keep_inputs
+    GBDTRankerModel.predict_rows, gbdt.bin_features = keep_inputs, count_binning
     try:
         zero_counters()
         t0 = time.perf_counter()
@@ -1004,9 +1038,9 @@ def two_stage_replay(torch, dev, split, n_eval: int, n_boot: int, zero_counters,
                                   device=dev)
         sync(torch, dev)
         predict_s = time.perf_counter() - t0
-        launches = read_counters("two-stage path", ("predict_forest",))
+        launches = read_counters("two-stage path", ("predict_forest_rows",))
     finally:
-        GBDTRankerModel.predict_binned_folds = real
+        GBDTRankerModel.predict_rows, gbdt.bin_features = real, real_bin
     rows = sum(v for k, v in pstats.items() if k.startswith("rows_"))
     print(f"predict_two_stage on {sub.n_sessions} training-disjoint sessions: {predict_s:.2f} s "
           f"({sub.n_sessions / predict_s:.0f} sessions/s, {rows / predict_s:.0f} ranker rows/s); "
@@ -1036,9 +1070,11 @@ def two_stage_replay(torch, dev, split, n_eval: int, n_boot: int, zero_counters,
     print(f"against BENCH_r05.json's CPU replay (rows, recalls and lift to four decimals, the "
           f"bootstrap): equal {same} (held to it once phase 9's other checks have run)",
           flush=True)
-    check(len(captured) == 3 and (dev.type != "cuda" or launches["predict_forest"] == 3),
-          "the path did not make one forest launch a type")
-    forest_inputs = [(torch.as_tensor(b, device=dev), m.packed(dev)) for b, m in captured]
+    print(f"host binning calls on the path: {len(host_binning)}", flush=True)
+    check(len(captured) == 3 and not host_binning
+          and (dev.type != "cuda" or launches["predict_forest_rows"] == 3),
+          "the path did not make one float-row forest launch a type without host binning")
+    forest_inputs = [(x, m) for x, m in captured]
     return {"launches": launches, "forest_inputs": forest_inputs, "artifacts": artifacts,
             "replay": got, "sub": sub, "heur": heur, "aid_feats": aid_feats,
             "n_aids": n_aids}
@@ -1073,43 +1109,106 @@ def two_stage_parity(torch, dev, split, replay: dict, n_parity: int) -> None:
           f"(card {card_s:.2f} s, CPU {cpu_s:.2f} s)", flush=True)
 
 
-def forest_vs_twin(torch, dev, replay: dict) -> dict:
-    """Phase 9: the forest kernel against its twin on the path's own binned
-    rows of each type, bit-equal; then its time by CUDA events over a loop
-    of calls and by a CUDA graph (device time alone), the twin's, and the
-    bound.  Returns the kernel's record (at the clicks launch, the largest
-    model)."""
+def prebinned_path(torch, dev, replay: dict, zero_counters, read_counters) -> dict:
+    """Phase 9: the uint8 entry of the forest kernel through its user entry
+    point: the clicks rows of the replay binned by the host's numpy
+    ``bin_features`` (``GBDTRankerModel.bin``, the JAX package's API) and
+    scored by ``predict_binned_folds`` on the card, counters zeroed before
+    and read after.  The host's bins must equal the card twin's binning of
+    the same rows, and the scores the float-row kernel's.  Returns the
+    launches."""
+    from otto_tpu_torch.ops import forest
+
+    x, model = replay["forest_inputs"][0]
+    t0 = time.perf_counter()
+    host_bins = model.bin(x.cpu().numpy())
+    bin_s = time.perf_counter() - t0
+    check(np.array_equal(host_bins, forest._bin_rows_reference(x, model.packed_edges(dev))
+                         .cpu().numpy()), "numpy bin_features and the twin's binning differ")
+    zero_counters()
+    got = model.predict_binned_folds(host_bins, device=dev)
+    sync(torch, dev)
+    launches = read_counters("pre-binned scoring path", ("predict_forest",))
+    want = model.predict_rows(x).cpu().numpy()
+    check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+          "predict_binned_folds on numpy bins and the float-row kernel differ")
+    print(f"pre-binned path, clicks [{x.shape[0]} x {x.shape[1]}]: numpy bin_features "
+          f"{bin_s:.2f} s on the host, equal to the twin's binning on the card; "
+          f"predict_binned_folds equal to the float-row kernel, bit for bit", flush=True)
+    return launches
+
+
+def forest_vs_twin(torch, dev, replay: dict) -> list[dict]:
+    """Phase 9: the forest kernel against its twins on the path's own float32
+    rows of each type: the float-row entry against the twin's binning
+    (``torch.searchsorted``) and routing, the uint8 entry against the
+    routing twin on the same rows binned, all bit-equal; then on rows of
+    edge values and special values for each model.  Times (CUDA events over
+    a loop of calls, and a CUDA graph: device time alone) of both entries,
+    the twins, the twin's binning alone (``torch.searchsorted``, context for
+    the kernel's staging) and the bounds.  Returns the records of both
+    entries (at the clicks launch, the largest model)."""
     from otto_tpu_torch import EVENT_TYPES
     from otto_tpu_torch.ops import forest
 
-    rec = None
-    for etype, (x, pack) in zip(EVENT_TYPES, replay["forest_inputs"]):
-        k, r = forest.predict_forest(x, pack), forest_twin(torch, x, pack)
+    recs: dict = {}
+    for etype, (x, model) in zip(EVENT_TYPES, replay["forest_inputs"]):
+        pack, edges = model.packed(dev), model.packed_edges(dev)
+        binned = forest._bin_rows_reference(x, edges)
+        r = forest_twin(torch, binned, pack)
+        k_rows, k_bins = forest.predict_forest_rows(x, edges, pack), forest.predict_forest(binned,
+                                                                                          pack)
         sync(torch, dev)
-        check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
-              f"forest kernel {etype}: differs from its twin on the path's rows")
-        err = (k - r).abs().max().item()
+        for name, k in (("float-row", k_rows), ("uint8", k_bins)):
+            check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+                  f"forest kernel ({name} entry) {etype}: differs from its twin on the path's "
+                  "rows")
+        xe = torch.as_tensor(edge_rows(model.edges, 100_000, SEED + 20), device=dev)
+        be = forest._bin_rows_reference(xe, edges)
+        check(np.array_equal(be.cpu().numpy(), model.bin(xe.cpu().numpy())),
+              f"{etype}: the twin's binning of edge rows differs from numpy bin_features")
+        ke, re_ = forest.predict_forest_rows(xe, edges, pack), forest_twin(torch, be, pack)
+        sync(torch, dev)
+        check(torch.equal(ke.view(torch.int32), re_.view(torch.int32)),
+              f"forest kernel (float-row entry) {etype}: differs from its twin on edge rows")
+        err = max((k_rows - r).abs().max().item(), (ke - re_).abs().max().item())
+        del xe, be, ke, re_
+        calls = {"float-row": (lambda: forest.predict_forest_rows(x, edges, pack),
+                               lambda: forest_twin(torch, forest._bin_rows_reference(x, edges),
+                                                   pack), forest_bound(x, pack, edges)),
+                 "uint8": (lambda: forest.predict_forest(binned, pack),
+                           lambda: forest_twin(torch, binned, pack), forest_bound(binned, pack))}
         if dev.type == "cuda":
-            loop = cuda_ms(torch, lambda: forest.predict_forest(x, pack), 10)
-            dev_ms = graph_ms(torch, [lambda: forest.predict_forest(x, pack)])
-            plain = cuda_ms(torch, lambda: forest_twin(torch, x, pack), 1)
+            search_ms = cuda_ms(torch, lambda: forest._bin_rows_reference(x, edges), 3)
         else:  # a rehearsal on the CPU
-            loop = dev_ms = _host_ms(lambda: forest.predict_forest(x, pack), 1)
-            plain = _host_ms(lambda: forest_twin(torch, x, pack), 1)
-        b = forest_bound(x, pack)
-        trees = pack.feat.shape[0]
-        print(f"forest {etype} [{x.shape[0]} x {x.shape[1]}] uint8, {pack.n_folds} folds, "
-              f"{trees} trees of depth {pack.depth}: kernel bit-equal to its twin; kernel "
-              f"{loop:.4f} ms (loop) / {dev_ms:.4f} ms (CUDA graph), twin {plain:.3f} ms; bound "
-              f"{b[0]:.4f} ms ({b[1]}: {x.shape[0] * trees * pack.depth:.3e} node steps): "
-              f"{100 * b[0] / dev_ms:.1f}% of it", flush=True)
-        if rec is None:
-            rec = {"name": "predict_forest", "route": "cuda", "source": FOREST_SOURCE,
-                   "replaces": "otto_tpu/models/gbdt.py:334 (XLA, not Pallas)", "launches": 0,
-                   "max_abs_err": err, "ms": dev_ms, "plain_ms": plain, "bound_ms": b[0],
-                   "bound_by": b[1], "library_ms": None}
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    return rec
+            search_ms = _host_ms(lambda: forest._bin_rows_reference(x, edges), 1)
+        for name, (kernel, twin, b) in calls.items():
+            if dev.type == "cuda":
+                loop = cuda_ms(torch, kernel, 10)
+                dev_ms = graph_ms(torch, [kernel])
+                plain = cuda_ms(torch, twin, 1)
+            else:
+                loop = dev_ms = _host_ms(kernel, 1)
+                plain = _host_ms(twin, 1)
+            print(f"forest {etype} {name} entry [{x.shape[0]} x {x.shape[1]}], "
+                  f"{pack.n_folds} folds, {pack.n_trees} trees of depth {pack.depth}: bit-equal "
+                  f"to its twin (and on 100,000 edge-value rows); kernel {loop:.4f} ms (loop) / "
+                  f"{dev_ms:.4f} ms (CUDA graph), twin {plain:.3f} ms; bound {b[0]:.4f} ms "
+                  f"({b[1]}): {100 * b[0] / dev_ms:.1f}% of it", flush=True)
+            rec = recs.get(name)
+            if rec is None:
+                recs[name] = {
+                    "name": "predict_forest_rows" if name == "float-row" else "predict_forest",
+                    "route": "cuda", "source": FOREST_SOURCE,
+                    "replaces": ("otto_tpu/models/gbdt.py:334 (XLA, not Pallas) with the numpy "
+                                 "bin_features of :80" if name == "float-row" else
+                                 "otto_tpu/models/gbdt.py:334 (XLA, not Pallas)"),
+                    "launches": 0, "max_abs_err": err, "ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
+        print(f"forest {etype}: the twin's binning alone (torch.searchsorted on the card, "
+              f"context for the kernel's staging) {search_ms:.4f} ms", flush=True)
+    return [recs["uint8"], recs["float-row"]]
 
 
 def two_stage_knn(torch, dev, model, base: dict, n_sessions: int, zero_counters,
@@ -1151,7 +1250,7 @@ def two_stage_knn(torch, dev, model, base: dict, n_sessions: int, zero_counters,
         sync(torch, dev)
         secs = time.perf_counter() - t0
         launches = read_counters("two-stage path with an SGNS model",
-                                 ("fused_stage1", "peel_rows", "predict_forest"))
+                                 ("fused_stage1", "peel_rows", "predict_forest_rows"))
     finally:
         del model.neighbor_table
     rows = sum(v for k, v in pstats.items() if k.startswith("rows_"))
@@ -1189,7 +1288,8 @@ def main() -> int:
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
-                "predict_forest": (forest.predict_forest, "launches")}
+                "predict_forest": (forest.predict_forest, "launches"),
+                "predict_forest_rows": (forest.predict_forest_rows, "launches")}
 
     def zero_counters():
         for fn, attr in counters.values():
@@ -1286,8 +1386,10 @@ def main() -> int:
     two_stage = replay["launches"]
     with phase("9 two-stage: card vs CPU twin path on 512 sessions"):
         two_stage_parity(torch, dev, bench_split, replay, 512)
-    with phase("9 forest kernel vs its twin on the path's rows"):
-        records.append(forest_vs_twin(torch, dev, replay))
+    with phase("9 pre-binned scoring (the forest kernel's uint8 entry)"):
+        prebinned = prebinned_path(torch, dev, replay, zero_counters, read_counters)
+    with phase("9 forest kernel vs its twins on the path's rows"):
+        records.extend(forest_vs_twin(torch, dev, replay))
     check(replay["replay"] == REPLAY_EXPECTED, f"two-stage replay {replay['replay']} differs "
           f"from BENCH_r05.json's {REPLAY_EXPECTED}")
     del replay, bench_split
@@ -1298,11 +1400,13 @@ def main() -> int:
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
-    # the forest pass on the two-stage path)
+    # the forest kernel's float-row entry on the two-stage path, its uint8
+    # entry on the pre-binned scoring path)
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
-             "two_stage": two_stage, "two_stage_sgns": two_stage_sgns}
+             "two_stage": two_stage, "prebinned_scoring": prebinned,
+             "two_stage_sgns": two_stage_sgns}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
-            "predict_forest": two_stage}
+            "predict_forest": prebinned, "predict_forest_rows": two_stage}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}

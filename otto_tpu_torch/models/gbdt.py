@@ -12,9 +12,12 @@ Port of the inference half of ``otto_tpu/models/gbdt.py``:
 
 ``save`` and ``load`` read and write the JAX package's npz layout, so a
 model saved by either package loads in the other.  The forest pass goes
-through :func:`otto_tpu_torch.ops.forest.predict_forest`: on the card one
-launch of the forest kernel routes every fold over all rows (no batching to
-a fixed shape, no per-fold pass); on the CPU its plain twin.  Training
+through :mod:`otto_tpu_torch.ops.forest`: on the card one launch of the
+forest kernel routes every fold over all rows (no batching to a fixed shape,
+no per-fold pass), and :meth:`GBDTRankerModel.predict` hands it the float32
+rows, which it bins in its staging (``predict_forest_rows``); on the CPU the
+plain twins.  The numpy :func:`bin_features` and ``.bin()`` stay as the JAX
+module's API.  Training
 (``fit_gbdt``, ``train_gbdt_ranker``, the histogram kernel) is not ported
 yet (ROADMAP M9).
 
@@ -24,6 +27,7 @@ Missing values get a reserved bin 0, which every split sends left.
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -137,11 +141,35 @@ class GBDTRankerModel:
 
     def predict(self, features: np.ndarray, mask: np.ndarray, *,
                 device: str | torch.device) -> np.ndarray:
-        """Fold-averaged scores [S, C] (lgb_trainer.py:248-263 semantics),
-        -inf where ``mask`` is False; the forest pass runs on ``device``."""
-        S, C, _ = features.shape
-        scores = self.predict_binned_folds(self.bin(features), device=device).reshape(S, C)
+        """Fold-averaged scores [S, C] (lgb_trainer.py:248-263 semantics) of
+        a float32 [S, C, F] feature tensor, -inf where ``mask`` is False; the
+        rows cross to ``device`` once and are binned and routed there."""
+        S, C, F = features.shape
+        x = torch.as_tensor(np.ascontiguousarray(features).reshape(S * C, F),
+                            device=resolve_device(device))
+        scores = self.predict_rows(x).cpu().numpy().reshape(S, C)
         return np.where(mask, scores, -np.inf)
+
+    def packed_edges(self, device: str | torch.device) -> torch.Tensor:
+        """The bin edges packed for the forest kernel on ``device`` (made
+        once per device)."""
+        key = ("edges", str(resolve_device(device)))
+        if key not in self._packs:
+            self._packs[key] = forest.pack_edges(self.edges, device=resolve_device(device))
+        return self._packs[key]
+
+    def predict_rows(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        """Fold-averaged scores float32 [N] of float32 feature rows [N, F] on
+        their device: one launch of the forest kernel, which bins them (on
+        the CPU, the twins).  On the CPU, ``stats`` (if given) gets the
+        twin's binning seconds added to ``binning_s``."""
+        pack, edges = self.packed(x.device), self.packed_edges(x.device)
+        if stats is None or x.device.type != "cpu":
+            return forest.predict_forest_rows(x, edges, pack)
+        t0 = time.perf_counter()
+        binned = forest._bin_rows_reference(x, edges)
+        stats["binning_s"] = stats.get("binning_s", 0.0) + time.perf_counter() - t0
+        return forest.predict_forest(binned, pack)
 
     def packed(self, device: str | torch.device) -> forest.ForestPack:
         """The fold forests packed on ``device`` (made once per device)."""

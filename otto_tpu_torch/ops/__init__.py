@@ -15,7 +15,13 @@ from otto_tpu_torch.ops.covisit import (
     sort_reduce_rows,
     topk_per_source,
 )
-from otto_tpu_torch.ops.forest import ForestPack, pack_forests, predict_forest
+from otto_tpu_torch.ops.forest import (
+    ForestPack,
+    pack_edges,
+    pack_forests,
+    predict_forest,
+    predict_forest_rows,
+)
 from otto_tpu_torch.ops.fused_retrieval import FusedRetriever, fused_stage1
 from otto_tpu_torch.ops.fused_sessions import aid_vote_aggregate, per_aid_weight_top_fused
 from otto_tpu_torch.ops.multiset import (

@@ -99,7 +99,8 @@ ENTRY_POINTS = {
     "fused_stage1_bf16_fma": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "peel_rows_f32": [_p, _p, _p, _i, _i, _i, _i, _p],
     "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
-    "predict_forest": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p],
+    "predict_forest_binned": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
+    "predict_forest_rows": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
 }
 
 
@@ -173,14 +174,18 @@ def launch_aid_vote(aids: torch.Tensor, weights: torch.Tensor, agg: torch.Tensor
     _check(err, "aid_vote_f32")
 
 
-def launch_predict_forest(binned: torch.Tensor, nodes: torch.Tensor, leaves: torch.Tensor,
-                          fold_end: torch.Tensor, base: torch.Tensor, out: torch.Tensor,
-                          depth: int, inv: float) -> None:
-    """binned uint8 [N, F], nodes int32 [T, 2^depth - 1] ((thr << 16) |
-    feat), leaves f32 [T, 2^depth], fold_end int32 and base f32 [n_folds]
-    -> out f32 [N], the fold sum times ``inv``."""
-    err = lib().predict_forest(binned.data_ptr(), nodes.data_ptr(), leaves.data_ptr(),
-                               fold_end.data_ptr(), base.data_ptr(), out.data_ptr(),
-                               binned.shape[0], binned.shape[1], fold_end.shape[0], depth,
-                               inv, binned.device.index, _stream(binned))
-    _check(err, "predict_forest")
+def launch_predict_forest(x: torch.Tensor, edges: torch.Tensor | None, model: torch.Tensor,
+                          n_trees: int, fold_end: torch.Tensor, base: torch.Tensor,
+                          out: torch.Tensor, depth: int, inv: float) -> None:
+    """x uint8 bins [N, F] (``edges`` None) or float32 rows [N, F] with
+    ``edges`` f32 [F, 256] (non-decreasing, +inf pads); model int32 [ceil(T /
+    32), 2^(depth + 1), 32], the slices of ``ops/forest.py``; fold_end int32
+    and base f32 [n_folds] -> out f32 [N], the fold sum times ``inv``."""
+    args = (model.data_ptr(), fold_end.data_ptr(), base.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], n_trees, fold_end.shape[0], depth, inv, x.device.index,
+            _stream(x))
+    if edges is None:
+        _check(lib().predict_forest_binned(x.data_ptr(), *args), "predict_forest_binned")
+    else:
+        _check(lib().predict_forest_rows(x.data_ptr(), edges.data_ptr(), *args),
+               "predict_forest_rows")

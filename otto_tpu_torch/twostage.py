@@ -7,8 +7,8 @@ in memory:
 1. the regular candidate generator emits [S, C] candidates and scores, and
    the covisitation heuristic's top-20 is unioned into the grid;
 2. the three feature families assemble the [S, C, 55] tensor;
-3. per event type, the fold-averaged GBDT scores it (one forest-kernel
-   launch a type on the card);
+3. per event type, the fold-averaged GBDT scores it (on the card one
+   forest-kernel launch a model, which bins the float32 rows itself);
 4. the prior blend and the per-session top-20.
 
 :func:`predict_two_stage` takes a required ``device``: candidates, the
@@ -241,8 +241,11 @@ def predict_two_stage(
     receives ``rows_<type>`` (ranker rows scored) and the seconds of each
     stage: ``candidates_s``, ``heuristic_s``, ``union_s``, ``features_s``
     (aid, session, interaction features and assembly), ``binning_s``,
-    ``forest_s`` (rows to the device, the forest pass, scores back) and
-    ``blend_s`` (prior blend and top-20).
+    ``forest_s`` and ``blend_s`` (prior blend and top-20).  On the card the
+    forest kernel bins the float32 rows itself: ``binning_s`` is 0 and
+    ``forest_s`` holds the rows' upload (once a type), the launches and the
+    scores' download.  On the CPU ``binning_s`` is the twin's binning and
+    ``forest_s`` the twin's routing.
     """
     dev = resolve_device(device)
     times = dict.fromkeys(("candidates_s", "heuristic_s", "union_s", "features_s",
@@ -312,16 +315,18 @@ def predict_two_stage(
         # fit one (the reference's LightGBM + XGBoost pair)
         model = artifacts.rankers[etype]
         second = artifacts.rankers.get(f"{etype}_b")
+        t0 = clock()
+        x = torch.as_tensor(X.reshape(-1, X.shape[-1]), device=dev)  # one upload, both rankers
+        times["forest_s"] += clock() - t0
         per_model = []
         for m in (model,) if second is None else (model, second):
-            t0 = clock()
-            binned = m.bin(X)
-            t1 = clock()
-            scores = m.predict_binned_folds(binned, device=dev).reshape(c.shape)
+            t0, binning = clock(), times["binning_s"]
+            # on the card one kernel launch bins and routes the rows; on the
+            # CPU the twins, with the binning timed apart
+            scores = m.predict_rows(x, times).cpu().numpy().reshape(c.shape)
+            times["forest_s"] += clock() - t0 - (times["binning_s"] - binning)
             per_model.append(np.where(mask, scores, -np.inf))
-            times["binning_s"] += t1 - t0
-            times["forest_s"] += clock() - t1
-        del X, inter, binned
+        del X, x, inter
         t0 = clock()
         scores = (per_model[0] if second is None
                   else _blend_scores(c, per_model, [0.5, 0.5]))

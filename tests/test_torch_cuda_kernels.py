@@ -18,8 +18,12 @@ aid-weight path's shape [20,000, 76], at [4096, 256], at a ragged L and at
 L = 300 (the block kernel): ``first`` and ``firstpos`` bit-equal, ``agg``
 bit-equal on integer weights and within 2^-16 * sum_j |w_j| of its row on
 normal weights.  The forest kernel routes the committed fold models at 1,
-115 and 1,472,000 rows (the two-stage replay's rows a type): bit-equal to
-its twin (the same float32 additions in the same order).
+115 and 1,472,000 rows (the two-stage replay's rows a type), on uint8 bins
+and on float32 rows it bins itself (NaN, +-inf, +-0.0, denormals, edge
+values and one ulp either side, float32 max among them), and synthetic
+models whose folds end inside its 32-tree slices at depths 1-12 (the
+shared-memory route to depth 7, the device-memory route beyond): bit-equal
+to its twins (the same bins; the same float32 additions in the same order).
 """
 
 import pytest
@@ -239,8 +243,103 @@ def test_cuda_forest_kernel_bit_equal_to_twin(cuda_device, etype, n):
         assert torch.equal(k.cpu().view(torch.int32), cpu.view(torch.int32))
         with pytest.raises(ValueError):  # rows and model on different devices
             tfo.predict_forest(x, model.packed("cpu"))
-        with pytest.raises(ValueError):  # rows wider than the kernel stages
-            tfo.predict_forest(torch.zeros((4, 385), dtype=torch.uint8, device=cuda_device),
+        with pytest.raises(ValueError):  # rows wider than the kernel's 128 features
+            tfo.predict_forest(torch.zeros((4, 129), dtype=torch.uint8, device=cuda_device),
                                pack)
         with pytest.raises(ValueError):  # a strided view
             tfo.predict_forest(x.repeat(1, 2)[:, ::2], pack)
+
+
+def _float_rows(edges, n, seed):
+    """Float32 rows [n, F]: lognormal, with a third of the cells an edge
+    value, the float above or below one, or a special value."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    F, E = edges.shape
+    e = edges[np.arange(F)[None, :], rng.integers(0, E, (n, F))]
+    fmax = np.finfo(np.float32).max
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 5e-40, -5e-40,
+                        1.1754942e-38, fmax, -fmax], np.float32)
+    x = rng.lognormal(size=(n, F)).astype(np.float32)
+    kind = rng.integers(0, 9, (n, F))
+    x = np.where(kind == 0, e, x)
+    with np.errstate(over="ignore"):
+        x = np.where(kind == 1, np.nextafter(e, np.float32(np.inf)), x)
+        x = np.where(kind == 2, np.nextafter(e, np.float32(-np.inf)), x)
+    return torch.from_numpy(np.where(kind == 3, special[rng.integers(0, 12, (n, F))], x))
+
+
+def _forest_twin(x, pack):
+    import numpy as np
+
+    from otto_tpu_torch.ops import forest as tfo
+
+    acc = None
+    for feat, thr, leaf, base in pack.folds():
+        r = tfo._predict_forest_reference(x, feat, thr, leaf, base, pack.depth)
+        acc = r if acc is None else acc + r
+    return acc * torch.tensor(np.float32(1 / pack.n_folds), device=x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", ["clicks", "carts", "orders"])
+@pytest.mark.parametrize("n", [1, 115, 1_472_000])
+def test_cuda_forest_rows_kernel_bit_equal_to_twin(cuda_device, etype, n):
+    """Float32 rows binned in the kernel's staging against the committed
+    model's edges, then routed: bit-equal to the twin's binning and routing,
+    and to the CPU route on the same rows."""
+    from pathlib import Path
+
+    from otto_tpu_torch.models.gbdt import load_ranker_model
+    from otto_tpu_torch.ops import forest as tfo
+
+    model = load_ranker_model(Path(__file__).resolve().parent.parent / "artifacts" /
+                              "bench_e2e" / f"ranker_{etype}.npz")
+    pack, edges = model.packed(cuda_device), model.packed_edges(cuda_device)
+    x = _float_rows(model.edges, n, n).to(cuda_device)
+    before = tfo.predict_forest_rows.launches
+    k = tfo.predict_forest_rows(x, edges, pack)
+    torch.cuda.synchronize()
+    assert tfo.predict_forest_rows.launches == before + 1
+    want = _forest_twin(tfo._bin_rows_reference(x, edges), pack)
+    assert torch.equal(k.view(torch.int32), want.view(torch.int32))
+    if n == 115:
+        cpu = model.predict_rows(x.cpu())
+        assert torch.equal(k.cpu().view(torch.int32), cpu.view(torch.int32))
+        with pytest.raises(TypeError):  # float64 rows
+            tfo.predict_forest_rows(x.double(), edges, pack)
+        with pytest.raises(ValueError):  # edges on the CPU
+            tfo.predict_forest_rows(x, model.packed_edges("cpu"), pack)
+        with pytest.raises(ValueError):  # a strided view
+            tfo.predict_forest_rows(x.repeat(1, 2)[:, ::2], edges, pack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3, 7, 8, 12])
+def test_cuda_forest_kernel_slices_and_depths(cuda_device, depth):
+    """Folds of 5, 40, 0 and 29 trees (ends inside 32-tree slices, an empty
+    fold, a ragged last slice) over 20 features, and 100 features (128-byte
+    row slots), on bins and on float rows: bit-equal to the twins."""
+    import numpy as np
+
+    from otto_tpu_torch.ops import forest as tfo
+
+    rng = np.random.default_rng(depth)
+    for n_feat in (20, 100):
+        folds = []
+        for n_trees in (5, 40, 0, 29):
+            ni = (1 << depth) - 1
+            folds.append((rng.integers(0, n_feat, (n_trees, ni)).astype(np.int32),
+                          rng.integers(0, 257, (n_trees, ni)).astype(np.int32),
+                          rng.normal(size=(n_trees, ni + 1)).astype(np.float32),
+                          float(rng.normal())))
+        pack = tfo.pack_forests(folds, device=cuda_device)
+        edges_np = np.sort(rng.normal(size=(n_feat, 254)).astype(np.float32), axis=1)
+        edges = tfo.pack_edges(edges_np, device=cuda_device)
+        x = _float_rows(edges_np, 1300, depth).to(cuda_device)
+        binned = tfo._bin_rows_reference(x, edges)
+        want = _forest_twin(binned, pack)
+        for got in (tfo.predict_forest(binned, pack), tfo.predict_forest_rows(x, edges, pack)):
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -3,7 +3,14 @@ and the ranker helpers against ``otto_tpu``, on the CPU.
 
 The models are the committed ``artifacts/bench_e2e/ranker_{clicks,carts,
 orders}.npz`` (three folds of depth 7, 50-120 trees a fold, 55 features,
-256 bins).  Same seeded numpy inputs through both packages.
+256 bins).  Same seeded numpy inputs through both packages.  The float-row
+route (``predict_forest_rows``: the twin's binning, then routing) is held to
+the JAX package's ``bin_features`` plus ``GBDTRankerModel.predict``, also on
+rows of the values binning can get wrong (NaN, +-inf, +-0.0, denormals,
+edges and one ulp either side, float32 max).  The forest kernel cannot run
+here; its arithmetic (the packed slices, the sign-bit compare, the 8-step
+edge search, the fold sums across slices) is replayed in numpy on the
+kernel's own pack and held to the twins.
 
 Tolerances: everything bit-equal.  Bins and leaf ids are integers.  A fold's
 score is ``base`` plus the trees' leaves added one at a time in tree order
@@ -148,9 +155,19 @@ def test_threshold_256_sends_every_bin_left():
     np.testing.assert_array_equal(tp.numpy(), [2.5, 1.5, 1.5, 1.5])
     np.testing.assert_array_equal(_bits(tp.numpy()), _bits(jp))
     pack = tf.pack_forests([(feat, thr, leaf, 0.5)], device="cpu")
-    assert int(pack.nodes[0, 0]) == (256 << 16)  # feature 0, threshold 256
+    # the kernel's slice: heap row 1 the root, (thr << 7) | feat; rows 4-7 the leaves
+    assert pack.model.shape == (1, 8, 32)
+    assert int(pack.model[0, 1, 0]) == (256 << 7)  # feature 0, threshold 256
+    assert pack.model[0, 4:, 0].view(torch.float32).tolist() == [1.0, 2.0, 4.0, 8.0]
     np.testing.assert_array_equal(tf.predict_forest(torch.from_numpy(b), pack).numpy(),
                                   [2.5, 1.5, 1.5, 1.5])
+    np.testing.assert_array_equal(_kernel_emulation(b, pack), [2.5, 1.5, 1.5, 1.5])
+    # the kernel's compare, n - (bin << 7) < 0, is bin > thr for every bin,
+    # every threshold up to 256 and every feature the node can name
+    t_, f_, b_ = np.meshgrid(np.arange(257), np.arange(128), np.arange(256), indexing="ij")
+    n = ((t_ << 7) | f_).astype(np.uint32)
+    right = ((n - (b_.astype(np.uint32) << 7)) >> 31).astype(bool)
+    np.testing.assert_array_equal(right, b_ > t_)
 
 
 def test_predict_forest_checks_its_inputs(models):
@@ -241,3 +258,184 @@ def test_committed_model_config_loads():
     with np.load(BENCH / "ranker_clicks.npz", allow_pickle=True) as z:
         cfg = json.loads(bytes(z["__config"]).decode())
     assert dataclasses.asdict(GBDTConfig.from_dict(cfg)) == cfg
+
+
+# ---------------------------------------------------------- float-row route
+FMAX = np.finfo(np.float32).max
+
+
+def _edge_rows(edges, n, seed):
+    """Float32 rows [n, F] against ``edges`` [F, E]: lognormal values, with a
+    third of the cells an edge value, the next float above or below one, or
+    a special value."""
+    rng = np.random.default_rng(seed)
+    F, E = edges.shape
+    e = edges[np.arange(F)[None, :], rng.integers(0, E, (n, F))]
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 5e-40, -5e-40,
+                        1.1754942e-38, FMAX, -FMAX], np.float32)
+    x = rng.lognormal(size=(n, F)).astype(np.float32)
+    kind = rng.integers(0, 9, (n, F))
+    x = np.where(kind == 0, e, x)
+    with np.errstate(over="ignore"):  # the float above float32 max is +inf
+        x = np.where(kind == 1, np.nextafter(e, np.float32(np.inf)), x)
+        x = np.where(kind == 2, np.nextafter(e, np.float32(-np.inf)), x)
+    return np.where(kind == 3, special[rng.integers(0, len(special), (n, F))], x)
+
+
+def _synthetic_edges():
+    """Edge rows as ``fit_bin_edges`` writes them, with the awkward values:
+    signed zeros and denormals among the edges, duplicates, float32-max pads,
+    an all-zero row (a feature never seen) and a full row of 254."""
+    rows = [np.array([-FMAX, -1.0, -1e-40, -0.0, 0.0, 1e-45, 1e-40, 1.1754942e-38, 0.5, 1.0,
+                      1.0, 2.0], np.float32),
+            np.zeros(254, np.float32),
+            np.sort(np.random.default_rng(7).normal(size=254).astype(np.float32)),
+            np.array([0.0], np.float32)]
+    out = np.full((len(rows), 254), FMAX, np.float32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out
+
+
+def _kernel_bins(x, packed_edges):
+    """The kernel's binning in numpy: an 8-step branchless lower bound over
+    the packed edges (255 slots), NaN -> 0."""
+    e = packed_edges.numpy()
+    F = e.shape[0]
+    pos = np.zeros(x.shape, np.int64)
+    for step in (128, 64, 32, 16, 8, 4, 2, 1):
+        pos += np.where(e[np.arange(F)[None, :], pos + step - 1] < x, step, 0)
+    return np.where(np.isnan(x), 0, pos + 1).astype(np.uint8)
+
+
+def _kernel_emulation(bins, pack):
+    """The forest kernel's arithmetic in numpy on its own pack: per 32-tree
+    slice, each lane's tree walked by ``j = 2 j + sign(n - (bin << 7))`` over
+    the heap words, the leaf read at row j, then the leaves added in tree
+    order, each fold closed where its trees end, folds added in order and
+    times float32(1 / n_folds)."""
+    model = pack.model.numpy().view(np.uint32)
+    ends, base = pack.fold_end.numpy(), pack.base.numpy()
+    n_folds, T, rows = len(ends), pack.n_trees, np.arange(len(bins))
+    fold, s, acc = 0, np.full(len(bins), base[0], np.float32), None
+    for sl in range(model.shape[0]):
+        tile = np.empty((len(bins), 32), np.float32)
+        for lane in range(32):
+            j = np.ones(len(bins), np.uint32)
+            for _ in range(pack.depth):
+                n = model[sl, j, lane]
+                d = n - (bins[rows, n & 127].astype(np.uint32) << 7)
+                j = (j << 1) | (d >> 31)
+            tile[:, lane] = model[sl, j, lane].view(np.float32)
+        for t in range(min(32, T - 32 * sl)):
+            while fold < n_folds and 32 * sl + t == ends[fold]:
+                acc = s if acc is None else acc + s
+                fold += 1
+                s = np.full(len(bins), base[min(fold, n_folds - 1)], np.float32)
+            s = s + tile[:, t]
+    while fold < n_folds:
+        acc = s if acc is None else acc + s
+        fold += 1
+        s = np.full(len(bins), base[min(fold, n_folds - 1)], np.float32)
+    return acc * np.float32(1.0 / n_folds)
+
+
+def test_bin_rows_twin_bit_equal_to_bin_features(models):
+    """The twin's binning and the kernel's search equal numpy's
+    ``bin_features`` on the committed edges and on synthetic ones."""
+    jm, _ = models["clicks"]
+    for edges, n in ((jm.edges, 3000), (_synthetic_edges(), 4000)):
+        x = _edge_rows(edges, n, 11)
+        want = jg.bin_features(x, edges)
+        packed = tf.pack_edges(edges, device="cpu")
+        assert packed.shape == (edges.shape[0], 256) and torch.isinf(packed[:, 254:]).all()
+        np.testing.assert_array_equal(tf._bin_rows_reference(torch.from_numpy(x), packed).numpy(),
+                                      want)
+        np.testing.assert_array_equal(_kernel_bins(x, packed), want)
+    # the specials against a hand count: -0.0 == +0.0 and an edge value goes low
+    e = _synthetic_edges()[:1]
+    x = np.array([[np.nan, -np.inf, -FMAX, -0.0, 0.0, 1e-45, 1e-40, 1.0, FMAX, np.inf]],
+                 np.float32).T
+    got = tf._bin_rows_reference(torch.from_numpy(np.ascontiguousarray(x)),
+                                 tf.pack_edges(e, device="cpu")).numpy()[:, 0]
+    np.testing.assert_array_equal(got, [0, 1, 1, 4, 4, 6, 7, 10, 13, 255])
+    np.testing.assert_array_equal(got, jg.bin_features(x, e)[:, 0])
+
+
+@pytest.mark.parametrize("etype", TYPES)
+@pytest.mark.parametrize("n", [1, 115, 1500])
+def test_predict_rows_bit_equal_to_jax_predict(models, etype, n):
+    """Float rows through the port's float-row route (twin binning, twin
+    routing) and through ``otto_tpu``'s ``bin_features`` + ``predict``."""
+    jm, tm = models[etype]
+    x = _edge_rows(jm.edges, n, 20 + n)
+    want = jm.predict(x[None], np.ones((1, n), bool), batch=1024)[0]
+    got = tm.predict_rows(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    np.testing.assert_array_equal(_bits(tm.predict(x[None], np.ones((1, n), bool),
+                                                   device="cpu")[0]), _bits(want))
+
+
+@pytest.mark.parametrize("etype", TYPES)
+def test_kernel_arithmetic_on_its_pack_equals_twins(models, etype):
+    """The kernel's binning and routing replayed on its pack (folds of 50-120
+    trees end inside 32-tree slices) equal the float-row twin bit for bit."""
+    _, tm = models[etype]
+    x = _edge_rows(tm.edges, 700, 5)
+    pack, edges = tm.packed("cpu"), tm.packed_edges("cpu")
+    assert any(int(e) % 32 for e in pack.fold_end[:-1])
+    got = _kernel_emulation(_kernel_bins(x, edges), pack)
+    want = tf.predict_forest_rows(torch.from_numpy(x), edges, pack).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_kernel_arithmetic_with_ragged_and_empty_folds():
+    """Folds of 5, 40, 0 and 29 trees (ends at 5, 45, 45, 74: inside slices,
+    an empty fold, a ragged last slice) at depths 1, 3 and 7."""
+    rng = np.random.default_rng(8)
+    for depth in (1, 3, 7):
+        folds = []
+        for n_trees in (5, 40, 0, 29):
+            ni = (1 << depth) - 1
+            folds.append((rng.integers(0, 20, (n_trees, ni)).astype(np.int32),
+                          rng.integers(0, 257, (n_trees, ni)).astype(np.int32),
+                          rng.normal(size=(n_trees, ni + 1)).astype(np.float32),
+                          float(rng.normal())))
+        pack = tf.pack_forests(folds, device="cpu")
+        assert pack.model.shape == (3, 2 << depth, 32)
+        b = _binned_rows(300, depth, n_feat=20)
+        want = tf.predict_forest(torch.from_numpy(b), pack).numpy()
+        np.testing.assert_array_equal(_bits(_kernel_emulation(b, pack)), _bits(want))
+
+
+def test_predict_forest_rows_checks_its_inputs(models):
+    jm, tm = models["clicks"]
+    pack, edges = tm.packed("cpu"), tm.packed_edges("cpu")
+    x = torch.from_numpy(_edge_rows(jm.edges, 8, 1))
+    with pytest.raises(TypeError):  # float64 rows: numpy would bin them in float64
+        tf.predict_forest_rows(x.double(), edges, pack)
+    with pytest.raises(TypeError):
+        tm.predict(x.double().numpy()[None], np.ones((1, 8), bool), device="cpu")
+    with pytest.raises(ValueError):  # a wrong F
+        tf.predict_forest_rows(x[:, :54].contiguous(), edges, pack)
+    with pytest.raises(ValueError):  # edges not packed
+        tf.predict_forest_rows(x, torch.from_numpy(jm.edges), pack)
+    with pytest.raises(ValueError):  # rows and edges on different devices
+        tf.predict_forest_rows(x, torch.empty((55, 256), device="meta"), pack)
+    with pytest.raises(ValueError):  # rows and model on different devices
+        tf.predict_forest_rows(x.to("meta"), edges.to("meta"), pack)
+    unsorted = jm.edges.copy()
+    unsorted[3, :2] = (1.0, -1.0)
+    with pytest.raises(ValueError):  # packing checks the edges' order
+        tf.pack_edges(unsorted, device="cpu")
+    nan = jm.edges.copy()
+    nan[0, 0] = np.nan
+    with pytest.raises(ValueError):
+        tf.pack_edges(nan, device="cpu")
+    with pytest.raises(ValueError):  # 255 edges would give bin 256
+        tf.pack_edges(np.zeros((2, 255), np.float32), device="cpu")
+    # a model reading feature 128 has no kernel pack (the kernel takes F <= 128)
+    f = tm.forests[0]
+    wide = tf.pack_forests([(np.full_like(f.feat, 128), f.thr, f.leaf, f.base)], device="cpu")
+    assert wide.model is None

@@ -18,7 +18,15 @@ launch cost) in turns: parent, this tree, this tree, parent.
 - K3 (``aid_vote_f32``) on the aid-weight runner's own input (200,000
   synthetic sessions over 1,855,603 aids, the packed target) warm and cold
   (over rotating input copies of more than 50 MB), and at [4096, 256] on rows
-  with uniform -1 tails.
+  with uniform -1 tails;
+- K4 with the committed clicks model (three folds, 280 trees of depth 7) at
+  the two-stage replay's 1,472,000 rows a type, each feature's values drawn
+  from its own edges (uniform over the bins, as the quantile edges spread
+  the rows they were fit on): the parent's ``predict_forest`` (uint8 bins,
+  nodes ``(thr << 16) | feat`` and leaves apart) against this tree's
+  ``predict_forest_binned`` on the same bins, with this tree's
+  ``predict_forest_rows`` (the float rows, binned in the kernel) timed in
+  the same turns.
 
 An entry point that either library lacks is skipped.  Prints the card's
 name and power limit and one JSON line: seconds for the builds, milliseconds
@@ -27,6 +35,7 @@ for the kernels.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -180,6 +189,48 @@ def main() -> int:
                                   for s in libs})
             res[f"{key}_shape"] = [S, L]
             res[f"{key}_mean_live"] = [float(np.mean((a >= 0).sum(1).cpu().numpy()))]
+
+    # K4: the parent's uint8 kernel against this tree's two entries
+    if hasattr(libs["parent"], "predict_forest") and hasattr(libs["tree"], "predict_forest_rows"):
+        from otto_tpu_torch.models.gbdt import load_ranker_model
+        from otto_tpu_torch.ops import forest
+
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        libs["parent"].predict_forest.argtypes = [p, p, p, p, p, p, ll, i, i, i, f, i, p]
+        libs["parent"].predict_forest.restype = i
+        model = load_ranker_model(REPO / "artifacts" / "bench_e2e" / "ranker_clicks.npz")
+        pack, edges = model.packed(dev), model.packed_edges(dev)
+        rng = np.random.default_rng(cs.SEED)
+        n, F = 1_472_000, model.edges.shape[0]
+        cols = rng.integers(0, model.edges.shape[1], (n, F))
+        x = torch.as_tensor(model.edges[np.arange(F)[None, :], cols], device=dev)
+        binned = forest._bin_rows_reference(x, edges)
+        nodes = ((pack.thr << 16) | pack.feat).contiguous()
+        inv = float(np.float32(1.0 / pack.n_folds))
+        o = {s: torch.empty(n, device=dev) for s in ("parent", "tree", "rows")}
+        tail = (pack.fold_end.data_ptr(), pack.base.data_ptr())
+        calls = {
+            "parent": lambda: libs["parent"].predict_forest(
+                binned.data_ptr(), nodes.data_ptr(), pack.leaf.data_ptr(), *tail,
+                o["parent"].data_ptr(), n, F, pack.n_folds, pack.depth, inv, 0, stream()),
+            "tree": lambda: libs["tree"].predict_forest_binned(
+                binned.data_ptr(), pack.model.data_ptr(), *tail, o["tree"].data_ptr(), n, F,
+                pack.n_trees, pack.n_folds, pack.depth, inv, 0, stream()),
+            "rows": lambda: libs["tree"].predict_forest_rows(
+                x.data_ptr(), edges.data_ptr(), pack.model.data_ptr(), *tail,
+                o["rows"].data_ptr(), n, F, pack.n_trees, pack.n_folds, pack.depth, inv, 0,
+                stream())}
+        for call in calls.values():
+            agree(call() == 0, "forest launches")
+        torch.cuda.synchronize()
+        agree(torch.equal(o["parent"].view(torch.int32), o["tree"].view(torch.int32))
+              and torch.equal(o["parent"].view(torch.int32), o["rows"].view(torch.int32)),
+              "forest scores")
+        for side in ("parent", "tree", "tree", "parent"):
+            res.setdefault(f"k4_{side}", []).append(cs.graph_ms(torch, [calls[side]]))
+            if side == "tree":
+                res.setdefault("k4_tree_rows", []).append(cs.graph_ms(torch, [calls["rows"]]))
+        res["k4_shape"] = [n, F, pack.n_trees, pack.depth]
     print(json.dumps(res), flush=True)
     return 0
 
