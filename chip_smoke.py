@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving paths once on one NVIDIA card: the
-embedding-kNN path, the baselines with the covisitation heuristic, and the
-two-stage prediction path.
+embedding-kNN path, the baselines with the covisitation heuristic, the
+two-stage prediction path, and the file CLI.
 
     python3 chip_smoke.py
 
@@ -72,7 +72,27 @@ exit code):
    CUDA events and a CUDA graph), and the path once more with an SGNS model in
    the artifacts, so the kNN candidate route launches stage 1 and the
    peel: on the full catalog (phase 3's model, phase 7's tables and
-   sessions), since a 20,000-aid table takes the dense route.
+   sessions), since a 20,000-aid table takes the dense route;
+10. the file CLI, ``otto_tpu_torch.pipelines.main(argv)`` in this process
+   with ``--device cuda`` (each step's seconds, the kernels' launches):
+   10a phase 7's store written as a raw OTTO ``.jsonl`` (millisecond
+   stamps) and as parquet, both read back (the native parser;
+   ``EventStore.from_parquet``) equal to it, the parse's events/s;
+   10b ``covisitation validation`` on the ``.jsonl``, its report equal to
+   phase 7's field for field; 10c ``aid_weight submission`` on the
+   parquet, the session vote launched, the file read back equal to
+   ``run_aid_weight``'s lists, the writer's rows/s; 10d ``two_stage
+   validation --ranker gbdt`` from a copy of ``artifacts/bench_e2e`` on
+   phase 6's store cut to 40,000 sessions (20,000 target sessions): three
+   float-row forest launches, recall, ``report_disjoint``, the stage
+   seconds, sessions/s, and the saved lists equal to ``predict_two_stage``
+   on the same train and target; 10e that command at 1,000 target
+   sessions on the card and on the CPU, lists bit-equal (where they
+   differ: every differing heuristic row a recency-route session, and the
+   CPU path given the card's heuristic lists bit-equal to the card, the
+   rows printed); 10f ``python -m otto_tpu_torch.pipelines aid_frequency
+   submission --device cuda`` in a process of its own, exit 0 and a
+   readable file.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -778,7 +798,7 @@ def covisit_build(torch, dev) -> dict:
           f"dispatch {stats['dispatch_s']} s, drain {stats['drain_s']} s", flush=True)
     print(f"tables vs artifacts/bench_e2e/covisitation: six kinds bit-equal; time_weighted "
           f"{swapped} of {live} ids swapped at near-ties", flush=True)
-    return {"build_s": build_s, "events": n_ev, "split": split}
+    return {"build_s": build_s, "events": n_ev, "split": split, "store": store}
 
 
 def baselines(torch, dev, n_sessions: int) -> dict:
@@ -793,7 +813,8 @@ def baselines(torch, dev, n_sessions: int) -> dict:
     from otto_tpu_torch.models.frequency import FrequencyStatistics
 
     t0 = time.perf_counter()
-    sp = split_by_fraction(synthetic_events_v2(n_sessions=n_sessions, n_aids=N_AIDS, seed=SEED))
+    store = synthetic_events_v2(n_sessions=n_sessions, n_aids=N_AIDS, seed=SEED)
+    sp = split_by_fraction(store)
     target = sp.val_input
     print(f"data {time.perf_counter() - t0:.2f} s: {sp.train.n_sessions} train sessions "
           f"({sp.train.n_events} events), {target.n_sessions} target sessions", flush=True)
@@ -861,7 +882,8 @@ def baselines(torch, dev, n_sessions: int) -> dict:
           f"covisitation route device == host; recency route rows equal to the host's f64 "
           f"route: {agree}", flush=True)
     return {"serve_s": serve_s, "target": target, "train": sp.train, "mats": built["mats"],
-            "heur": heur, "aid_weight": runs["aid_weight"][0].predictions["clicks"]}
+            "heur": heur, "aid_weight": runs["aid_weight"][0].predictions["clicks"],
+            "store": store, "covisitation_report": runs["covisitation"][0].report}
 
 
 # What the JAX package's CPU replay of bench.py::e2e_artifact_bench recorded
@@ -1274,6 +1296,306 @@ def two_stage_knn(torch, dev, model, base: dict, n_sessions: int, zero_counters,
     return launches
 
 
+# ------------------------------------------------------------- phase 10
+TYPE_NAMES = ("clicks", "carts", "orders")
+
+
+def write_jsonl(store, path: Path) -> None:
+    """``store`` as a raw OTTO ``.jsonl`` (one line a session, timestamps in
+    milliseconds: the store's seconds times 1000 plus a deterministic
+    0-999, which ``read_jsonl(ts_unit="ms")`` drops again)."""
+    ms = store.ts.astype(np.int64) * 1000 + (np.arange(store.n_events) * 7919) % 1000
+    aid, typ, off = store.aid.tolist(), store.type.tolist(), store.offsets.tolist()
+    ms = ms.tolist()
+    with open(path, "w") as f:
+        for s, sid in enumerate(store.session_ids.tolist()):
+            events = ", ".join(f'{{"aid": {aid[i]}, "ts": {ms[i]}, "type": "{TYPE_NAMES[typ[i]]}"}}'
+                               for i in range(off[s], off[s + 1]))
+            f.write(f'{{"session": {sid}, "events": [{events}]}}\n')
+
+
+def same_store(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("session_ids", "offsets", "session_idx", "aid", "ts", "type"))
+
+
+def head_sessions(store, n: int):
+    keep = np.zeros(store.n_sessions, bool)
+    keep[:n] = True
+    return store.select_sessions(keep)
+
+
+def submission_lists(sub: dict, session_ids) -> dict:
+    """A read-back submission as [S, 20] int32 arrays in ``session_ids``'
+    order."""
+    out = {}
+    for t in TYPE_NAMES:
+        rows = [sub[t][int(s)] for s in session_ids]
+        out[t] = np.full((len(rows), 20), -1, np.int32)
+        for i, r in enumerate(rows):
+            out[t][i, :len(r)] = r
+    return out
+
+
+def report_fields(r) -> dict:
+    return {f: getattr(r, f) for f in ("clicks", "carts", "orders", "weighted",
+                                       "corpus_weighted", "clicks_n", "carts_n", "orders_n")}
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, wrapper):
+    """``module.name`` replaced by ``wrapper(original)`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrapper(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def cli_files(torch, dev, store, workdir: Path) -> dict:
+    """Phase 10a: phase 7's store written as a raw OTTO ``.jsonl`` and as
+    parquet, both read back (the native parser; ``EventStore.from_parquet``)
+    and held equal to it."""
+    from otto_tpu_torch.data.events import EventStore
+    from otto_tpu_torch.data.ingest import read_jsonl
+
+    jsonl, parquet = workdir / "events.jsonl", workdir / "events.parquet"
+    t0 = time.perf_counter()
+    write_jsonl(store, jsonl)
+    write_s = time.perf_counter() - t0
+    store.to_parquet(parquet)
+    read_jsonl(jsonl)  # builds the native parser once, outside the timed parse
+    t0 = time.perf_counter()
+    from_jsonl = read_jsonl(jsonl)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_parquet = EventStore.from_parquet(parquet)
+    parquet_s = time.perf_counter() - t0
+    check(same_store(from_jsonl, store), "the .jsonl read back differs from the store")
+    check(same_store(from_parquet, store), "the parquet read back differs from the store")
+    mb = jsonl.stat().st_size / 1e6
+    print(f"{store.n_sessions} sessions, {store.n_events} events: .jsonl {mb:.1f} MB written in "
+          f"{write_s:.2f} s; read_jsonl (native) {parse_s:.3f} s ({store.n_events / parse_s:.0f} "
+          f"events/s, {mb / parse_s:.0f} MB/s); from_parquet {parquet_s:.3f} s; both equal to "
+          "the store", flush=True)
+    return {"jsonl": jsonl, "parquet": parquet, "parse_s": parse_s,
+            "events_per_s": store.n_events / parse_s}
+
+
+def cli_covisitation(torch, dev, files: dict, phase7_report) -> None:
+    """Phase 10b: ``covisitation validation`` on the ``.jsonl``; its defaults
+    (``--val-fraction 0.1 --seed 42``) are ``split_by_fraction``'s, so its
+    report equals phase 7's heuristic report field for field."""
+    from otto_tpu_torch import pipelines
+
+    t0 = time.perf_counter()
+    res = pipelines.main(["covisitation", "validation", "--events", str(files["jsonl"]),
+                          "--n-aids", str(N_AIDS), "--device", dev.type])
+    secs = time.perf_counter() - t0
+    got, want = report_fields(res.report), report_fields(phase7_report)
+    print(f"CLI covisitation validation on the .jsonl: {secs:.2f} s; report {got}", flush=True)
+    check(got == want, f"CLI covisitation report {got} differs from phase 7's {want}")
+    print("its report equals phase 7's, field for field", flush=True)
+
+
+def cli_aid_weight(torch, dev, files: dict, store, workdir: Path, zero_counters,
+                   read_counters) -> dict:
+    """Phase 10c: ``aid_weight submission`` on the parquet (counters zeroed
+    before, read after: the session vote launches); the file read back
+    equals ``run_aid_weight(store, None)``'s lists.  Returns the launches and
+    the writer's rate."""
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.data import submission
+
+    out = workdir / "aid_weight.csv.gz"
+    writes = []
+
+    def timed(real):
+        def write(*args, **kwargs):
+            t = time.perf_counter()
+            real(*args, **kwargs)
+            writes.append(time.perf_counter() - t)
+        return write
+
+    with wrapped(submission, "write_submission", timed):
+        zero_counters()
+        t0 = time.perf_counter()
+        pipelines.main(["aid_weight", "submission", "--events", str(files["parquet"]),
+                        "--output", str(out), "--device", dev.type])
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters("CLI aid_weight submission", ("aid_vote",))
+    rows = 3 * store.n_sessions
+    print(f"CLI aid_weight submission: {secs:.2f} s; write_submission (native) {writes[0]:.3f} "
+          f"s for {rows} rows ({rows / writes[0]:.0f} rows/s, {out.stat().st_size / 1e6:.1f} "
+          "MB)", flush=True)
+    want = pipelines.run_aid_weight(store, None, device=dev).predictions
+    got = submission_lists(submission.read_submission(out), store.session_ids)
+    for t in TYPE_NAMES:
+        check(np.array_equal(got[t], want[t]), f"CLI aid_weight submission {t}: the file "
+              "differs from run_aid_weight's lists")
+    print("read_submission of the file equals run_aid_weight(store, None)'s lists", flush=True)
+    return {"launches": launches, "rows_per_s": rows / writes[0]}
+
+
+def two_stage_argv(events: Path, adir: Path, device: str) -> list[str]:
+    return ["two_stage", "validation", "--ranker", "gbdt", "--n-aids", "20000",
+            "--val-fraction", "0.5", "--seed", "0", "--artifact-dir", str(adir),
+            "--events", str(events), "--device", device]
+
+
+def cli_two_stage(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
+    """Phase 10d: ``two_stage validation --ranker gbdt`` on phase 6's store
+    cut to its first 40,000 sessions (20,000 target sessions), resuming
+    from a copy of ``artifacts/bench_e2e``: counters zeroed before, read
+    after (one float-row forest launch a type, no more); the lists it saves
+    equal ``predict_two_stage`` on the same train and target with the
+    artifacts loaded from the committed directory.  Returns the launches."""
+    from otto_tpu_torch import pipelines, twostage
+    from otto_tpu_torch.data.splits import split_by_fraction
+
+    art = REPO / "artifacts" / "bench_e2e"
+    store = head_sessions(bench_store, 40_000)
+    events, adir = workdir / "bench_40k.parquet", workdir / "bench_e2e_10d"
+    store.to_parquet(events)
+    shutil.copytree(art, adir)
+    stats: dict = {}
+    runs = []
+
+    def with_stats(real):  # the stage seconds, and the artifacts for report_disjoint
+        def run(*args, **kwargs):
+            runs.append(real(*args, stats_out=stats, **kwargs))
+            return runs[-1]
+        return run
+
+    with wrapped(twostage, "run_two_stage", with_stats):
+        zero_counters()
+        t0 = time.perf_counter()
+        res = pipelines.main(two_stage_argv(events, adir, dev.type))
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters("CLI two_stage validation", ("predict_forest_rows",))
+    check(dev.type != "cuda" or launches["predict_forest_rows"] == 3,
+          f"CLI two_stage made {launches['predict_forest_rows']} float-row forest launches, not 3")
+    sp = split_by_fraction(store, val_fraction=0.5, seed=0)
+    S = sp.val_input.n_sessions
+    disjoint = runs[0].report_disjoint
+    print(f"CLI two_stage validation: {S} target sessions, {secs:.2f} s ({S / secs:.0f} "
+          f"sessions/s); weighted recall@20 {res.report.weighted:.6f} (clicks "
+          f"{res.report.clicks:.6f}, carts {res.report.carts:.6f}, orders "
+          f"{res.report.orders:.6f}); report_disjoint ({int((~runs[0].selection_mask).sum())} "
+          f"sessions) {report_fields(disjoint)}; stages (s): "
+          + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stats.items()), flush=True)
+    with np.load(adir / "predictions.npz") as z:
+        saved = {t: z[t] for t in TYPE_NAMES}
+    meta = json.loads((adir / "meta.json").read_text())
+    print(f"saved meta.json max_recall {meta['max_recall']}", flush=True)
+    t0 = time.perf_counter()
+    want = twostage.predict_two_stage(two_stage_artifacts(), sp.train, sp.val_input, 20_000,
+                                      device=dev)
+    predict_s = time.perf_counter() - t0
+    for t in TYPE_NAMES:
+        differ = int((saved[t] != want[t]).any(axis=1).sum())
+        check(np.array_equal(saved[t], res.predictions[t]), f"CLI two_stage {t}: saved lists "
+              "differ from the returned ones")
+        check(differ == 0, f"CLI two_stage {t}: {differ} sessions' saved lists differ from "
+              "predict_two_stage's")
+    print(f"the saved lists equal predict_two_stage's on the same train and target "
+          f"({predict_s:.2f} s)", flush=True)
+    return {"launches": launches, "sessions_per_s": S / secs}
+
+
+def cli_card_vs_cpu(torch, dev, bench_store, workdir: Path) -> None:
+    """Phase 10e: the same ``two_stage validation`` command at 1,000 target
+    sessions with ``--device cuda`` and with ``--device cpu``.  The lists
+    must be bit-equal.  On the CPU the heuristic takes the host float64
+    routes and on the card the device routes, as the JAX package does on a
+    CPU and on a TPU; the device recency route may order near-tied aids
+    otherwise (ROADMAP §3).  So where the lists differ, each run's heuristic
+    lists are compared: every differing heuristic row must be a
+    recency-route session, and the CPU path given the card's heuristic lists
+    must give the card's lists bit for bit; the rows and aids are printed."""
+    from otto_tpu_torch import pipelines, twostage
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.models.covisitation import session_unique_counts
+
+    art = REPO / "artifacts" / "bench_e2e"
+    store = head_sessions(bench_store, 2_000)
+    events = workdir / "bench_2k.parquet"
+    store.to_parquet(events)
+    runs, heur = [], []  # the card's run, then the CPU's
+
+    def keep(real):
+        def lists(*args):
+            heur.append(real(*args))
+            return heur[-1]
+        return lists
+
+    for device in (dev.type, "cpu"):
+        adir = workdir / f"bench_e2e_10e_{len(runs)}"
+        shutil.copytree(art, adir)
+        with wrapped(twostage, "_heuristic_lists", keep):
+            t0 = time.perf_counter()
+            runs.append(pipelines.main(two_stage_argv(events, adir, device)).predictions)
+            print(f"CLI two_stage validation at 1,000 target sessions, --device {device}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+    card, cpu = runs
+    differ = {t: np.flatnonzero((card[t] != cpu[t]).any(axis=1)) for t in TYPE_NAMES}
+    if not any(len(r) for r in differ.values()):
+        print("card and CPU lists bit-equal", flush=True)
+        return
+    sp = split_by_fraction(store, val_fraction=0.5, seed=0)
+    recency = session_unique_counts(sp.val_input) >= 20
+    print(f"card and CPU lists differ in sessions {({t: r.tolist() for t, r in differ.items()})}",
+          flush=True)
+    for t in TYPE_NAMES:
+        rows = np.flatnonzero((heur[0][t] != heur[1][t]).any(axis=1))
+        for r in rows:
+            print(f"  heuristic {t} session {r} (recency route {bool(recency[r])}): card "
+                  f"{heur[0][t][r].tolist()} cpu {heur[1][t][r].tolist()}", flush=True)
+        check(bool(recency[rows].all()), f"heuristic {t}: card and CPU differ on a "
+              "covisitation-route session")
+    adir = workdir / "bench_e2e_10e_cpu_given"
+    shutil.copytree(art, adir)
+    given = twostage.run_two_stage(sp.train, sp.val_input, 20_000, labels=sp.val_labels,
+                                   artifact_dir=adir, heuristic_preds=heur[0],
+                                   device="cpu").predictions
+    for t in TYPE_NAMES:
+        check(np.array_equal(given[t], card[t]), f"two_stage {t}: with the card's "
+              "heuristic lists the CPU path differs from the card")
+    print("cause: the heuristic's recency route differs by route in the sessions above (the "
+          "card's device route sums float32 weights, the CPU's host route float64 ones, so "
+          "near-tied aids may change places; models/heuristic_host.py's docstring); given the "
+          "card's heuristic lists, the CPU path's lists equal the card's bit for bit",
+          flush=True)
+
+
+def cli_subprocess(torch, dev, bench_store, workdir: Path) -> None:
+    """Phase 10f: ``python -m otto_tpu_torch.pipelines aid_frequency
+    submission ... --device cuda`` in a process of its own: exit 0 and a
+    readable file with a row a session and type."""
+    from otto_tpu_torch.data import submission
+
+    store = head_sessions(bench_store, 2_000)
+    events, out = workdir / "bench_2k_sub.parquet", workdir / "aid_frequency.csv.gz"
+    store.to_parquet(events)
+    cmd = [sys.executable, "-m", "otto_tpu_torch.pipelines", "aid_frequency", "submission",
+           "--events", str(events), "--n-aids", "20000", "--output", str(out),
+           "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+    sub = submission.read_submission(out)
+    check(all(len(sub[t]) == store.n_sessions for t in TYPE_NAMES)
+          and set(sub["clicks"]) == set(store.session_ids.tolist()),
+          "the subprocess's submission does not hold a row a session and type")
+    print(f"python -m otto_tpu_torch.pipelines aid_frequency submission --device {dev.type}: exit 0 "
+          f"in {secs:.2f} s; {out.stat().st_size / 1e6:.2f} MB, {3 * store.n_sessions} rows "
+          f"read back; stdout {proc.stdout.strip()!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1356,7 +1678,9 @@ def main() -> int:
               flush=True)
 
     with phase("6 covisitation build vs committed tables"):
-        bench_split = covisit_build(torch, dev)["split"]
+        built = covisit_build(torch, dev)
+    bench_split, bench_store = built["split"], built["store"]
+    del built
 
     zero_counters()
     with phase("7 baselines and covisitation heuristic"):
@@ -1396,15 +1720,47 @@ def main() -> int:
     with phase("9 two-stage with an SGNS model on the full catalog (the kNN candidate route)"):
         two_stage_sgns = two_stage_knn(torch, dev, model, path, 2000, zero_counters,
                                        read_counters)
+    phase7_store, phase7_report = path["store"], path["covisitation_report"]
     del model, path
+
+    workdir = REPO / "tmp" / "chip_smoke_cli"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        with phase("10a the file CLI: raw .jsonl and parquet of phase 7's store"):
+            files = cli_files(torch, dev, phase7_store, workdir)
+        with phase("10b CLI covisitation validation on the .jsonl"):
+            cli_covisitation(torch, dev, files, phase7_report)
+        with phase("10c CLI aid_weight submission on the parquet"):
+            cli_aid_weight_run = cli_aid_weight(torch, dev, files, phase7_store, workdir,
+                                                zero_counters, read_counters)
+        del phase7_store
+        with phase("10d CLI two_stage validation from a copy of artifacts/bench_e2e"):
+            cli_two_stage_run = cli_two_stage(torch, dev, bench_store, workdir, zero_counters,
+                                              read_counters)
+        with phase("10e CLI two_stage validation: card vs CPU at 1,000 sessions"):
+            cli_card_vs_cpu(torch, dev, bench_store, workdir)
+        with phase("10f python -m otto_tpu_torch.pipelines in a process of its own"):
+            cli_subprocess(torch, dev, bench_store, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("phase 10 metrics: " + json.dumps({
+        "parse_events_per_s": files["events_per_s"],
+        "submission_rows_per_s": cli_aid_weight_run["rows_per_s"],
+        "two_stage_sessions_per_s": cli_two_stage_run["sessions_per_s"],
+        "aid_vote_launches": cli_aid_weight_run["launches"]["aid_vote"],
+        "predict_forest_rows_launches": cli_two_stage_run["launches"]["predict_forest_rows"]}),
+        flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
     # the forest kernel's float-row entry on the two-stage path, its uint8
-    # entry on the pre-binned scoring path)
+    # entry on the pre-binned scoring path); launches_by_path adds the file
+    # CLI's aid_weight and two_stage runs
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
-             "two_stage_sgns": two_stage_sgns}
+             "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
+             "cli_two_stage": cli_two_stage_run["launches"]}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage}
     for rec in records:

@@ -4,9 +4,12 @@
 layout and names, so each module's counterpart sits at the same path.  It
 imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
-Ported so far (the embedding-kNN, baseline and two-stage prediction paths):
+Ported so far (the embedding-kNN, baseline and two-stage prediction paths,
+and the file CLI):
 
-- ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy)
+- ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy),
+                              JSONL ingest, parquet writers and the Kaggle
+                              submission writer (native C++ at first use)
 - ``otto_tpu_torch.eval``     recall@20 and MAP@k metrics, the validation
                               harness, the paired bootstrap of a lift
 - ``otto_tpu_torch.features`` aid, session and interaction features (copied
@@ -19,9 +22,12 @@ Ported so far (the embedding-kNN, baseline and two-stage prediction paths):
 - ``otto_tpu_torch.models``   SGNS inference and the embedding-kNN recommender,
                               frequency and recency baselines, covisitation
                               and its heuristic, candidate generators, GBDT
-                              inference
+                              inference, the file ensemble
 - ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
-                              prediction with trained artifacts
+                              prediction with trained artifacts, and
+                              ``run_two_stage``'s resume branch
+- ``otto_tpu_torch.pipelines`` the runners and the file CLI
+                              (``python -m otto_tpu_torch.pipelines``)
 
 Constants are those of ``otto_tpu/__init__.py``.
 """

@@ -17,13 +17,11 @@ numpy path of :func:`block_stats` runs only when the caller asks for it with
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
+
+from otto_tpu_torch.utils.native import load_library
 
 SECONDS_PER_DAY = 86400
 TZ_OFFSET = 2 * 60 * 60  # the reference shifts timestamps by +2h (CET)
@@ -164,55 +162,21 @@ def rank_pct(values: np.ndarray, mask: np.ndarray | None = None) -> np.ndarray:
 # Fused block statistics (native engine; numpy on request)
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-_SEGSTATS_SRC = _PKG_DIR / "native" / "segment_stats.cc"
-_GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-_segstats_lock = threading.Lock()
-_segstats_lib = None
-
-
-def _segstats_path() -> Path:
-    """The library's path in ``_build/``, named by a hash of the source and
-    the flags, so an edited source is rebuilt."""
-    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
-    h.update(_SEGSTATS_SRC.read_bytes())
-    return _PKG_DIR / "_build" / f"libotto_segstats_{h.hexdigest()[:16]}.so"
-
-
 def _load_segstats() -> ctypes.CDLL:
     """Build (``g++``, first use) and load the fused segment-stats engine.
     Raises with the compiler's output if the build fails."""
-    global _segstats_lib
-    with _segstats_lock:
-        if _segstats_lib is not None:
-            return _segstats_lib
-        path = _segstats_path()
-        if not path.exists():
-            path.parent.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = ["g++", *_GXX_FLAGS, "-o", str(tmp), str(_SEGSTATS_SRC)]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-            except FileNotFoundError as e:
-                raise RuntimeError("g++ not found: the segment-stats engine cannot be built "
-                                   "(block_stats(..., force_numpy=True) skips it)") from e
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, path)  # atomic: concurrent builds write their own tmp
-        lib = ctypes.CDLL(str(path))
-        p64 = ctypes.POINTER(ctypes.c_int64)
-        p32 = ctypes.POINTER(ctypes.c_int32)
-        p8 = ctypes.POINTER(ctypes.c_uint8)
-        pd = ctypes.POINTER(ctypes.c_double)
-        lib.otto_block_stats.restype = None
-        lib.otto_block_stats.argtypes = [
-            p64, p8, p64, p32, pd, pd,
-            ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-            pd, pd, pd, pd, pd, pd, pd,
-        ]
-        _segstats_lib = lib
+    lib = load_library("segment_stats.cc", "otto_segstats",
+                       python_route="block_stats(..., force_numpy=True)")
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    p8 = ctypes.POINTER(ctypes.c_uint8)
+    pd = ctypes.POINTER(ctypes.c_double)
+    lib.otto_block_stats.restype = None
+    lib.otto_block_stats.argtypes = [
+        p64, p8, p64, p32, pd, pd,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        pd, pd, pd, pd, pd, pd, pd,
+    ]
     return lib
 
 

@@ -1,7 +1,7 @@
 """Models (port of ``otto_tpu/models``): SGNS inference and the
 embedding-kNN recommender, frequency statistics, the aid-weight baseline,
 covisitation construction and the covisitation heuristic, the candidate
-generators and GBDT inference."""
+generators, GBDT inference and the file ensemble."""
 
 from otto_tpu_torch.models.candidates import (
     CandidateSet,

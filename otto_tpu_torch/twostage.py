@@ -1,8 +1,8 @@
-"""The two-stage production pipeline: prediction with trained artifacts.
+"""The two-stage production pipeline: prediction with trained artifacts,
+and the resume branch of training.
 
-Port of the prediction half of ``otto_tpu/twostage.py``.  The reference's
-four chained CLI processes (SURVEY §3.4) become one call that passes arrays
-in memory:
+Port of ``otto_tpu/twostage.py``.  The reference's four chained CLI
+processes (SURVEY §3.4) become one call that passes arrays in memory:
 
 1. the regular candidate generator emits [S, C] candidates and scores, and
    the covisitation heuristic's top-20 is unioned into the grid;
@@ -11,10 +11,14 @@ in memory:
    forest-kernel launch a model, which bins the float32 rows itself);
 4. the prior blend and the per-session top-20.
 
-:func:`predict_two_stage` takes a required ``device``: candidates, the
-heuristic (when not given) and the forest pass run there.  A failed device
-pass raises; nothing falls back to the CPU.  Training (``run_two_stage``)
-waits for GBDT training (ROADMAP M9) and raises.
+:func:`predict_two_stage` scores new sessions with trained artifacts.
+:func:`run_two_stage` is the reference's train-and-evaluate call in its
+resume branch (``otto_tpu/twostage.py:448-499``): it reloads the rankers an
+artifact directory holds, scores the labeled target with them, selects or
+reuses the prior-blend alpha, reports and saves.  Fitting a ranker needs
+GBDT training (ROADMAP M9) and raises.  Both take a required ``device``:
+candidates, the heuristic (when not given) and the forest pass run there.
+A failed device pass raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -28,9 +32,11 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import CovisitConfig
+from otto_tpu_torch.config import CovisitConfig, GBDTConfig, SGNSConfig
 from otto_tpu_torch.data.events import EventStore
-from otto_tpu_torch.eval.harness import RecallReport
+from otto_tpu_torch.data.labels import SessionLabels
+from otto_tpu_torch.eval.harness import RecallReport, evaluate_predictions
+from otto_tpu_torch.eval.metrics import corpus_recall_at_k
 from otto_tpu_torch.features import (
     RANKER_FEATURES,
     assemble_features,
@@ -38,13 +44,21 @@ from otto_tpu_torch.features import (
     compute_interaction_features,
     compute_session_features,
 )
-from otto_tpu_torch.models.candidates import CandidateSet, regular_candidates
-from otto_tpu_torch.models.covisitation import CovisitationMatrices
+from otto_tpu_torch.logging_utils import get_logger
+from otto_tpu_torch.models.candidates import CandidateSet, _label_dict, regular_candidates
+from otto_tpu_torch.models.covisitation import (
+    CovisitationMatrices,
+    build_covisitation,
+    covisit_heuristic_predictions,
+)
+from otto_tpu_torch.models.frequency import FrequencyStatistics
 from otto_tpu_torch.models.embeddings import SGNSModel
 from otto_tpu_torch.models.ensemble import robust_scale
 from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model
 from otto_tpu_torch.models.ranker import top_k_predictions
 from otto_tpu_torch.utils.runtime import resolve_device
+
+log = get_logger(__name__)
 
 
 def _blend_scores(candidates: np.ndarray, score_mats: list[np.ndarray],
@@ -59,6 +73,9 @@ def _blend_scores(candidates: np.ndarray, score_mats: list[np.ndarray],
         scaled[finite] = robust_scale(s[finite].astype(np.float64))
         out += w * scaled
     return np.where(valid, out, -np.inf).astype(np.float32)
+
+
+PRIOR_ALPHAS = (0.0, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 4.0)
 
 
 def _heuristic_rank_matrix(candidates: np.ndarray, heur: np.ndarray, chunk: int = 8192):
@@ -84,17 +101,17 @@ def _heuristic_rank_matrix(candidates: np.ndarray, heur: np.ndarray, chunk: int 
     return rank, present
 
 
-def _union_heuristic(cands: CandidateSet,
-                     heur_preds: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def _union_heuristic(cands: CandidateSet, heur_preds: dict[str, np.ndarray],
+                     labels: SessionLabels | None, device: torch.device) -> dict[str, np.ndarray]:
     """Union each session's heuristic top-k into the candidate grid.
 
     Appends K extra columns holding heuristic picks missing from the grid
     (candgen score 0 — the ``heuristic_rank_score`` feature and prior carry
-    their ordering) and returns the per-type [S, C+K] heuristic-rank
-    matrices.  Guarantees the heuristic's exact top-20 is reachable by the
-    reranker, so the prior blend at alpha = 0 reproduces the L4 heuristic.
-    (The reference also relabels the widened grid for its training caller;
-    that comes with training, ROADMAP M10.)
+    their ordering), relabels the widened grid on ``device`` when ``labels``
+    is given, and returns the per-type [S, C+K] heuristic-rank matrices.
+    Guarantees the heuristic's exact top-20 is reachable by the reranker, so
+    the prior blend at alpha = 0 reproduces the L4 heuristic and any
+    selected alpha > 0 is measured lift over it.
     """
     heur_rank: dict[str, np.ndarray] = {}
     for etype in EVENT_TYPES:
@@ -113,6 +130,8 @@ def _union_heuristic(cands: CandidateSet,
         cands.scores[etype] = np.concatenate([sc, np.zeros((S, K), sc.dtype)], axis=1)
         rank, _ = _heuristic_rank_matrix(cands.candidates[etype], h)
         heur_rank[etype] = rank
+    if labels is not None:
+        cands.labels = _label_dict(cands.candidates, labels, device=device)
     return heur_rank
 
 
@@ -135,6 +154,67 @@ def _prior_matrix(candidates: np.ndarray, heur_rank: np.ndarray | None):
     return prior
 
 
+def _prior_scores(candidates: np.ndarray, scores: np.ndarray,
+                  heur_rank: np.ndarray | None, alpha: float) -> np.ndarray:
+    """The prior blend at a given ``alpha``: ``prior + alpha * tower`` over
+    the robust-scaled prior and ranker scores, or at ``alpha = inf`` the
+    scaled ranker scores alone."""
+    tower_n = _blend_scores(candidates, [scores], [1.0])
+    if not np.isfinite(alpha):
+        return tower_n
+    valid = candidates >= 0
+    prior_n = _blend_scores(candidates, [_prior_matrix(candidates, heur_rank)], [1.0])
+    tower_z = np.where(valid, tower_n, 0.0)  # avoid 0 * -inf = nan
+    return np.where(valid, prior_n + alpha * tower_z, -np.inf)
+
+
+def _prior_blend(candidates: np.ndarray, tower_scores: np.ndarray, eval_fn,
+                 heur_rank: np.ndarray | None = None):
+    """Blend the tower score with the candidate-ordering prior.
+
+    The prior is the candidate-generator's ordering (session recency +
+    covisitation votes) — or, when ``heur_rank`` is given, that ordering with
+    the covisit heuristic's top-20 lifted above it, so alpha = 0 reproduces
+    the L4 heuristic exactly.  ``score = prior + alpha * tower`` lets the
+    learned model only refine it; ``alpha`` is selected per event type by
+    recall over ``PRIOR_ALPHAS`` (alpha -> infinity recovers the pure
+    tower).  Returns the chosen scores and alpha.
+    """
+    S, C = candidates.shape
+    valid = candidates >= 0
+    prior = _prior_matrix(candidates, heur_rank)
+    prior_n = _blend_scores(candidates, [prior], [1.0])
+    tower_n = _blend_scores(candidates, [tower_scores], [1.0])
+    best_alpha, best_r, best_scores = 0.0, -1.0, prior_n
+    idx = np.arange(S)
+    tower_z = np.where(valid, tower_n, 0.0)  # avoid 0 * -inf = nan at alpha 0
+    for alpha in PRIOR_ALPHAS:
+        blended = np.where(valid, prior_n + alpha * tower_z, -np.inf)
+        r = eval_fn(idx, blended)
+        if r > best_r:
+            best_alpha, best_r, best_scores = alpha, r, blended
+    # also consider the pure tower (alpha = inf)
+    r_tower = eval_fn(idx, tower_n)
+    if r_tower > best_r:
+        return tower_n, float("inf")
+    return best_scores, best_alpha
+
+
+def _recall_eval_fn(labels: SessionLabels, candidates: np.ndarray, etype: str, *,
+                    device: torch.device):
+    """The prior blend's selection metric: corpus recall@20 (on ``device``)
+    of the top-20 reranked candidates on a subset of sessions."""
+    padded = labels.padded(etype)
+
+    def eval_recall(session_indices, scores):
+        top = top_k_predictions(candidates[session_indices], scores, k=TOP_K)
+        return float(corpus_recall_at_k(torch.as_tensor(top, device=device),
+                                        torch.as_tensor(padded[session_indices], device=device),
+                                        k=TOP_K))
+
+    return eval_recall
+
+
 @dataclass
 class TwoStageArtifacts:
     """What prediction needs from training: covisitation matrices, the
@@ -155,12 +235,15 @@ class TwoStageArtifacts:
     heuristic_union: bool = True
     feature_list: list[str] | None = None
 
-    def save(self, directory) -> None:
+    def save(self, directory, matrices: bool = True) -> None:
         """Persist everything needed to re-score new sessions (the
-        reference's per-stage artifact files, SURVEY §5.3-5.4)."""
+        reference's per-stage artifact files, SURVEY §5.3-5.4).
+        ``matrices=False`` leaves ``covisitation/`` as it is (a run that
+        resumed its tables from there)."""
         d = Path(directory)
-        (d / "covisitation").mkdir(parents=True, exist_ok=True)
-        self.matrices.save(d / "covisitation")
+        d.mkdir(parents=True, exist_ok=True)
+        if matrices:
+            self.matrices.save(d / "covisitation")
         if self.sgns is not None:
             self.sgns.save(d / "sgns.npz")
         for name, model in self.rankers.items():
@@ -193,13 +276,6 @@ class TwoStageArtifacts:
                    feature_list=meta.get("feature_list"))
 
 
-def run_two_stage(*args, **kwargs):
-    """Train and evaluate the two-stage pipeline: not ported yet."""
-    raise NotImplementedError("run_two_stage (training) needs GBDT training, which is not "
-                              "ported yet (ROADMAP M9); use predict_two_stage with trained "
-                              "artifacts")
-
-
 def _union_stats_store(train: EventStore, target: EventStore) -> EventStore:
     """train ∪ target events, the store the aid features are computed over
     (the reference computes them over the full split union,
@@ -211,6 +287,229 @@ def _union_stats_store(train: EventStore, target: EventStore) -> EventStore:
         np.concatenate([train.ts, target.ts]),
         np.concatenate([train.type, target.type]),
     )
+
+
+def _heuristic_lists(train: EventStore, target: EventStore, matrices: CovisitationMatrices,
+                     ft_neighbors: np.ndarray | None, n_aids: int, chunk_sessions: int,
+                     dev: torch.device) -> dict[str, np.ndarray]:
+    """The covisitation heuristic's top-20 of ``target`` on ``dev``; on the
+    CPU through the host routes, as the JAX package does on a CPU backend."""
+    stats = FrequencyStatistics.compute(train, n_aids=n_aids, device=dev)
+    stats_top = {t: stats.top_by_type[t] for t in EVENT_TYPES}
+    on_cpu = dev.type == "cpu"
+    return covisit_heuristic_predictions(
+        target, matrices, stats_top, ft_neighbors=ft_neighbors,
+        chunk_sessions=chunk_sessions,
+        recency_host_f64=on_cpu, covisit_host=on_cpu, device=dev,
+    )
+
+
+def _type_features(target: EventStore, cands: CandidateSet, etype: str,
+                   heur_rank: dict[str, np.ndarray] | None, feature_list: list[str],
+                   aid_feats: dict[str, np.ndarray], sess_feats: dict[str, np.ndarray],
+                   n_aids: int) -> np.ndarray:
+    """The ranker rows [S, C, F] of one event type's candidate grid."""
+    c = cands.candidates[etype]
+    inter = compute_interaction_features(target, c, cands.scores[etype], n_aids)
+    if heur_rank is not None:
+        hr = heur_rank[etype]
+        K = TOP_K  # list width, not observed max rank
+        inter["heuristic_rank_score"] = np.where(
+            hr >= 0, (K - hr).astype(np.float32) / K, 0.0
+        ).astype(np.float32)
+    return assemble_features(feature_list, inter, aid_feats, sess_feats, c)
+
+
+def run_two_stage(
+    train: EventStore,
+    target: EventStore,
+    n_aids: int,
+    labels: SessionLabels | None = None,
+    covisit_config: CovisitConfig = CovisitConfig(),
+    second_ranker_config: GBDTConfig | None = None,
+    sgns_config: SGNSConfig | None = None,
+    feature_list: list[str] = RANKER_FEATURES,
+    uniq_cap: int = 64,
+    k_covisit: int = 100,
+    matrices: CovisitationMatrices | None = None,
+    artifact_dir=None,
+    selection_fraction: float = 0.5,
+    selection_seed: int = 17,
+    heuristic_union: bool = True,
+    heuristic_preds: dict[str, np.ndarray] | None = None,
+    chunk_sessions: int = 2048,
+    aid_feats: dict[str, np.ndarray] | None = None,
+    stats_out: dict | None = None,
+    *,
+    device: str | torch.device,
+) -> TwoStageArtifacts:
+    """Evaluate the two-stage pipeline on labeled ``target`` sessions with the
+    rankers ``artifact_dir`` holds (the reference's resume branch), on
+    ``device``.
+
+    ``train`` supplies statistics (covisitation, aid features); ``target``
+    sessions receive candidates and predictions.  Per stage, what the
+    directory holds is reloaded: ``covisitation/`` (else built on ``device``
+    and saved there), ``sgns.npz`` when ``sgns_config`` is given, and
+    ``ranker_<type>.npz`` of every type, which score the target with one
+    forest pass a type.  A ranker's stored ``prior_alpha`` is reused (finite:
+    ``prior + alpha * ranker``; ``inf``: the ranker alone); a NaN one is
+    selected over ``PRIOR_ALPHAS`` by recall on the *selection* sessions and
+    stored.  ``selection_fraction`` splits the target into those and a
+    disjoint *report* subset scored by ``report_disjoint`` (the reference's
+    OOF-vs-holdout split, src/ranker/inference.py:321-337); ``report``
+    covers all sessions.  The artifacts are saved back into
+    ``artifact_dir`` (the covisitation tables only when they were passed in,
+    since tables read from or built into the directory are there already).
+
+    Fitting is not ported: a missing ranker, a ``second_ranker_config``, or
+    ``sgns_config`` without ``sgns.npz`` raises ``NotImplementedError``
+    naming its ROADMAP item; ``labels=None`` raises ``ValueError``, as in
+    the reference (prediction is :func:`predict_two_stage`).  ``stats_out``
+    receives the seconds of each stage.
+    """
+    if labels is None:
+        raise ValueError("run_two_stage evaluates labeled sessions; prediction-only mode "
+                         "is predict_two_stage")
+    if second_ranker_config is not None:
+        raise NotImplementedError("run_two_stage: a second ranker is fit by training, which "
+                                  "is not ported yet (ROADMAP M10)")
+    adir = Path(artifact_dir) if artifact_dir is not None else None
+    missing = [t for t in EVENT_TYPES
+               if adir is None or not (adir / f"ranker_{t}.npz").exists()]
+    if missing:
+        raise NotImplementedError(
+            f"run_two_stage: no trained ranker for {missing} in artifact_dir={artifact_dir!r}; "
+            "fitting one needs GBDT training, which is not ported yet (ROADMAP M9). Pass an "
+            "artifact_dir holding ranker_<type>.npz of every type")
+    if sgns_config is not None and not (adir / "sgns.npz").exists():
+        raise NotImplementedError("run_two_stage: sgns_config without sgns.npz in "
+                                  "artifact_dir trains SGNS, which is not ported yet "
+                                  "(ROADMAP S1)")
+    dev = resolve_device(device)
+    times = dict.fromkeys(("covisit_s", "candidates_s", "heuristic_s", "union_s",
+                           "features_s", "forest_s", "blend_s", "report_s", "save_s"), 0.0)
+    clock = time.perf_counter
+
+    # ---- stage 0: representation models ----------------------------------
+    t0 = clock()
+    matrices_on_disk = matrices is None and (adir / "covisitation").is_dir()
+    if matrices_on_disk:
+        log.info("resuming covisitation matrices from %s", adir)
+        matrices = CovisitationMatrices.load(adir / "covisitation")
+    if matrices is None:
+        log.info("building covisitation matrices over %d events", train.n_events)
+        matrices = build_covisitation(train, n_aids, covisit_config, device=dev)
+        matrices.save(adir / "covisitation")
+        matrices_on_disk = True
+    sgns = None
+    if sgns_config is not None:
+        log.info("resuming SGNS embeddings from %s", adir)
+        sgns = SGNSModel.load(adir / "sgns.npz", sgns_config, device=dev)
+    ft_neighbors = sgns.neighbor_table(k=20) if sgns is not None else None
+    times["covisit_s"] = clock() - t0
+
+    # ---- stage 1: candidates ---------------------------------------------
+    t0 = clock()
+    cands = regular_candidates(
+        target, matrices, ft_neighbors=ft_neighbors, labels=labels, uniq_cap=uniq_cap,
+        wide_k=min(covisit_config.top_k_wide, matrices.tables["time_weighted"][0].shape[1]),
+        k_covisit=k_covisit, chunk_sessions=chunk_sessions, device=dev,
+    )
+    times["candidates_s"] = clock() - t0
+    heur_rank = None
+    if heuristic_union:
+        # union the L4 heuristic's top-20 into the grid and expose its
+        # ordering as a feature + the blend prior: alpha = 0 recovers it
+        # exactly, and any selected alpha > 0 is measured lift over it
+        if heuristic_preds is None:
+            t0 = clock()
+            heuristic_preds = _heuristic_lists(train, target, matrices, ft_neighbors, n_aids,
+                                               chunk_sessions, dev)
+            times["heuristic_s"] = clock() - t0
+        t0 = clock()
+        heur_rank = _union_heuristic(cands, heuristic_preds, labels, dev)
+        feature_list = list(feature_list) + ["heuristic_rank_score"]
+        times["union_s"] = clock() - t0
+    max_recall = cands.max_recall_report(labels, device=dev)
+
+    # ---- stage 2: features ------------------------------------------------
+    t0 = clock()
+    if aid_feats is None:
+        aid_feats = compute_aid_features(_union_stats_store(train, target), n_aids)
+    sess_feats = compute_session_features(target, aid_feats)
+    times["features_s"] += clock() - t0
+
+    # ---- stage 3: per-type scoring with the resumed rankers ---------------
+    sel_mask = None
+    if 0.0 < selection_fraction < 1.0:
+        sel_mask = (np.random.default_rng(selection_seed).random(target.n_sessions)
+                    < selection_fraction)
+        if sel_mask.all() or not sel_mask.any():  # degenerate tiny inputs
+            sel_mask = None
+    rankers: dict[str, GBDTRankerModel] = {}
+    predictions: dict[str, np.ndarray] = {}
+    for etype in EVENT_TYPES:
+        c = cands.candidates[etype]
+        t0 = clock()
+        X = _type_features(target, cands, etype, heur_rank, feature_list, aid_feats,
+                           sess_feats, n_aids)
+        times["features_s"] += clock() - t0
+        rk_path = adir / f"ranker_{etype}.npz"
+        log.info("resuming %s ranker from %s", etype, rk_path)
+        t0 = clock()
+        model = load_ranker_model(rk_path)
+        scores = model.predict(X, c >= 0, device=dev)
+        times["forest_s"] += clock() - t0
+        del X
+        rankers[etype] = model
+        t0 = clock()
+        hr = None if heur_rank is None else heur_rank[etype]
+        if not np.isnan(model.prior_alpha):  # the alpha selected before
+            scores = _prior_scores(c, scores, hr, model.prior_alpha)
+        else:
+            eval_fn = _recall_eval_fn(labels, c, etype, device=dev)
+            if sel_mask is not None:
+                # restrict the alpha selection to the selection half
+                raw_eval = eval_fn
+
+                def eval_fn(session_indices, s, _raw=raw_eval):
+                    keep = sel_mask[session_indices]
+                    if not keep.any():
+                        return _raw(session_indices, s)
+                    return _raw(session_indices[keep], s[keep])
+
+            scores, model.prior_alpha = _prior_blend(c, scores, eval_fn, heur_rank=hr)
+            log.info("%s: prior-blend alpha %.2f", etype, model.prior_alpha)
+        predictions[etype] = top_k_predictions(c, scores, k=TOP_K)
+        times["blend_s"] += clock() - t0
+
+    t0 = clock()
+    report = evaluate_predictions(labels, predictions["clicks"], predictions["carts"],
+                                  predictions["orders"], device=dev)
+    log.info("two-stage validation scores\n%s", report)
+    report_disjoint = None
+    if sel_mask is not None:
+        holdout = np.flatnonzero(~sel_mask)
+        report_disjoint = evaluate_predictions(
+            labels.take(holdout), predictions["clicks"][holdout],
+            predictions["carts"][holdout], predictions["orders"][holdout], device=dev)
+        log.info("two-stage scores on the %d selection-disjoint sessions\n%s",
+                 len(holdout), report_disjoint)
+    times["report_s"] = clock() - t0
+
+    artifacts = TwoStageArtifacts(
+        matrices=matrices, sgns=sgns, candidates=cands, rankers=rankers,
+        predictions=predictions, report=report, max_recall=max_recall,
+        selection_mask=sel_mask, report_disjoint=report_disjoint,
+        heuristic_union=heuristic_union, feature_list=list(feature_list),
+    )
+    t0 = clock()
+    artifacts.save(adir, matrices=not matrices_on_disk)
+    times["save_s"] = clock() - t0
+    if stats_out is not None:
+        stats_out.update(times)
+    return artifacts
 
 
 def predict_two_stage(
@@ -275,21 +574,12 @@ def predict_two_stage(
     heur_rank = None
     if heuristic_union:
         if heuristic_preds is None:
-            from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
-            from otto_tpu_torch.models.frequency import FrequencyStatistics
-
             t0 = clock()
-            stats = FrequencyStatistics.compute(train, n_aids=n_aids, device=dev)
-            stats_top = {t: stats.top_by_type[t] for t in EVENT_TYPES}
-            on_cpu = dev.type == "cpu"
-            heuristic_preds = covisit_heuristic_predictions(
-                target, artifacts.matrices, stats_top, ft_neighbors=ft_neighbors,
-                chunk_sessions=chunk_sessions,
-                recency_host_f64=on_cpu, covisit_host=on_cpu, device=dev,
-            )
+            heuristic_preds = _heuristic_lists(train, target, artifacts.matrices, ft_neighbors,
+                                               n_aids, chunk_sessions, dev)
             times["heuristic_s"] = clock() - t0
         t0 = clock()
-        heur_rank = _union_heuristic(cands, heuristic_preds)
+        heur_rank = _union_heuristic(cands, heuristic_preds, None, dev)
         feature_list = list(feature_list) + ["heuristic_rank_score"]
         times["union_s"] = clock() - t0
     t0 = clock()
@@ -301,14 +591,8 @@ def predict_two_stage(
     for etype in EVENT_TYPES:
         c = cands.candidates[etype]
         t0 = clock()
-        inter = compute_interaction_features(target, c, cands.scores[etype], n_aids)
-        if heur_rank is not None:
-            hr = heur_rank[etype]
-            K = TOP_K  # list width, not observed max rank
-            inter["heuristic_rank_score"] = np.where(
-                hr >= 0, (K - hr).astype(np.float32) / K, 0.0
-            ).astype(np.float32)
-        X = assemble_features(feature_list, inter, aid_feats, sess_feats, c)
+        X = _type_features(target, cands, etype, heur_rank, feature_list, aid_feats,
+                           sess_feats, n_aids)
         mask = c >= 0
         times["features_s"] += clock() - t0
         # the type's ranker, and a second one to blend with where training
@@ -326,19 +610,15 @@ def predict_two_stage(
             scores = m.predict_rows(x, times).cpu().numpy().reshape(c.shape)
             times["forest_s"] += clock() - t0 - (times["binning_s"] - binning)
             per_model.append(np.where(mask, scores, -np.inf))
-        del X, x, inter
+        del X, x
         t0 = clock()
         scores = (per_model[0] if second is None
                   else _blend_scores(c, per_model, [0.5, 0.5]))
         if stats_out is not None:
             stats_out[f"rows_{etype}"] = int(np.prod(c.shape))
-        alpha = getattr(model, "prior_alpha", float("nan"))
-        if np.isfinite(alpha):
-            prior = _prior_matrix(c, None if heur_rank is None else heur_rank[etype])
-            prior_n = _blend_scores(c, [prior], [1.0])
-            tower_n = _blend_scores(c, [scores], [1.0])
-            tower_z = np.where(mask, tower_n, 0.0)  # avoid 0 * -inf = nan
-            scores = np.where(mask, prior_n + alpha * tower_z, -np.inf)
+        if np.isfinite(model.prior_alpha):
+            scores = _prior_scores(c, scores, None if heur_rank is None else heur_rank[etype],
+                                   model.prior_alpha)
         out[etype] = top_k_predictions(c, scores, k=TOP_K)
         times["blend_s"] += clock() - t0
     if stats_out is not None:

@@ -343,3 +343,49 @@ def test_cuda_forest_kernel_slices_and_depths(cuda_device, depth):
         for got in (tfo.predict_forest(binned, pack), tfo.predict_forest_rows(x, edges, pack)):
             torch.cuda.synchronize()
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_cli_two_stage_launches_forest_kernel_once_a_type(cuda_device, tmp_path):
+    """``main two_stage validation`` from a copy of the committed artifacts
+    (200 sessions over the bench's 20,000 aids): one float-row forest launch
+    a type, and lists equal to the CPU path's given the card's heuristic
+    lists (the heuristic's recency route differs by device, ROADMAP §3)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from otto_tpu_torch import EVENT_TYPES, pipelines, twostage
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.data.synthetic import synthetic_events_v2
+    from otto_tpu_torch.ops import forest as tfo
+
+    bench = Path(__file__).resolve().parent.parent / "artifacts" / "bench_e2e"
+    store = synthetic_events_v2(n_sessions=200, n_aids=20_000, seed=2)
+    store.to_parquet(tmp_path / "events.parquet")
+    for name in ("cuda", "cpu"):
+        shutil.copytree(bench, tmp_path / name)
+    heur = []
+    real = twostage._heuristic_lists
+
+    def keep(*args):
+        heur.append(real(*args))
+        return heur[-1]
+
+    tfo.predict_forest_rows.launches = 0
+    twostage._heuristic_lists = keep
+    try:
+        got = pipelines.main(["two_stage", "validation", "--ranker", "gbdt", "--n-aids", "20000",
+                              "--val-fraction", "0.5", "--seed", "0", "--device", "cuda",
+                              "--events", str(tmp_path / "events.parquet"),
+                              "--artifact-dir", str(tmp_path / "cuda")])
+    finally:
+        twostage._heuristic_lists = real
+    assert tfo.predict_forest_rows.launches == 3
+    sp = split_by_fraction(store, val_fraction=0.5, seed=0)
+    want = twostage.run_two_stage(sp.train, sp.val_input, 20_000, labels=sp.val_labels,
+                                  artifact_dir=tmp_path / "cpu", heuristic_preds=heur[0],
+                                  device="cpu")
+    for t in EVENT_TYPES:
+        np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)

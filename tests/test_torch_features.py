@@ -23,6 +23,7 @@ from otto_tpu.features import base as jbase
 from otto_tpu_torch import features as tfeat
 from otto_tpu_torch.data.synthetic import synthetic_events_v2
 from otto_tpu_torch.features import base as tbase
+from otto_tpu_torch.utils import native as tnative
 
 N_AIDS = 400
 
@@ -128,9 +129,9 @@ def test_failed_native_build_raises(stores, monkeypatch, tmp_path):
     def no_compiler(*args, **kwargs):
         raise FileNotFoundError("g++")
 
-    monkeypatch.setattr(tbase, "_segstats_lib", None)
-    monkeypatch.setattr(tbase, "_segstats_path", lambda: tmp_path / "libotto_segstats_x.so")
-    monkeypatch.setattr(tbase.subprocess, "run", no_compiler)
+    monkeypatch.setattr(tnative, "_loaded", {})
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tnative.subprocess, "run", no_compiler)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         tfeat.compute_aid_features(ts, N_AIDS)
     assert "aid_count" in tfeat.compute_aid_features(ts, N_AIDS, force_numpy=True)

@@ -145,8 +145,8 @@ def test_streamed_aid_features_saved_and_resumed(setup, tmp_path, monkeypatch):
 
 def test_training_modes_raise(setup):
     _, tsp, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="M9"):
-        tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS)
+    with pytest.raises(NotImplementedError, match="M9"):  # no trained rankers to resume
+        tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS, labels=tsp.val_labels, device="cpu")
     with pytest.raises(NotImplementedError, match="M9"):
         tstream.run_two_stage_streamed(tsp.train, tsp.val_input, N_AIDS, device="cpu")
 
