@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's serving paths once on one NVIDIA card: the
+"""Drive the PyTorch port's paths once on one NVIDIA card: the
 embedding-kNN path, the baselines with the covisitation heuristic, the
-two-stage prediction path, and the file CLI.
+two-stage prediction path, the file CLI, and GBDT training.
 
     python3 chip_smoke.py
 
@@ -83,16 +83,42 @@ exit code):
    parquet, the session vote launched, the file read back equal to
    ``run_aid_weight``'s lists, the writer's rows/s; 10d ``two_stage
    validation --ranker gbdt`` from a copy of ``artifacts/bench_e2e`` on
-   phase 6's store cut to 40,000 sessions (20,000 target sessions): three
+   phase 6's store cut to 20,000 sessions (10,000 target sessions): three
    float-row forest launches, recall, ``report_disjoint``, the stage
    seconds, sessions/s, and the saved lists equal to ``predict_two_stage``
-   on the same train and target; 10e that command at 1,000 target
+   on the same train and target; 10e that command at 500 target
    sessions on the card and on the CPU, lists bit-equal (where they
    differ: every differing heuristic row a recency-route session, and the
    CPU path given the card's heuristic lists bit-equal to the card, the
    rows printed); 10f ``python -m otto_tpu_torch.pipelines aid_frequency
    submission --device cuda`` in a process of its own, exit 0 and a
-   readable file.
+   readable file;
+11. GBDT training on the card (run in the order 11c, 11a, 11b, 11d: 11a and
+   11b take the refit's rows): 11c the bench refit, ``run_two_stage_streamed``
+   in training mode on phase 6's data with ``artifacts/BENCH_FIT_r05.json``'s
+   settings (20,000 training sessions drawn with seed 23, bce, 150 trees, 3
+   folds, early stop 50, ``min_data_in_leaf`` 200, selection seed 17) and
+   the committed tables, streaming phase 9's 8,000 training-disjoint
+   sessions; counters zeroed before and read after (the histogram kernel
+   launches, its twin is never called); best iterations beside the
+   committed models', the train-subsample report beside the JSON's, and
+   the lift with its paired bootstrap (1,000 draws), held above 0 and
+   overlapping the committed models' ci95; 11a the histogram kernel against
+   its twin at one tree's launches on the first clicks fold's rows (level
+   0, one key; levels 1-6, the left children, keys from the tree's
+   routing): bit-equal on dyadic vals, within 2^-20 of each column's sum
+   of |vals| on the fold's bce gradients, two launches bit-identical; its
+   times (CUDA graph), the twin's, ``index_add_``'s and the bound; 11b one
+   tree on dyadic grad/hess, card against the CPU twin, bit-equal; two
+   10-tree bce fits on the card bit-identical; a 5-tree lambdarank fit
+   (``configs/gbdt_lambdarank.yaml``, trees cut) and ``_lambdarank_gh`` on
+   its scores, card within 1e-5 relative of the CPU; 11d the CLI's
+   ``two_stage validation --config <20 trees, 3 folds>`` on phase 6's store
+   cut to 40,000 sessions into an empty directory (three rankers saved,
+   the histogram kernel launched), the same command resuming (no histogram
+   launch; lists equal to ``predict_two_stage`` with the saved artifacts),
+   and ``two_stage_streamed validation --train-sessions 5000`` on its first
+   20,000 sessions (a lift printed).
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -1447,7 +1473,7 @@ def two_stage_argv(events: Path, adir: Path, device: str) -> list[str]:
 
 def cli_two_stage(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
     """Phase 10d: ``two_stage validation --ranker gbdt`` on phase 6's store
-    cut to its first 40,000 sessions (20,000 target sessions), resuming
+    cut to its first 20,000 sessions (10,000 target sessions), resuming
     from a copy of ``artifacts/bench_e2e``: counters zeroed before, read
     after (one float-row forest launch a type, no more); the lists it saves
     equal ``predict_two_stage`` on the same train and target with the
@@ -1456,8 +1482,8 @@ def cli_two_stage(torch, dev, bench_store, workdir: Path, zero_counters, read_co
     from otto_tpu_torch.data.splits import split_by_fraction
 
     art = REPO / "artifacts" / "bench_e2e"
-    store = head_sessions(bench_store, 40_000)
-    events, adir = workdir / "bench_40k.parquet", workdir / "bench_e2e_10d"
+    store = head_sessions(bench_store, 20_000)
+    events, adir = workdir / "bench_20k.parquet", workdir / "bench_e2e_10d"
     store.to_parquet(events)
     shutil.copytree(art, adir)
     stats: dict = {}
@@ -1507,7 +1533,7 @@ def cli_two_stage(torch, dev, bench_store, workdir: Path, zero_counters, read_co
 
 
 def cli_card_vs_cpu(torch, dev, bench_store, workdir: Path) -> None:
-    """Phase 10e: the same ``two_stage validation`` command at 1,000 target
+    """Phase 10e: the same ``two_stage validation`` command at 500 target
     sessions with ``--device cuda`` and with ``--device cpu``.  The lists
     must be bit-equal.  On the CPU the heuristic takes the host float64
     routes and on the card the device routes, as the JAX package does on a
@@ -1521,8 +1547,8 @@ def cli_card_vs_cpu(torch, dev, bench_store, workdir: Path) -> None:
     from otto_tpu_torch.models.covisitation import session_unique_counts
 
     art = REPO / "artifacts" / "bench_e2e"
-    store = head_sessions(bench_store, 2_000)
-    events = workdir / "bench_2k.parquet"
+    store = head_sessions(bench_store, 1_000)
+    events = workdir / "bench_1k.parquet"
     store.to_parquet(events)
     runs, heur = [], []  # the card's run, then the CPU's
 
@@ -1538,7 +1564,7 @@ def cli_card_vs_cpu(torch, dev, bench_store, workdir: Path) -> None:
         with wrapped(twostage, "_heuristic_lists", keep):
             t0 = time.perf_counter()
             runs.append(pipelines.main(two_stage_argv(events, adir, device)).predictions)
-            print(f"CLI two_stage validation at 1,000 target sessions, --device {device}: "
+            print(f"CLI two_stage validation at 500 target sessions, --device {device}: "
                   f"{time.perf_counter() - t0:.2f} s", flush=True)
     card, cpu = runs
     differ = {t: np.flatnonzero((card[t] != cpu[t]).any(axis=1)) for t in TYPE_NAMES}
@@ -1596,6 +1622,413 @@ def cli_subprocess(torch, dev, bench_store, workdir: Path) -> None:
           f"read back; stdout {proc.stdout.strip()!r}", flush=True)
 
 
+# ------------------------------------------------------------- phase 11
+HIST_SOURCE = "otto_tpu_torch/csrc/hist_kernels.cu"
+# The bench refit, as tools/stream_scale_run.py:149-152 builds its GBDTConfig
+# for artifacts/BENCH_FIT_r05.json: 20,000 training sessions drawn with seed
+# 23, bce, 150 trees, 3 folds, early stop 50, min_data_in_leaf 200,
+# selection seed 17 (subsample and colsample at their 0.9 default).
+REFIT_TRAIN_SESSIONS = 20_000
+REFIT_STREAM_SESSIONS = 8_000  # phase 9's sessions: the first training-disjoint ones
+
+
+def refit_config():
+    from otto_tpu_torch.config import GBDTConfig
+
+    return GBDTConfig(n_trees=150, n_folds=3, early_stopping_rounds=50, min_data_in_leaf=200,
+                      loss="bce")
+
+
+def refit(torch, dev, split, zero_counters, read_counters) -> dict:
+    """Phase 11c: ``run_two_stage_streamed`` in training mode on phase 6's
+    data with the bench refit's settings and the committed covisitation
+    tables: the rankers fit on 20,000 target sessions, then the first 8,000
+    training-disjoint sessions stream (phase 9's).  Counters zeroed before,
+    read after: the histogram kernel launches and its twin is never called.
+    Prints the stage seconds, each fold's best iteration beside the
+    committed models', the train-subsample report beside
+    ``BENCH_FIT_r05.json``'s, and the lift with its paired bootstrap (1,000
+    draws, seeded); holds the lift's ci95 above 0 and overlapping the
+    committed models' interval on the same sessions (``BENCH_r05.json``).
+    Returns the first clicks fold's ``fit_gbdt`` inputs (11a, 11b use them)
+    and the launches."""
+    from otto_tpu_torch import EVENT_TYPES, streaming, twostage
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import hist
+
+    fit_ref = json.loads((REPO / "artifacts" / "BENCH_FIT_r05.json").read_text())
+    committed = two_stage_artifacts()
+    first_fold, twin_calls, stats = {}, [], {}
+
+    def keep_first(real):  # the first fold's inputs (clicks, fold 0)
+        def fit(*args, **kwargs):
+            if not first_fold:
+                first_fold.update(args=args, val=kwargs["val"])
+            return real(*args, **kwargs)
+        return fit
+
+    def count_twin(real):
+        def twin(*args):
+            twin_calls.append(1)
+            return real(*args)
+        return twin
+
+    def with_stats(real):
+        def run(*args, **kwargs):
+            return real(*args, stats_out=stats, **kwargs)
+        return run
+
+    spent: dict = {}
+
+    def timed(name):  # seconds spent in a function of the fit, the card drained after
+        def wrapper(real):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = real(*args, **kwargs)
+                sync(torch, dev)
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return call
+        return wrapper
+
+    with wrapped(gbdt, "fit_gbdt", keep_first), \
+            wrapped(hist, "_build_histogram_reference", count_twin), \
+            wrapped(streaming, "run_two_stage", with_stats), \
+            wrapped(gbdt, "fit_bin_edges", timed("edges")), \
+            wrapped(gbdt, "bin_features", timed("binning")), \
+            wrapped(gbdt, "_grow_tree", timed("grow")), \
+            wrapped(gbdt, "build_histogram", timed("histograms")), \
+            wrapped(gbdt.GBDTForest, "predict_binned", timed("oof")), \
+            wrapped(twostage, "train_gbdt_ranker", timed("train_gbdt_ranker")):
+        zero_counters()
+        t0 = time.perf_counter()
+        res = streaming.run_two_stage_streamed(
+            split.train, split.val_input, 20_000, labels=split.val_labels,
+            ranker_config=refit_config(), train_sessions=REFIT_TRAIN_SESSIONS,
+            shard_sessions=30_000, selection_seed=17, train_subset_seed=23, chunk_sessions=512,
+            matrices=committed.matrices, n_boot=1000, max_stream_sessions=REFIT_STREAM_SESSIONS,
+            device=dev)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters("bench refit", ("build_histogram", "predict_forest",
+                                                 "predict_forest_rows"))
+    check(not twin_calls, f"the refit called the histogram twin {len(twin_calls)} times")
+    tm = res.timings
+    trees = launches["build_histogram"] / refit_config().max_depth
+    print(f"run_two_stage_streamed, training mode: {secs:.2f} s; train_s {tm['train_s']} "
+          f"({tm['train_sessions']} sessions), stream_s {tm['stream_s']} "
+          f"({tm['streamed_sessions']} sessions), global_features_s "
+          f"{tm['global_features_s']}; {launches['build_histogram']} histogram launches = "
+          f"{trees:.0f} trees grown ({1e3 * stats['train_s'] / max(trees, 1):.1f} ms a tree, "
+          f"all of the fit included); run_two_stage stages (s): "
+          + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stats.items()), flush=True)
+    rest = spent["train_gbdt_ranker"] - sum(spent[k] for k in ("edges", "binning", "grow", "oof"))
+    print(f"the fits (s; each timed call drains the card): train_gbdt_ranker "
+          f"{spent['train_gbdt_ranker']:.3f} = edges {spent['edges']:.3f} + binning "
+          f"{spent['binning']:.3f} + grow {spent['grow']:.3f} (of it K5, sort and gathers "
+          f"{spent['histograms']:.3f}) + OOF {spent['oof']:.3f} + the rest of fit_gbdt "
+          f"(gradients, bags, validation routing, MAP@20, reads) {rest:.3f}", flush=True)
+    for t in EVENT_TYPES:
+        got = [f.best_iteration for f in res.artifacts.rankers[t].forests]
+        want = [f.best_iteration for f in committed.rankers[t].forests]
+        print(f"  {t}: fold best iterations {got} (committed models {want}); fold recalls "
+              f"{[round(r, 6) for r in res.artifacts.rankers[t].fold_recalls]}; alpha "
+              f"{res.artifacts.rankers[t].prior_alpha}", flush=True)
+    sub = res.artifacts.report.weighted
+    print(f"train-subsample report: weighted {sub:.6f} (BENCH_FIT_r05.json "
+          f"{fit_ref['train_subsample_report']['weighted']:.6f}); disjoint half "
+          f"{res.artifacts.report_disjoint.weighted:.6f} "
+          f"({fit_ref['train_subsample_report_disjoint']['weighted']:.6f})", flush=True)
+    boot = res.bootstrap_vs_heuristic
+    want_ci = REPLAY_EXPECTED["bootstrap"]["ci95"]
+    print(f"streamed {tm['streamed_sessions']} sessions: weighted {res.report.weighted:.6f}, "
+          f"heuristic {res.heuristic_report.weighted:.6f}, lift {res.lift_vs_heuristic:+.6f}; "
+          f"paired bootstrap {json.dumps(boot)}; the committed models on the same sessions: "
+          f"lift {REPLAY_EXPECTED['bootstrap']['lift']}, ci95 {want_ci} (BENCH_r05.json)",
+          flush=True)
+    check(tm["streamed_sessions"] == REFIT_STREAM_SESSIONS and boot["n_boot"] == 1000,
+          "the refit did not stream phase 9's sessions with 1,000 bootstrap draws")
+    check(boot["ci95"][0] > 0, f"refit lift ci95 {boot['ci95']} does not lie above 0")
+    check(boot["ci95"][0] <= want_ci[1] and want_ci[0] <= boot["ci95"][1],
+          f"refit lift ci95 {boot['ci95']} does not overlap the committed models' {want_ci}")
+    return {"launches": launches, "fold": first_fold, "train_s": tm["train_s"],
+            "stream_s": tm["stream_s"], "lift": boot, "trees": trees, "spent": spent}
+
+
+def hist_bound(key, n_keys: int, n_feat: int, n_bins: int) -> tuple[float, str]:
+    """The histogram's bound on these inputs: the keys of every row, the bins
+    and vals of the rows whose key is in the grid read once, the float32
+    histogram written once; or its adds (three a row and feature of those
+    rows) at the float32 rate."""
+    rows = int(((key >= 0) & (key < n_keys)).sum())
+    n_bytes = 4 * key.numel() + rows * (n_feat + 12) + 12 * n_keys * n_feat * n_bins
+    return bound(n_bytes, 3.0 * rows * n_feat, F32_OPS_PER_S)
+
+
+def fold_gradients(torch, dev, fold: dict):
+    """The first fold's rows on ``dev`` and the gradients of its first
+    tree: bce at the boost-from-average base, times the keep weights."""
+    from otto_tpu_torch.models import gbdt
+
+    binned, labels, mask, weight, cfg = fold["args"][:5]
+    S, C, F = binned.shape
+    x = torch.as_tensor(np.ascontiguousarray(binned.reshape(S * C, F)), device=dev)
+    p0 = min(max(float((labels * weight).sum()) / max(float(weight.sum()), 1.0), 1e-6), 1 - 1e-6)
+    w = torch.as_tensor(weight.reshape(-1), device=dev)
+    g, h = gbdt._bce_gh(torch.full((S, C), float(np.log(p0 / (1 - p0))), device=dev),
+                        torch.as_tensor(labels, device=dev),
+                        torch.as_tensor(weight > 0, device=dev))
+    return x, g.reshape(-1) * w, h.reshape(-1) * w, w
+
+
+def hist_vs_twin(torch, dev, fold: dict) -> dict:
+    """Phase 11a: the histogram kernel against its twin on the first clicks
+    fold's binned training rows, at the launches of one tree of the fit
+    (level 0, one key; levels 1-6, the left children, keys from the tree's
+    own routing), with the fold's bce gradients, a bag and the keep weights
+    as the tree hands them over: on dyadic vals (k/256) bit-equal, on the
+    real vals within 2^-20 of each column's sum of |vals|, two launches
+    bit-identical.  Times (CUDA graph: device time alone) of the kernel
+    (its wrapper: the sort by key, the gathers, the two kernels), the twin
+    and ``index_add_`` on the flat key in float32 (the one PyTorch call that
+    computes the function; timed, used nowhere), and the bound.  Returns the
+    record of the level-0 launch with the largest error over all levels."""
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import hist
+
+    cfg = fold["args"][4]
+    x, g, h, w = fold_gradients(torch, dev, fold)
+    n, F = x.shape
+    gen = torch.Generator().manual_seed(cfg.seed)
+    bag = (torch.rand(n, generator=gen) < cfg.subsample).to(device=dev, dtype=torch.float32)
+    launches = []
+
+    def keep(real):
+        def build(*args):
+            launches.append(args)
+            return real(*args)
+        return build
+
+    with wrapped(gbdt, "build_histogram", keep):
+        gbdt._grow_tree(x, g, h, w, bag, torch.ones(F, dtype=torch.bool, device=dev),
+                        cfg.reg_lambda, cfg.min_split_gain, cfg.min_data_in_leaf,
+                        cfg.min_child_weight, cfg.learning_rate, depth=cfg.max_depth,
+                        n_bins=cfg.n_bins)
+    print(f"the first clicks fold: {n} rows x {F} features, {cfg.n_bins} bins; one tree's "
+          f"{len(launches)} launches", flush=True)
+    g_dy = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rec, totals = None, np.zeros(4)
+    for level, (binned, key, vals, n_keys, n_bins) in enumerate(launches):
+        dyadic = torch.randint(-255, 256, (n, 3), generator=g_dy, device=dev).float() / 256
+        for kind, v in (("dyadic", dyadic), ("real", vals)):
+            a = hist.build_histogram(binned, key, v, n_keys, n_bins)
+            b = hist.build_histogram(binned, key, v, n_keys, n_bins)
+            want = hist._build_histogram_reference(binned, key, v, n_keys, n_bins)
+            sync(torch, dev)
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"histogram level {level} ({kind}): two launches differ")
+            if kind == "dyadic":
+                check(torch.equal(a, want), f"histogram level {level}: differs from its twin "
+                      "on dyadic vals")
+            else:
+                tol = 2.0 ** -20 * v.abs().sum(dim=0)
+                err = (a - want).abs()
+                check(bool((err <= tol).all()), f"histogram level {level}: off its twin by "
+                      f"{err.amax(dim=(0, 1, 2)).tolist()} > {tol.tolist()}")
+                max_err = float(err.max())
+        del dyadic, a, b, want
+        size = n_keys * F * n_bins
+        ok = ((key >= 0) & (key < n_keys))[:, None]
+        flat = torch.where(ok, (key.long()[:, None] * F + torch.arange(F, device=dev)) * n_bins
+                           + binned.long(), size).reshape(-1)
+        flat_vals = vals[:, None, :].expand(-1, F, 3).reshape(-1, 3)
+        lib_out = torch.zeros((size + 1, 3), device=dev)
+        if dev.type == "cuda":
+            ms = graph_ms(torch, [lambda: hist.build_histogram(binned, key, vals, n_keys,
+                                                               n_bins)])
+            plain = cuda_ms(torch, lambda: hist._build_histogram_reference(binned, key, vals,
+                                                                           n_keys, n_bins), 2)
+            lib = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, flat_vals), 3)
+        else:  # a rehearsal on the CPU
+            ms = plain = _host_ms(lambda: hist.build_histogram(binned, key, vals, n_keys,
+                                                               n_bins), 1)
+            lib = _host_ms(lambda: lib_out.zero_().index_add_(0, flat, flat_vals), 1)
+        del flat, flat_vals, lib_out
+        b_ms, b_by = hist_bound(key, n_keys, F, n_bins)
+        totals += (ms, plain, lib, b_ms)
+        print(f"  level {level}: {n_keys} keys, {int(ok.sum())} rows: bit-equal on dyadic vals, "
+              f"deterministic, largest error on the real vals {max_err:.3e}; kernel {ms:.4f} ms "
+              f"(CUDA graph), twin {plain:.3f} ms, index_add_ float32 {lib:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}: 4 bytes a key, {F} + 12 a row that adds, 12 a cell out; "
+              f"3 float32 adds a row and feature at 67e12/s): {100 * b_ms / ms:.1f}% of it",
+              flush=True)
+        if rec is None:
+            rec = {"name": "build_histogram", "route": "cuda", "source": HIST_SOURCE,
+                   "replaces": "otto_tpu/models/gbdt.py:109 (_mm_hist) and :233-266 (the "
+                               "scatter branch); XLA, not Pallas",
+                   "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err)
+    print(f"one tree's {len(launches)} launches: kernel {totals[0]:.3f} ms, twin "
+          f"{totals[1]:.3f} ms, index_add_ {totals[2]:.3f} ms, bound {totals[3]:.4f} ms "
+          f"({100 * totals[3] / totals[0]:.1f}%)", flush=True)
+    return rec
+
+
+def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
+    """Phase 11b: on the first clicks fold's rows, one tree on dyadic
+    grad/hess (k/1024, |k| <= 7: every histogram cell and cumulative sum is
+    exact in float32, so the card and the CPU sum the same numbers):
+    ``_grow_tree`` on the card equals the CPU twin's in features,
+    thresholds, leaf ids and leaves, bit for bit; a 10-tree bce fit run
+    twice on the card gives the same forest; a 5-tree lambdarank fit
+    (``configs/gbdt_lambdarank.yaml``, ``n_trees`` cut) at the fold's full
+    width, and ``_lambdarank_gh`` on its scores on the card within 1e-5
+    relative of the CPU twin."""
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt
+
+    binned, labels, mask, weight, cfg = fold["args"][:5]
+    S, C, F = binned.shape
+    rng = np.random.default_rng(SEED + 12)
+    n = S * C
+    host = [binned.reshape(n, F), (rng.integers(-7, 8, n) / 1024).astype(np.float32),
+            (rng.integers(1, 8, n) / 1024).astype(np.float32), weight.reshape(n),
+            np.ones(n, np.float32), np.ones(F, bool)]
+    scalars = (cfg.reg_lambda, cfg.min_split_gain, cfg.min_data_in_leaf, cfg.min_child_weight,
+               cfg.learning_rate)
+    kw = dict(depth=cfg.max_depth, n_bins=cfg.n_bins)
+    t0 = time.perf_counter()
+    card = gbdt._grow_tree(*(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                             for a in host), *scalars, **kw)
+    sync(torch, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = gbdt._grow_tree(*(torch.as_tensor(np.ascontiguousarray(a)) for a in host), *scalars,
+                          **kw)
+    cpu_s = time.perf_counter() - t0
+    for name, a, b in zip(("feat", "thr", "leaf", "gain", "leaf id"), card, cpu):
+        check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+              f"_grow_tree on dyadic grad/hess: {name} differs between the card and the CPU")
+    splits = int((card[1] < cfg.n_bins).sum())
+    print(f"_grow_tree on dyadic grad/hess, [{n} x {F}]: card {card_s:.2f} s, CPU twin "
+          f"{cpu_s:.2f} s; features, thresholds, leaves, gains and leaf ids bit-equal "
+          f"({splits} of {len(card[1])} nodes split)", flush=True)
+
+    val = fold["val"]
+    short = GBDTConfig(**{**vars(cfg), "n_trees": 10})
+    t0 = time.perf_counter()
+    fits = [gbdt.fit_gbdt(binned, labels, mask, weight, short, val=val, device=dev)
+            for _ in range(2)]
+    fit_s = (time.perf_counter() - t0) / 2
+    for name in ("feat", "thr", "leaf", "gain_importance", "split_importance"):
+        a, b = getattr(fits[0], name), getattr(fits[1], name)
+        check(a.shape == b.shape and a.tobytes() == b.tobytes(),
+              f"two 10-tree bce fits on the card differ in {name}")
+    print(f"two 10-tree bce fits on the card ({fit_s:.2f} s each): the same forest, bit for "
+          f"bit (best iteration {fits[0].best_iteration})", flush=True)
+
+    lcfg = GBDTConfig.from_yaml(REPO / "configs" / "gbdt_lambdarank.yaml")
+    lcfg = GBDTConfig(**{**vars(lcfg), "n_trees": 5})
+    t0 = time.perf_counter()
+    lam = gbdt.fit_gbdt(binned, labels, mask, weight, lcfg, val=val, device=dev)
+    lam_s = time.perf_counter() - t0
+    scores = lam.predict_binned(binned.reshape(n, F), device=dev).reshape(S, C)
+    keep = weight > 0
+    on = [torch.as_tensor(a, device=dev) for a in (scores, labels, keep)]
+    t0 = time.perf_counter()
+    g_card, h_card = gbdt._lambdarank_gh(*on, k=lcfg.lambdarank_k, chunk=lcfg.chunk_sessions)
+    sync(torch, dev)
+    lr_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_cpu, h_cpu = gbdt._lambdarank_gh(*(torch.as_tensor(a) for a in (scores, labels, keep)),
+                                       k=lcfg.lambdarank_k, chunk=lcfg.chunk_sessions)
+    lr_cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for a, b in ((g_card.cpu(), g_cpu), (h_card.cpu(), h_cpu)):
+        scale = float(b.abs().max())
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale)),
+              "_lambdarank_gh on the card is not within 1e-5 relative of the CPU twin")
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    print(f"5-tree lambdarank fit at [{S} sessions x {C} x {F}]: {lam_s:.2f} s; "
+          f"_lambdarank_gh on its scores: card {lr_card_s:.2f} s, CPU {lr_cpu_s:.2f} s, "
+          f"largest difference {worst:.2e} of the largest |value|", flush=True)
+
+
+def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
+    """Phase 11d: ``two_stage validation --ranker gbdt --config <20 trees, 3
+    folds, min_data_in_leaf 200, bce>`` on phase 6's store cut to 40,000
+    sessions into an empty ``--artifact-dir``: three rankers written, the
+    histogram kernel launched.  The same command again resumes: no
+    histogram launch, and its lists equal ``predict_two_stage`` with the
+    saved artifacts on the same split (the training run's own lists rank
+    out-of-fold scores, the resumed run's the fold average, in both
+    packages: the sessions where they differ are counted).  Then
+    ``two_stage_streamed validation --train-sessions 5000`` on the store's
+    first 20,000 sessions (the streamed count cut to 5,000): exit 0, a lift
+    printed.  Returns the launches."""
+    import io
+
+    from otto_tpu_torch import pipelines, twostage
+    from otto_tpu_torch.data.splits import split_by_fraction
+
+    store = head_sessions(bench_store, 40_000)
+    events, adir, cfg = (workdir / "bench_40k.parquet", workdir / "trained",
+                         workdir / "gbdt_20.yaml")
+    store.to_parquet(events)
+    cfg.write_text("n_trees: 20\nn_folds: 3\nmin_data_in_leaf: 200\nloss: bce\n")
+    common = ["--ranker", "gbdt", "--config", str(cfg), "--n-aids", "20000", "--val-fraction",
+              "0.5", "--seed", "0", "--device", dev.type]
+    argv = ["two_stage", "validation", "--artifact-dir", str(adir), "--events", str(events),
+            *common]
+    zero_counters()
+    t0 = time.perf_counter()
+    first = pipelines.main(argv)
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    trained = read_counters("CLI two_stage validation, training", ("build_histogram",))
+    saved = sorted(p.name for p in adir.glob("ranker_*.npz"))
+    check(saved == [f"ranker_{t}.npz" for t in sorted(TYPE_NAMES)],
+          f"the training run saved {saved}")
+    zero_counters()
+    t0 = time.perf_counter()
+    second = pipelines.main(argv)
+    sync(torch, dev)
+    resume_s = time.perf_counter() - t0
+    resumed = read_counters("CLI two_stage validation, resumed", ("predict_forest_rows",))
+    check(resumed["build_histogram"] == 0, "the resumed run launched the histogram kernel")
+    sp = split_by_fraction(store, val_fraction=0.5, seed=0)
+    want = twostage.predict_two_stage(twostage.TwoStageArtifacts.load(adir, device=dev),
+                                      sp.train, sp.val_input, 20_000, device=dev)
+    for t in TYPE_NAMES:
+        check(np.array_equal(second.predictions[t], want[t]), f"the resumed CLI run's {t} "
+              "lists differ from predict_two_stage's with the saved artifacts")
+    differ = {t: int((first.predictions[t] != second.predictions[t]).any(axis=1).sum())
+              for t in TYPE_NAMES}
+    print(f"CLI two_stage validation, {sp.val_input.n_sessions} target sessions: training run "
+          f"{train_s:.2f} s (weighted {first.report.weighted:.6f}), resumed {resume_s:.2f} s "
+          f"(weighted {second.report.weighted:.6f}); the resumed lists equal predict_two_stage "
+          f"with the saved artifacts; sessions whose lists differ between the training run "
+          f"(out-of-fold scores) and the resumed one (fold average): {differ}", flush=True)
+    # the streamed run on the store's first 20,000 sessions: 5,000 of its
+    # 10,000 target sessions train, 5,000 stream
+    small = workdir / "bench_20k.parquet"
+    head_sessions(store, 20_000).to_parquet(small)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        streamed = pipelines.main(["two_stage_streamed", "validation", "--train-sessions",
+                                   "5000", "--events", str(small), *common])
+    streamed_s = time.perf_counter() - t0
+    lift = [line for line in out.getvalue().splitlines() if line.startswith("lift vs heuristic")]
+    check(len(lift) == 1 and 0 < streamed.report.weighted <= 1,
+          "two_stage_streamed validation printed no lift")
+    print(f"CLI two_stage_streamed validation --train-sessions 5000 on 20,000 sessions "
+          f"(5,000 stream): {streamed_s:.2f} s; "
+          f"{lift[0]}; weighted {streamed.report.weighted:.6f}", flush=True)
+    return {"launches": trained, "resumed": resumed}
+
+
 def main() -> int:
     import torch
 
@@ -1603,7 +2036,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
               "CUDA card", file=sys.stderr)
         return 2
-    from otto_tpu_torch.ops import _kernels, forest, fused_retrieval, fused_sessions, row_topk
+    from otto_tpu_torch.ops import _kernels, forest, fused_retrieval, fused_sessions, hist, row_topk
 
     # each kernel's launch counter: (the wrapper, its attribute)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
@@ -1611,7 +2044,8 @@ def main() -> int:
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
                 "predict_forest": (forest.predict_forest, "launches"),
-                "predict_forest_rows": (forest.predict_forest_rows, "launches")}
+                "predict_forest_rows": (forest.predict_forest_rows, "launches"),
+                "build_histogram": (hist.build_histogram, "launches")}
 
     def zero_counters():
         for fn, attr in counters.values():
@@ -1716,7 +2150,7 @@ def main() -> int:
         records.extend(forest_vs_twin(torch, dev, replay))
     check(replay["replay"] == REPLAY_EXPECTED, f"two-stage replay {replay['replay']} differs "
           f"from BENCH_r05.json's {REPLAY_EXPECTED}")
-    del replay, bench_split
+    del replay
     with phase("9 two-stage with an SGNS model on the full catalog (the kNN candidate route)"):
         two_stage_sgns = two_stage_knn(torch, dev, model, path, 2000, zero_counters,
                                        read_counters)
@@ -1738,7 +2172,7 @@ def main() -> int:
         with phase("10d CLI two_stage validation from a copy of artifacts/bench_e2e"):
             cli_two_stage_run = cli_two_stage(torch, dev, bench_store, workdir, zero_counters,
                                               read_counters)
-        with phase("10e CLI two_stage validation: card vs CPU at 1,000 sessions"):
+        with phase("10e CLI two_stage validation: card vs CPU at 500 sessions"):
             cli_card_vs_cpu(torch, dev, bench_store, workdir)
         with phase("10f python -m otto_tpu_torch.pipelines in a process of its own"):
             cli_subprocess(torch, dev, bench_store, workdir)
@@ -1752,17 +2186,44 @@ def main() -> int:
         "predict_forest_rows_launches": cli_two_stage_run["launches"]["predict_forest_rows"]}),
         flush=True)
 
+    with phase("11c the bench refit: run_two_stage_streamed in training mode"):
+        refit_run = refit(torch, dev, bench_split, zero_counters, read_counters)
+    del bench_split
+    with phase("11a the histogram kernel vs its twin on the refit's first fold"):
+        records.append(hist_vs_twin(torch, dev, refit_run["fold"]))
+    with phase("11b one tree and short fits, card against the CPU twin"):
+        fits_card_vs_cpu(torch, dev, refit_run["fold"])
+    del refit_run["fold"]
+    workdir = REPO / "tmp" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        with phase("11d the CLI trains, then resumes"):
+            cli_train_run = cli_train(torch, dev, bench_store, workdir, zero_counters,
+                                      read_counters)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("phase 11 metrics: " + json.dumps({
+        "refit_train_s": refit_run["train_s"], "refit_stream_s": refit_run["stream_s"],
+        "refit_trees": refit_run["trees"], "refit_lift": refit_run["lift"]["lift"],
+        "refit_ci95": refit_run["lift"]["ci95"],
+        "build_histogram_launches": refit_run["launches"]["build_histogram"]}), flush=True)
+
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
     # the forest kernel's float-row entry on the two-stage path, its uint8
-    # entry on the pre-binned scoring path); launches_by_path adds the file
-    # CLI's aid_weight and two_stage runs
+    # entry on the pre-binned scoring path, the histogram kernel on the
+    # bench refit); launches_by_path adds the file CLI's aid_weight and
+    # two_stage runs, and its training and resumed two_stage runs
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
-             "cli_two_stage": cli_two_stage_run["launches"]}
+             "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
+             "cli_two_stage_train": cli_train_run["launches"],
+             "cli_two_stage_resumed": cli_train_run["resumed"]}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
-            "predict_forest": prebinned, "predict_forest_rows": two_stage}
+            "predict_forest": prebinned, "predict_forest_rows": two_stage,
+            "build_histogram": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}

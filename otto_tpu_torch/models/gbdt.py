@@ -1,9 +1,16 @@
-"""Gradient-boosted decision trees: inference.
+"""Gradient-boosted decision trees: training and inference.
 
-Port of the inference half of ``otto_tpu/models/gbdt.py``:
+Port of ``otto_tpu/models/gbdt.py``:
 
 - :func:`fit_bin_edges` and :func:`bin_features` (:57, :80), copied in
   numpy: quantile edges, NaN -> bin 0, finite v -> 1 + #edges < v;
+- :func:`_grow_tree` (``_grow_tree_impl``, :163-311): level-wise growth on
+  the device, each level's histogram from the hand-written kernel K5
+  (:mod:`otto_tpu_torch.ops.hist`), split search, routing and leaves in
+  plain torch;
+- the objectives :func:`_lambdarank_gh` (:354) and :func:`_bce_gh` (:412);
+- :func:`fit_gbdt` (:452-703) and :func:`train_gbdt_ranker` (:824-880), the
+  reference's fold protocol with MAP@20 early stopping;
 - :class:`GBDTForest` with ``predict_binned`` (:422-449);
 - :class:`GBDTRankerModel`: ``predict``, ``predict_binned_folds``,
   ``feature_importance``, ``save`` and ``load`` (:708-821), and
@@ -17,9 +24,11 @@ forest kernel routes every fold over all rows (no batching to a fixed shape,
 no per-fold pass), and :meth:`GBDTRankerModel.predict` hands it the float32
 rows, which it bins in its staging (``predict_forest_rows``); on the CPU the
 plain twins.  The numpy :func:`bin_features` and ``.bin()`` stay as the JAX
-module's API.  Training
-(``fit_gbdt``, ``train_gbdt_ranker``, the histogram kernel) is not ported
-yet (ROADMAP M9).
+module's API.  A fit keeps its rows, gradients, bags, histograms, routing
+and scores on the device and reads back each tree's arrays and the
+early-stopping metric; on the card it gives the same bits on every run (K5
+sums in integer fixed point, and the leaves come from the last level's
+histogram, not from a float scatter).
 
 Missing values get a reserved bin 0, which every split sends left.
 """
@@ -34,8 +43,14 @@ import numpy as np
 import torch
 
 from otto_tpu_torch.config import GBDTConfig
+from otto_tpu_torch.eval.metrics import map_at_k
+from otto_tpu_torch.logging_utils import get_logger
+from otto_tpu_torch.models.ranker import RankerData, group_kfold, negative_sample_mask
 from otto_tpu_torch.ops import forest
+from otto_tpu_torch.ops.hist import build_histogram
 from otto_tpu_torch.utils.runtime import resolve_device
+
+log = get_logger(__name__)
 
 
 # ----------------------------------------------------------------- binning
@@ -76,6 +91,155 @@ def bin_features(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
     return out.reshape(values.shape)
 
 
+# ----------------------------------------------------------------- grow
+HIST_IMPLS = ("matmul", "scatter")
+
+
+def _f32(x) -> float:
+    """A Python float holding ``x`` rounded to float32, as the reference's
+    ``jnp.float32`` scalars: torch then computes with it in float32."""
+    return float(np.float32(x))
+
+
+def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+               weight: torch.Tensor, bag: torch.Tensor, feat_mask: torch.Tensor,
+               reg_lambda, min_split_gain, min_data_in_leaf, min_child_weight, learning_rate,
+               *, depth: int, n_bins: int, hist_impl: str = "matmul"):
+    """Grow one depth-``depth`` tree level-wise on the rows' device
+    (``_grow_tree_impl``, :163-311).
+
+    binned uint8 [N, F]; grad, hess, weight (1 = usable training row, 0 =
+    padding or sampled out) and bag (this tree's bagging mask) float32 [N];
+    feat_mask bool [F] (this tree's feature_fraction).  Returns level-order
+    split features and thresholds int32 and gains float32 (``2^depth - 1``
+    internal nodes: level ``l`` position ``p`` is at ``2^l - 1 + p``), the
+    lr-scaled leaf values float32 [2^depth], and each row's leaf id int32 [N].
+
+    Level 0 builds the full histogram; every later level builds the left
+    children's only (key = parent, right-going rows -1) and takes right =
+    parent - left, LightGBM's sibling subtraction, the semantics of the
+    reference's default ``hist_impl="matmul"``.  Both names of
+    ``hist_impl`` run the histogram kernel K5 (on the CPU its twin): the
+    MXU one-hot matmul and the XLA scatter are the reference's two ways to
+    the same sums.  A node whose every split is invalid (gain -inf) or gains
+    no more than ``min_split_gain`` does not split: feature 0, threshold
+    ``n_bins``, every row left.  The leaf sums are the last level's
+    histogram at the chosen split (left: the cumulative sums at the
+    threshold; right: the node's total less those), which equal the
+    reference's scatter of the rows' gradients where the sums are exact.
+    """
+    if hist_impl not in HIST_IMPLS:
+        raise ValueError(f"_grow_tree: hist_impl {hist_impl!r} is not one of {HIST_IMPLS}")
+    N, F = binned.shape
+    dev = binned.device
+    lam = _f32(np.float32(reg_lambda) + np.float32(1e-12))
+    min_data = _f32(max(np.float32(min_data_in_leaf), np.float32(1.0)))
+    min_child = _f32(min_child_weight)
+    min_gain = _f32(min_split_gain)
+    g = grad * bag
+    h = hess * bag
+    w = weight * bag
+    vals = torch.stack([g, h, w], dim=1).contiguous()
+    node = torch.zeros(N, dtype=torch.int64, device=dev)
+    fmask = feat_mask.to(device=dev, dtype=torch.bool)[None, :, None]
+    feats, thrs, gains = [], [], []
+    parent_hist = None
+    for level in range(depth):
+        n_nodes = 1 << level
+        if level == 0:
+            hist = build_histogram(binned, torch.zeros(N, dtype=torch.int32, device=dev), vals,
+                                   1, n_bins)
+        else:
+            key = torch.where((node & 1) == 0, node >> 1, -1).to(torch.int32)
+            left = build_histogram(binned, key, vals, n_nodes // 2, n_bins)
+            hist = torch.stack([left, parent_hist - left], dim=1).reshape(n_nodes, F, n_bins, 3)
+        parent_hist = hist
+        cg = torch.cumsum(hist[..., 0], dim=-1)
+        ch = torch.cumsum(hist[..., 1], dim=-1)
+        cc = torch.cumsum(hist[..., 2], dim=-1)
+        G, H, C = cg[..., -1:], ch[..., -1:], cc[..., -1:]
+        GR, HR, CR = G - cg, H - ch, C - cc
+        gain = cg * cg / (ch + lam) + GR * GR / (HR + lam) - G * G / (H + lam)
+        valid = ((cc >= min_data) & (CR >= min_data) & (ch >= min_child) & (HR >= min_child)
+                 & fmask)
+        flat = torch.where(valid, gain, float("-inf")).reshape(n_nodes, F * n_bins)
+        best = torch.argmax(flat, dim=1)  # the first of equal maxima, as jnp.argmax
+        best_gain = flat.gather(1, best[:, None])[:, 0]
+        ok = best_gain > min_gain
+        bf = torch.where(ok, best // n_bins, 0)
+        bb = torch.where(ok, best % n_bins, n_bins)
+        feats.append(bf)
+        thrs.append(bb)
+        gains.append(torch.where(ok, best_gain, 0.0))
+        bv = binned.gather(1, bf[node][:, None])[:, 0]
+        node = node * 2 + (bv.to(torch.int64) > bb[node]).to(torch.int64)
+    # the leaves' sums at the last level's chosen splits: leaf 2n left, 2n + 1 right
+    at = torch.arange(len(bf), device=dev)
+    col = bb.clamp(max=n_bins - 1)
+    sums = []
+    for cum in (cg, ch):
+        left = cum[at, bf, col]
+        sums.append(torch.stack([left, cum[at, bf, -1] - left], dim=1).reshape(-1))
+    leaf = (-sums[0] / (sums[1] + lam)) * _f32(learning_rate)
+    return (torch.cat(feats).to(torch.int32), torch.cat(thrs).to(torch.int32), leaf,
+            torch.cat(gains), node.to(torch.int32))
+
+
+# ----------------------------------------------------------------- objectives
+def _lambdarank_gh(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, *,
+                   k: int = 20, chunk: int = 1024, norm: bool = True):
+    """LambdaRank gradients/hessians over listwise ``[S, C]`` groups
+    (:354-409), ``chunk`` sessions at a time.
+
+    For each within-session pair (i, j) with label_i > label_j:
+      rho  = sigmoid(s_j - s_i)
+      g_i -= rho * |dDCG@k|;  g_j += rho * |dDCG@k|
+      h   += rho * (1 - rho) * |dDCG@k|
+    With ``norm`` (LightGBM's ``lambdarank_norm``) |dDCG| is divided by the
+    session's ideal DCG@k.  Ranks come from a stable sort of the scores,
+    descending, masked columns at -1e30 (``jnp.argsort`` is stable).
+    """
+    S, C = scores.shape
+    dev = scores.device
+    disc_table = 1.0 / torch.log2(torch.arange(C, dtype=torch.float32, device=dev) + 2.0)
+    ideal = torch.cumsum(disc_table[:k], dim=0)
+    g_out = torch.empty((S, C), dtype=torch.float32, device=dev)
+    h_out = torch.empty((S, C), dtype=torch.float32, device=dev)
+    cols = torch.arange(C, device=dev)
+    for s0 in range(0, S, chunk):
+        s, m = scores[s0:s0 + chunk], mask[s0:s0 + chunk]
+        lab = labels[s0:s0 + chunk].to(torch.float32)
+        sm = torch.where(m, s, -1e30)
+        order = torch.argsort(-sm, dim=1, stable=True)
+        ranks = torch.empty_like(order).scatter_(1, order, cols.expand_as(order))
+        disc = torch.where(ranks < k, disc_table[ranks.clamp(0, C - 1)], 0.0)
+        pos_pair = (lab[:, :, None] > lab[:, None, :]) & m[:, :, None] & m[:, None, :]
+        rho = torch.sigmoid(sm[:, None, :] - sm[:, :, None])  # sigmoid(s_j - s_i)
+        delta = (disc[:, :, None] - disc[:, None, :]).abs()
+        if norm:
+            # ideal DCG@k with binary gains: positives stacked at the top
+            n_pos = ((lab > 0) & m).sum(dim=1)
+            idx = (torch.minimum(n_pos, torch.tensor(k, device=dev)) - 1).clamp(
+                0, len(ideal) - 1)
+            max_dcg = torch.where(n_pos > 0, ideal[idx], 1.0)
+            delta = delta / max_dcg[:, None, None]
+        lam = torch.where(pos_pair, rho * delta, 0.0)
+        hc = torch.where(pos_pair, rho * (1.0 - rho) * delta, 0.0)
+        del rho, delta, pos_pair
+        g_out[s0:s0 + chunk] = -lam.sum(dim=2) + lam.sum(dim=1)
+        h_out[s0:s0 + chunk] = hc.sum(dim=2) + hc.sum(dim=1)
+        del lam, hc
+    return g_out, h_out
+
+
+def _bce_gh(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Pointwise logistic gradients/hessians (:412-417)."""
+    p = torch.sigmoid(scores)
+    g = torch.where(mask, p - labels.to(torch.float32), 0.0)
+    h = torch.where(mask, p * (1.0 - p), 0.0)
+    return g, h
+
+
 # ----------------------------------------------------------------- models
 @dataclass
 class GBDTForest:
@@ -97,6 +261,139 @@ class GBDTForest:
         pack = forest.pack_forests([(self.feat, self.thr, self.leaf, self.base)], device=dev)
         x = torch.as_tensor(np.ascontiguousarray(binned), device=dev)
         return forest.predict_forest(x, pack).cpu().numpy()
+
+
+def fit_gbdt(
+    binned: np.ndarray,  # uint8 [S, C, F] (listwise)
+    labels: np.ndarray,  # int [S, C]
+    mask: np.ndarray,  # bool [S, C] — candidate validity
+    train_weight: np.ndarray,  # f32 [S, C] — 1 for rows kept for training
+    config: GBDTConfig,
+    *,
+    val: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
+    seed_offset: int = 0,
+    mesh=None,
+    device: str | torch.device,
+) -> GBDTForest:
+    """Boost one forest over listwise candidate groups on ``device``
+    (:452-703).
+
+    ``val = (binned, labels, mask)`` enables MAP@20 early stopping with
+    ``early_stopping_rounds`` patience, measured every ``eval_every`` trees
+    (the reference's valid_sets + eval_at=[20] contract,
+    lgb_trainer.py:156-165); with ``trees_per_call > 1`` once per segment of
+    that many trees, patience counted in trees (:604-629; the reference's
+    dispatch batching itself is a TPU workaround and is not ported).  The
+    forest keeps the trees up to the best metric.
+
+    ``config.hist_impl`` takes both of the reference's names; both run the
+    histogram kernel K5.  Random draws: feature_fraction from
+    ``np.random.default_rng(config.seed + seed_offset)`` exactly as the
+    reference draws it, so the feature masks equal its own; bagging from a
+    ``torch.Generator`` on the CPU with that seed (the reference draws
+    through ``jax.random``, which the port cannot match), uploaded, so the
+    card and the CPU draw the same bags.  ``mesh`` (data-parallel growth)
+    is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError("fit_gbdt: data-parallel growth over a mesh is not ported "
+                                  "yet (ROADMAP M15)")
+    dev = resolve_device(device)
+    S, C, F = binned.shape
+    N = S * C
+    flat = torch.as_tensor(np.ascontiguousarray(binned.reshape(N, F)), device=dev)
+    lab_d = torch.as_tensor(labels, device=dev)
+    w_d = torch.as_tensor(np.asarray(train_weight, np.float32), device=dev)
+    w_flat = w_d.reshape(N)
+    keep_mask = w_d > 0  # pairs/pointwise terms use only kept rows
+    depth, n_bins = config.max_depth, config.n_bins
+    rng = np.random.default_rng(config.seed + seed_offset)
+    bag_gen = torch.Generator(device="cpu").manual_seed(config.seed + seed_offset)
+
+    if config.loss == "bce":
+        pos = float((labels * train_weight).sum())
+        tot = float(train_weight.sum())
+        p0 = min(max(pos / max(tot, 1.0), 1e-6), 1 - 1e-6)
+        base = float(np.log(p0 / (1 - p0)))  # boost_from_average
+    else:
+        base = 0.0
+    pred = torch.full((S, C), base, dtype=torch.float32, device=dev)
+    if val is not None:
+        vb, vl, vm = val
+        Sv, Cv, _ = vb.shape
+        vflat = torch.as_tensor(np.ascontiguousarray(vb.reshape(Sv * Cv, F)), device=dev)
+        vl_d = torch.as_tensor(vl.astype(np.int32), device=dev)
+        vm_d = torch.as_tensor(vm, device=dev)
+        val_pred = torch.full((Sv * Cv,), base, dtype=torch.float32, device=dev)
+
+    gain_imp = np.zeros(F, np.float64)
+    split_imp = np.zeros(F, np.int64)
+    feats_l, thrs_l, leaves_l = [], [], []
+    best_metric, best_iter, since_best = -np.inf, 0, 0
+    chunk = min(config.chunk_sessions, max(S, 1))
+    # the early-stopping metric's cadence: every eval_every trees (and the
+    # last), or at the end of each segment of trees_per_call trees
+    per = config.trees_per_call if config.trees_per_call > 1 else config.eval_every
+    scalars = (config.reg_lambda, config.min_split_gain, config.min_data_in_leaf,
+               config.min_child_weight, config.learning_rate)
+    for t in range(config.n_trees):
+        if config.loss == "lambdarank":
+            g, h = _lambdarank_gh(pred, lab_d, keep_mask, k=config.lambdarank_k, chunk=chunk,
+                                  norm=config.lambdarank_norm)
+        else:
+            g, h = _bce_gh(pred, lab_d, keep_mask)
+        g = g.reshape(N) * w_flat
+        h = h.reshape(N) * w_flat
+        if config.subsample < 1.0:
+            bag = (torch.rand(N, generator=bag_gen) < config.subsample).to(
+                device=dev, dtype=torch.float32)
+        else:
+            bag = torch.ones(N, dtype=torch.float32, device=dev)
+        if config.colsample < 1.0:
+            n_take = max(int(round(config.colsample * F)), 1)
+            cols = rng.choice(F, size=n_take, replace=False)
+            fm = np.zeros(F, bool)
+            fm[cols] = True
+        else:
+            fm = np.ones(F, bool)
+
+        feat, thr, leaf, gains, leaf_idx = _grow_tree(
+            flat, g, h, w_flat, bag, torch.as_tensor(fm, device=dev), *scalars,
+            depth=depth, n_bins=n_bins, hist_impl=config.hist_impl)
+        pred = pred + leaf[leaf_idx].reshape(S, C)
+        feat_h, gains_h = feat.cpu().numpy(), gains.cpu().numpy()
+        is_split = gains_h > 0
+        np.add.at(gain_imp, feat_h[is_split], gains_h[is_split])
+        np.add.at(split_imp, feat_h[is_split], 1)
+        feats_l.append(feat_h)
+        thrs_l.append(thr.cpu().numpy())
+        leaves_l.append(leaf.cpu().numpy())
+
+        if val is not None:
+            vpos = forest._route_tree(vflat, feat, thr, depth)
+            val_pred = val_pred + leaf[vpos]
+            if (t + 1) % per == 0 or t == config.n_trees - 1:
+                vs = torch.where(vm_d, val_pred.reshape(Sv, Cv), float("-inf"))
+                metric = float(map_at_k(vs, vl_d, vm_d, k=20))
+                if metric > best_metric + 1e-9:
+                    best_metric, best_iter, since_best = metric, t + 1, 0
+                else:
+                    since_best += per
+                if since_best >= config.early_stopping_rounds:
+                    log.info("early stop at tree %d (best %d, MAP@20 %.6f)",
+                             t + 1, best_iter, best_metric)
+                    break
+    n_keep = best_iter if (val is not None and best_iter > 0) else len(feats_l)
+    return GBDTForest(
+        feat=np.stack(feats_l[:n_keep]).astype(np.int32),
+        thr=np.stack(thrs_l[:n_keep]).astype(np.int32),
+        leaf=np.stack(leaves_l[:n_keep]).astype(np.float32),
+        base=base,
+        depth=depth,
+        gain_importance=gain_imp,
+        split_importance=split_imp,
+        best_iteration=n_keep,
+    )
 
 
 @dataclass
@@ -231,6 +528,69 @@ class GBDTRankerModel:
                 oof_recall=float(z["__oof"]),
                 prior_alpha=float(z["__prior_alpha"]),
             )
+
+
+def train_gbdt_ranker(
+    data: RankerData,
+    config: GBDTConfig = GBDTConfig(),
+    eval_recall=None,
+    mesh=None,
+    *,
+    device: str | torch.device,
+) -> tuple[GBDTRankerModel, np.ndarray]:
+    """K-fold GBDT training with the reference's protocol on ``device``
+    (:824-880); returns the model and the OOF scores [S, C] (-inf where the
+    mask is False).
+
+    The edges come from the masked rows; the folds are ``group_kfold`` by
+    session size, and each fold's training sessions keep their positives and
+    a ``negative_sampling_ratio`` of negatives (``np.random.default_rng(
+    config.seed)``, so the folds and keep masks equal the reference's).  One
+    :func:`fit_gbdt` a fold, early-stopped on its held-out sessions, which
+    it then scores (the OOF scores, through the forest kernel's uint8
+    entry).  ``eval_recall(session_indices, scores)`` gives the fold
+    recalls and ``oof_recall``.  ``mesh`` raises (ROADMAP M15)."""
+    if mesh is not None:
+        raise NotImplementedError("train_gbdt_ranker: data-parallel training over a mesh is "
+                                  "not ported yet (ROADMAP M15)")
+    rng = np.random.default_rng(config.seed)
+    S, C, F = data.features.shape
+    edges = fit_bin_edges(data.features[data.mask], config.n_bins)
+    binned = bin_features(data.features, edges)
+
+    fold_of = group_kfold(data.mask.sum(axis=1), config.n_folds)
+    oof = np.zeros((S, C), np.float32)
+    forests, fold_recalls = [], []
+    for fold in range(config.n_folds):
+        val_sessions = np.flatnonzero(fold_of == fold)
+        train_sessions = np.flatnonzero(fold_of != fold)
+        keep = negative_sample_mask(data.labels[train_sessions], data.mask[train_sessions],
+                                    config.negative_sampling_ratio, rng)
+        usable = keep.sum(axis=1) > 0
+        train_sessions = train_sessions[usable]
+        keep = keep[usable]
+
+        fit = fit_gbdt(
+            binned[train_sessions], data.labels[train_sessions], data.mask[train_sessions],
+            keep.astype(np.float32), config,
+            val=(binned[val_sessions], data.labels[val_sessions], data.mask[val_sessions]),
+            seed_offset=fold, device=device,
+        )
+        forests.append(fit)
+        vb = binned[val_sessions].reshape(-1, F)
+        oof[val_sessions] = fit.predict_binned(vb, device=device).reshape(len(val_sessions), C)
+        if eval_recall is not None:
+            r = eval_recall(val_sessions,
+                            np.where(data.mask[val_sessions], oof[val_sessions], -np.inf))
+            fold_recalls.append(float(r))
+            log.info("gbdt fold %d: %d trees, recall@20 %.6f", fold, fit.best_iteration, r)
+
+    oof = np.where(data.mask, oof, -np.inf)
+    model = GBDTRankerModel(forests, edges, config, list(data.feature_names), fold_recalls)
+    if eval_recall is not None:
+        model.oof_recall = float(eval_recall(np.arange(S), oof))
+        log.info("gbdt OOF recall@20 %.6f", model.oof_recall)
+    return model, oof
 
 
 def load_ranker_model(path) -> GBDTRankerModel:

@@ -1,16 +1,35 @@
-"""The ranker's training protocol helpers and top-k selection.
+"""The ranker's training data, protocol helpers and top-k selection.
 
-Port of the numpy helpers of ``otto_tpu/models/ranker.py``:
-:func:`group_kfold` (:39), :func:`negative_sample_mask` (:283) and
-:func:`top_k_predictions` (:399), copied.  The reference's protocol: 5-fold
-GroupKFold by session (lgb_trainer.py:81-86), negative sampling restricted
-to sessions with >= 1 positive (:117-133).  The listwise tower
+Port of the numpy parts of ``otto_tpu/models/ranker.py``, copied:
+:class:`RankerData` (:135), :func:`group_kfold` (:39),
+:func:`negative_sample_mask` (:283) and :func:`top_k_predictions` (:399).
+The reference's protocol: 5-fold GroupKFold by session
+(lgb_trainer.py:81-86), negative sampling restricted to sessions with >= 1
+positive (:117-133).  The listwise tower
 (``RankerModel``, ``train_ranker``) is not ported yet (ROADMAP M12).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
+
+
+@dataclass
+class RankerData:
+    """Listwise candidate features for ranking.
+
+    features: float32 [S, C, F]; labels: int8 [S, C]; mask: bool [S, C];
+    session_ids: [S]; candidates: int32 [S, C] (for emitting predictions).
+    """
+
+    features: np.ndarray
+    labels: np.ndarray
+    mask: np.ndarray
+    session_ids: np.ndarray
+    candidates: np.ndarray
+    feature_names: list[str] = field(default_factory=list)
 
 
 def group_kfold(session_sizes: np.ndarray, n_folds: int) -> np.ndarray:

@@ -101,6 +101,7 @@ ENTRY_POINTS = {
     "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
     "predict_forest_binned": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
     "predict_forest_rows": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
+    "build_histogram_f32": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _p],
 }
 
 
@@ -189,3 +190,17 @@ def launch_predict_forest(x: torch.Tensor, edges: torch.Tensor | None, model: to
     else:
         _check(lib().predict_forest_rows(x.data_ptr(), edges.data_ptr(), *args),
                "predict_forest_rows")
+
+
+def launch_build_histogram(binned: torch.Tensor, vals: torch.Tensor, seg: torch.Tensor,
+                           vmax: torch.Tensor, acc: torch.Tensor, out: torch.Tensor,
+                           n_bins: int) -> None:
+    """binned uint8 [N, F] and vals f32 [N, 3], ordered by key; seg int64
+    [n_keys + 1] (rows seg[k] .. seg[k+1] have key k); vmax f32 [3], each
+    column's largest |val|; acc int64 [n_keys, F, n_bins, 3] scratch -> out
+    f32 of that shape (``csrc/hist_kernels.cu``)."""
+    err = lib().build_histogram_f32(binned.data_ptr(), vals.data_ptr(), seg.data_ptr(),
+                                    vmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                                    binned.shape[0], binned.shape[1], seg.shape[0] - 1, n_bins,
+                                    binned.device.index, _stream(binned))
+    _check(err, "build_histogram_f32")

@@ -11,13 +11,12 @@ file ensemble ``run_ensemble``), plus the file CLI::
         --events <file.parquet|file.jsonl> [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda``; without a card that raises, it never
-runs quietly on the CPU.  ``two_stage`` (both modes) and
-``two_stage_streamed`` (submission) serve the GBDT rankers an
-``--artifact-dir`` holds.  What needs training is not ported and raises
-``NotImplementedError`` naming its ROADMAP item: the listwise tower
-(``--ranker tower``, ``tfidf``, ``sequence``: M12), SGNS training
-(``embedding_knn``, ``doc2vec``: S1), and fitting rankers (a missing
-``ranker_<type>.npz``, ``two_stage_streamed validation``: M9, M10).
+runs quietly on the CPU.  ``two_stage`` and ``two_stage_streamed`` (both
+modes, ``--ranker gbdt``) train the fold GBDT rankers of ``--config`` (a
+``GBDTConfig`` YAML) where ``--artifact-dir`` holds none, or resume those it
+holds.  What is not ported raises ``NotImplementedError`` naming its
+ROADMAP item: the listwise tower (``--ranker tower``, ``tfidf``,
+``sequence``: M12) and SGNS training (``embedding_knn``, ``doc2vec``: S1).
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import DataConfig
+from otto_tpu_torch.config import DataConfig, GBDTConfig
 from otto_tpu_torch.data import splits, submission
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
@@ -170,9 +169,8 @@ _NOT_PORTED = {
     "embedding_knn": "SGNS training is not ported yet (ROADMAP S1)",
     "doc2vec": "SGNS training is not ported yet (ROADMAP S1)",
 }
-_SERVED = ("aid_frequency, aid_weight, covisitation and ensemble in both modes; two_stage "
-           "(both modes) and two_stage_streamed (submission) with --ranker gbdt and an "
-           "--artifact-dir holding trained rankers")
+_SERVED = ("aid_frequency, aid_weight, covisitation, ensemble, two_stage and "
+           "two_stage_streamed in both modes, the last two with --ranker gbdt")
 
 
 def main(argv=None):
@@ -202,8 +200,9 @@ def main(argv=None):
     parser.add_argument("--val-fraction", type=float, default=0.1)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--config", default=None,
-                        help="model YAML (sequence / embedding_knn / doc2vec / two_stage "
-                             "ranker); read by training, which is not ported yet")
+                        help="two_stage / two_stage_streamed: the rankers' GBDTConfig YAML "
+                             "(default GBDTConfig()); the sequence / embedding_knn / doc2vec "
+                             "models are not ported yet")
     parser.add_argument("--ranker", choices=["tower", "gbdt"], default="tower",
                         help="two_stage reranking engine: listwise MLP tower (not ported "
                              "yet, ROADMAP M12) or the histogram GBDT (the reference's "
@@ -213,8 +212,9 @@ def main(argv=None):
                              "(the reference's train.jsonl/test.jsonl split); defaults "
                              "to predicting --events sessions themselves")
     parser.add_argument("--artifact-dir", default=None,
-                        help="two_stage per-stage persistence / resume directory; must "
-                             "hold ranker_<type>.npz of every type")
+                        help="two_stage per-stage persistence / crash-resume directory: "
+                             "what it holds (covisitation tables, ranker_<type>.npz) is "
+                             "reloaded, what is built or trained is saved there")
     parser.add_argument("--train-sessions", type=int, default=50_000,
                         help="two_stage_streamed: labeled target sessions used "
                              "to fit the rankers; the rest stream")
@@ -236,10 +236,6 @@ def main(argv=None):
             raise NotImplementedError(f"{args.model} --ranker tower: the listwise tower is "
                                       f"not ported yet (ROADMAP M12). The port serves "
                                       f"{_SERVED}")
-        if args.model == "two_stage_streamed" and args.mode == "validation":
-            raise NotImplementedError(
-                "two_stage_streamed validation fits rankers on a subsample, and training is "
-                "not ported yet (ROADMAP M9, M10). The port serves " + _SERVED)
 
     def _read(path):
         if str(path).endswith(".jsonl"):
@@ -274,36 +270,46 @@ def main(argv=None):
     if not args.events:
         parser.error("--events is required")
     store = _read(args.events)
+    rcfg = (GBDTConfig.from_yaml(args.config) if args.config and args.model.startswith("two_stage")
+            else GBDTConfig())
 
-    def resume_two_stage(train):
-        # the rankers are fit on a labeled split of the train events (the
-        # reference trains on the labeled validation week,
-        # src/ranker/lgb_trainer.py:51-57); the port resumes them from
-        # --artifact-dir and reuses or selects their prior alpha there
+    def fit_two_stage(train):
+        # submission: the rankers are fit on a labeled split of the train
+        # events (the reference trains on the labeled validation week,
+        # src/ranker/lgb_trainer.py:51-57), or resumed from --artifact-dir
         from otto_tpu_torch.twostage import run_two_stage
 
         sp = splits.split_by_fraction(train, val_fraction=args.val_fraction, seed=args.seed)
         return run_two_stage(sp.train, sp.val_input, args.n_aids, labels=sp.val_labels,
-                             artifact_dir=args.artifact_dir, device=dev)
+                             ranker_config=rcfg, artifact_dir=args.artifact_dir, device=dev)
 
     def dispatch(train, target, labels):
-        if args.model == "two_stage_streamed":  # submission: every target session streams
+        if args.model == "two_stage_streamed":
             from otto_tpu_torch.streaming import run_two_stage_streamed
 
+            # validation: fit on --train-sessions of the target, stream the
+            # rest; submission: fit on a split of the train events, stream
+            # every target session
             res = run_two_stage_streamed(
-                train, target, args.n_aids, labels=None, artifacts=resume_two_stage(train),
+                train, target, args.n_aids, labels=labels, ranker_config=rcfg,
+                artifacts=None if labels is not None else fit_two_stage(train),
                 train_sessions=args.train_sessions, shard_sessions=args.shard_sessions,
-                artifact_dir=args.artifact_dir, n_boot=0, device=dev,
+                artifact_dir=args.artifact_dir, n_boot=0 if labels is None else 1000,
+                device=dev,
             )
+            if res.bootstrap_vs_heuristic is not None:
+                b = res.bootstrap_vs_heuristic
+                print(f"lift vs heuristic {b['lift']:+.6f} ci95 {b['ci95']} "
+                      f"(streamed, training-disjoint)")
             return BaselineResult(res.predictions, res.report)
         if args.model == "two_stage":
             from otto_tpu_torch.twostage import predict_two_stage, run_two_stage
 
-            if labels is None:  # submission: score the target with the resumed rankers
-                art = resume_two_stage(train)
+            if labels is None:  # submission: fit, then score the target sessions
+                art = fit_two_stage(train)
                 return BaselineResult(predict_two_stage(art, train, target, args.n_aids,
                                                         device=dev), None)
-            art = run_two_stage(train, target, args.n_aids, labels=labels,
+            art = run_two_stage(train, target, args.n_aids, labels=labels, ranker_config=rcfg,
                                 artifact_dir=args.artifact_dir, device=dev)
             return BaselineResult(art.predictions, art.report)
         runner = MODEL_RUNNERS[args.model]

@@ -1,22 +1,29 @@
-"""Streamed two-stage serving: prediction over a large target in shards.
+"""Streamed two-stage serving: the production path at reference scale.
 
-Port of the prediction half of ``otto_tpu/streaming.py``.  The reference
-serves its two-stage pipeline over millions of sessions by manual
-file-sharding (src/ranker/regular_candidate_generation.py:226-257,
+Port of ``otto_tpu/streaming.py``.  The reference serves its two-stage
+pipeline over millions of sessions by manual file-sharding
+(src/ranker/regular_candidate_generation.py:226-257,
 src/ranker/lgb_trainer.py:248-263), because the exploded [sessions x
 candidates x features] plane does not fit in memory at once.
-:func:`run_two_stage_streamed` streams candidate generation -> feature
-assembly -> fold-averaged ranker prediction -> prior blend -> top-20 over
-bounded session shards, so peak memory is one shard's feature plane.
+:func:`run_two_stage_streamed` is one call that
+
+1. trains the per-type rankers on a labeled *subsample* of the target
+   sessions through :func:`otto_tpu_torch.twostage.run_two_stage` (folds,
+   negative sampling, selection-half alpha, heuristic union), unless
+   trained ``artifacts`` are given, and
+2. streams candidate generation -> feature assembly -> fold-averaged ranker
+   prediction -> prior blend -> top-20 over the other sessions in bounded
+   session shards, so peak memory is one shard's feature plane.
 
 The global aid feature table is computed ONCE over the full train+target
-union and shared by every shard, so shard-streamed output equals the
-monolithic path.  Only prediction mode is ported (``artifacts`` given):
-training mode needs GBDT training (ROADMAP M9) and raises.  With
-``exclude_train_subset`` the training subsample drawn earlier (the same
-``train_subset_indices`` draw) is left out, so every streamed session is
-training-disjoint and the evaluation over them is an unbiased lift
-measurement.
+union and shared by the training call and every shard.  Because training
+never sees the streamed sessions, every streamed session is
+training-disjoint, and the evaluation over them is an unbiased lift
+measurement; with given ``artifacts``, ``exclude_train_subset`` leaves out
+the training subsample drawn earlier (the same ``train_subset_indices``
+draw) to the same end.  The interaction features aggregate over the
+sessions scored together, so a session's list can depend on its shard
+(ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -30,15 +37,24 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import CovisitConfig
+from otto_tpu_torch.config import CovisitConfig, GBDTConfig, SGNSConfig
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
 from otto_tpu_torch.eval.harness import RecallReport, evaluate_predictions, paired_bootstrap_lift
-from otto_tpu_torch.features import compute_aid_features
+from otto_tpu_torch.features import RANKER_FEATURES, compute_aid_features
 from otto_tpu_torch.logging_utils import get_logger
-from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
+from otto_tpu_torch.models.covisitation import (
+    CovisitationMatrices,
+    build_covisitation,
+    covisit_heuristic_predictions,
+)
 from otto_tpu_torch.models.frequency import FrequencyStatistics
-from otto_tpu_torch.twostage import TwoStageArtifacts, _union_stats_store, predict_two_stage
+from otto_tpu_torch.twostage import (
+    TwoStageArtifacts,
+    _union_stats_store,
+    predict_two_stage,
+    run_two_stage,
+)
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
@@ -83,47 +99,66 @@ def run_two_stage_streamed(
     target: EventStore,
     n_aids: int,
     labels: SessionLabels | None = None,
+    ranker_config: GBDTConfig = GBDTConfig(),
     covisit_config: CovisitConfig = CovisitConfig(),
+    sgns_config: SGNSConfig | None = None,
     train_sessions: int = 50_000,
     shard_sessions: int = 100_000,
+    selection_fraction: float = 0.5,
     selection_seed: int = 17,
     train_subset_seed: int = 23,
     heuristic_union: bool = True,
     chunk_sessions: int = 2048,
     k_covisit: int = 100,
     uniq_cap: int = 64,
+    matrices: CovisitationMatrices | None = None,
     artifacts: TwoStageArtifacts | None = None,
     artifact_dir=None,
     n_boot: int = 1000,
+    feature_list: list[str] = RANKER_FEATURES,
     progress_cb=None,
     exclude_train_subset: bool = False,
     max_stream_sessions: int = 0,
     *,
     device: str | torch.device,
 ) -> StreamedResult:
-    """Stream-predict ``target`` with trained ``artifacts`` on ``device``.
+    """Train on a subsample, stream-predict the rest of ``target``, on
+    ``device``.
 
-    Every target session (less the training subsample with
-    ``exclude_train_subset``, capped at ``max_stream_sessions`` if set) is
-    scored in ``shard_sessions``-sized shards: the covisitation heuristic,
-    then :func:`predict_two_stage` with it unioned in.  With ``labels`` both
-    are evaluated over the streamed sessions, with a paired bootstrap of the
-    lift (``n_boot`` draws seeded by ``selection_seed``).  An
+    ``train_sessions`` target sessions (drawn with ``train_subset_seed``;
+    requires ``labels``) fit the rankers through :func:`run_two_stage`
+    (``ranker_config``, ``sgns_config``, ``selection_fraction``,
+    ``feature_list``; resumed from ``artifact_dir`` where it holds them),
+    and every OTHER target session is scored in ``shard_sessions``-sized
+    shards.  With ``artifacts`` given, training is skipped and every target
+    session streams (less the training subsample with
+    ``exclude_train_subset``): prediction-only mode, the reference's
+    submission path.  ``max_stream_sessions`` caps the streamed sessions.
+
+    Each shard runs the covisitation heuristic, then
+    :func:`predict_two_stage` with it unioned in.  With ``labels`` both are
+    evaluated over the streamed sessions, with a paired bootstrap of the
+    lift (``n_boot`` draws seeded by ``selection_seed``).  The covisitation
+    tables are ``matrices``, the artifacts', or built on ``device``.  An
     ``artifact_dir`` holding ``aid_feats.npz`` supplies the global aid
     features; otherwise they are computed and saved there.  Returns per-stage
-    timings including per-shard (heuristic, predict) wall seconds, rows
-    predicted, and peak RSS.
+    timings (``train_s`` and ``train_sessions`` for the fit) including
+    per-shard (heuristic, predict) wall seconds, rows predicted, and peak
+    RSS.
     """
-    if artifacts is None:
-        raise NotImplementedError("run_two_stage_streamed: training mode needs GBDT training, "
-                                  "which is not ported yet (ROADMAP M9); pass artifacts")
     dev = resolve_device(device)
     timings: dict = {"rss_start_gb": round(_rss_gb(), 2)}
     t_all = time.time()
-    matrices = artifacts.matrices
-    timings["covisit_build_s"] = 0.0
 
     # ---- stage 0: shared statistics --------------------------------------
+    t0 = time.time()
+    if matrices is None and artifacts is not None:
+        matrices = artifacts.matrices
+    if matrices is None:
+        log.info("streamed: building covisitation over %d events", train.n_events)
+        matrices = build_covisitation(train, n_aids, covisit_config, device=dev)
+    timings["covisit_build_s"] = round(time.time() - t0, 1)
+
     t0 = time.time()
     stats = FrequencyStatistics.compute(train, n_aids=n_aids, device=dev)
     stats_top = {t: stats.top_by_type[t] for t in EVENT_TYPES}
@@ -142,15 +177,34 @@ def run_two_stage_streamed(
     timings["global_features_s"] = round(time.time() - t0, 1)
     timings["rss_after_features_gb"] = round(_rss_gb(), 2)
 
-    # ---- stage 1: which sessions stream ----------------------------------
+    # ---- stage 1: train rankers on the subsample -------------------------
     S = target.n_sessions
     train_mask = np.zeros(S, bool)
-    if exclude_train_subset:
-        train_mask[train_subset_indices(S, train_sessions, train_subset_seed)] = True
     timings["train_s"] = 0.0
     timings["train_sessions"] = 0
+    if artifacts is None:
+        if labels is None:
+            raise ValueError("training mode requires labels; pass artifacts "
+                             "for prediction-only streaming")
+        train_idx = train_subset_indices(S, train_sessions, train_subset_seed)
+        train_mask[train_idx] = True
+        t0 = time.time()
+        log.info("streamed: training rankers on %d of %d target sessions", len(train_idx), S)
+        artifacts = run_two_stage(
+            train, target.select_sessions(train_mask), n_aids, labels=labels.take(train_idx),
+            covisit_config=covisit_config, ranker_config=ranker_config,
+            sgns_config=sgns_config, matrices=matrices,
+            selection_fraction=selection_fraction, selection_seed=selection_seed,
+            heuristic_union=heuristic_union, chunk_sessions=chunk_sessions,
+            k_covisit=k_covisit, uniq_cap=uniq_cap, aid_feats=aid_feats,
+            artifact_dir=artifact_dir, feature_list=feature_list, device=dev,
+        )
+        timings["train_s"] = round(time.time() - t0, 1)
+        timings["train_sessions"] = int(len(train_idx))
+    elif exclude_train_subset:
+        train_mask[train_subset_indices(S, train_sessions, train_subset_seed)] = True
 
-    # ---- stage 2: stream the sessions ------------------------------------
+    # ---- stage 2: stream the other sessions ------------------------------
     streamed_idx = np.flatnonzero(~train_mask)
     if max_stream_sessions and len(streamed_idx) > max_stream_sessions:
         # cap the streamed set (still training-disjoint; the cap is a wall-

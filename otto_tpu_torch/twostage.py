@@ -1,5 +1,5 @@
-"""The two-stage production pipeline: prediction with trained artifacts,
-and the resume branch of training.
+"""The two-stage production pipeline: ranker training and evaluation, and
+prediction with trained artifacts.
 
 Port of ``otto_tpu/twostage.py``.  The reference's four chained CLI
 processes (SURVEY §3.4) become one call that passes arrays in memory:
@@ -7,18 +7,20 @@ processes (SURVEY §3.4) become one call that passes arrays in memory:
 1. the regular candidate generator emits [S, C] candidates and scores, and
    the covisitation heuristic's top-20 is unioned into the grid;
 2. the three feature families assemble the [S, C, 55] tensor;
-3. per event type, the fold-averaged GBDT scores it (on the card one
-   forest-kernel launch a model, which bins the float32 rows itself);
+3. per event type, fold GBDT rankers are fit on it (histograms by the
+   kernel K5; out-of-fold scores), or the fold-averaged trained ones score
+   it (on the card one forest-kernel launch a model, which bins the float32
+   rows itself);
 4. the prior blend and the per-session top-20.
 
 :func:`predict_two_stage` scores new sessions with trained artifacts.
-:func:`run_two_stage` is the reference's train-and-evaluate call in its
-resume branch (``otto_tpu/twostage.py:448-499``): it reloads the rankers an
-artifact directory holds, scores the labeled target with them, selects or
-reuses the prior-blend alpha, reports and saves.  Fitting a ranker needs
-GBDT training (ROADMAP M9) and raises.  Both take a required ``device``:
-candidates, the heuristic (when not given) and the forest pass run there.
-A failed device pass raises; nothing falls back to the CPU.
+:func:`run_two_stage` is the reference's train-and-evaluate call: per event
+type it fits the fold GBDT rankers on the labeled target's candidate grid
+(or reloads those an artifact directory holds), selects or reuses the
+prior-blend alpha, reports and saves.  Both take a required ``device``:
+candidates, the heuristic (when not given), the GBDT fits and the forest
+pass run there.  A failed device pass raises; nothing falls back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ from otto_tpu_torch.models.covisitation import (
 from otto_tpu_torch.models.frequency import FrequencyStatistics
 from otto_tpu_torch.models.embeddings import SGNSModel
 from otto_tpu_torch.models.ensemble import robust_scale
-from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model
-from otto_tpu_torch.models.ranker import top_k_predictions
+from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model, train_gbdt_ranker
+from otto_tpu_torch.models.ranker import RankerData, top_k_predictions
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
@@ -320,13 +322,25 @@ def _type_features(target: EventStore, cands: CandidateSet, etype: str,
     return assemble_features(feature_list, inter, aid_feats, sess_feats, c)
 
 
+def _train_engine(data: RankerData, cfg, eval_recall, *, device: torch.device):
+    """Fit one ranker of ``cfg``'s engine (``otto_tpu/twostage.py:45-53``):
+    a ``GBDTConfig`` trains the fold GBDT on ``device``.  The listwise tower
+    (the reference's ``RankerConfig``) is not ported and raises."""
+    if not isinstance(cfg, GBDTConfig):
+        raise NotImplementedError(f"{type(cfg).__name__}: only GBDTConfig trains here; the "
+                                  "listwise tower is not ported yet (ROADMAP M12)")
+    return train_gbdt_ranker(data, cfg, eval_recall=eval_recall, device=device)
+
+
 def run_two_stage(
     train: EventStore,
     target: EventStore,
     n_aids: int,
     labels: SessionLabels | None = None,
     covisit_config: CovisitConfig = CovisitConfig(),
+    ranker_config: GBDTConfig = GBDTConfig(),
     second_ranker_config: GBDTConfig | None = None,
+    blend_weights: tuple[float, float] = (0.5, 0.5),
     sgns_config: SGNSConfig | None = None,
     feature_list: list[str] = RANKER_FEATURES,
     uniq_cap: int = 64,
@@ -343,65 +357,73 @@ def run_two_stage(
     *,
     device: str | torch.device,
 ) -> TwoStageArtifacts:
-    """Evaluate the two-stage pipeline on labeled ``target`` sessions with the
-    rankers ``artifact_dir`` holds (the reference's resume branch), on
-    ``device``.
+    """Train and evaluate the two-stage pipeline on labeled ``target``
+    sessions, on ``device`` (``otto_tpu/twostage.py:272-545``).
 
     ``train`` supplies statistics (covisitation, aid features); ``target``
-    sessions receive candidates and predictions.  Per stage, what the
-    directory holds is reloaded: ``covisitation/`` (else built on ``device``
-    and saved there), ``sgns.npz`` when ``sgns_config`` is given, and
-    ``ranker_<type>.npz`` of every type, which score the target with one
-    forest pass a type.  A ranker's stored ``prior_alpha`` is reused (finite:
-    ``prior + alpha * ranker``; ``inf``: the ranker alone); a NaN one is
+    sessions receive candidates and predictions.  Per event type the ranker
+    of ``ranker_config`` is fit on the type's candidate grid (folds,
+    negative sampling, MAP@20 early stopping: :func:`train_gbdt_ranker`),
+    and with ``second_ranker_config`` a second one, blended with the first
+    by ``blend_weights`` (robust-scaled).  The prior blend's alpha is then
     selected over ``PRIOR_ALPHAS`` by recall on the *selection* sessions and
-    stored.  ``selection_fraction`` splits the target into those and a
-    disjoint *report* subset scored by ``report_disjoint`` (the reference's
-    OOF-vs-holdout split, src/ranker/inference.py:321-337); ``report``
-    covers all sessions.  The artifacts are saved back into
-    ``artifact_dir`` (the covisitation tables only when they were passed in,
-    since tables read from or built into the directory are there already).
+    stored in the ranker.  ``selection_fraction`` splits the target into
+    those and a disjoint *report* subset scored by ``report_disjoint`` (the
+    reference's OOF-vs-holdout split, src/ranker/inference.py:321-337);
+    ``report`` covers all sessions, and fold recalls and early stopping see
+    only the selection sessions.
 
-    Fitting is not ported: a missing ranker, a ``second_ranker_config``, or
-    ``sgns_config`` without ``sgns.npz`` raises ``NotImplementedError``
-    naming its ROADMAP item; ``labels=None`` raises ``ValueError``, as in
-    the reference (prediction is :func:`predict_two_stage`).  ``stats_out``
-    receives the seconds of each stage.
+    ``artifact_dir`` enables per-stage persistence and resume: what the
+    directory holds is reloaded (``covisitation/``, ``sgns.npz`` when
+    ``sgns_config`` is given, and each type's ``ranker_<type>.npz``, which
+    then scores the target with one forest pass instead of training; its
+    stored ``prior_alpha`` is reused, finite as ``prior + alpha * ranker``,
+    ``inf`` as the ranker alone, NaN selected anew).  What is built or
+    trained is saved there as it completes, rankers as
+    ``ranker_<type>.npz`` and ``ranker_<type>_b.npz``, and the artifacts at
+    the end (the covisitation tables only when they were passed in, since
+    tables read from or built into the directory are there already).
+
+    A tower config raises (ROADMAP M12), as does ``sgns_config`` without
+    ``sgns.npz`` (SGNS training, S1); ``labels=None`` raises ``ValueError``,
+    as in the reference (prediction is :func:`predict_two_stage`).
+    ``stats_out`` receives the seconds of each stage, ``train_s`` the
+    rankers' fits.
     """
     if labels is None:
         raise ValueError("run_two_stage evaluates labeled sessions; prediction-only mode "
                          "is predict_two_stage")
-    if second_ranker_config is not None:
-        raise NotImplementedError("run_two_stage: a second ranker is fit by training, which "
-                                  "is not ported yet (ROADMAP M10)")
     adir = Path(artifact_dir) if artifact_dir is not None else None
-    missing = [t for t in EVENT_TYPES
-               if adir is None or not (adir / f"ranker_{t}.npz").exists()]
-    if missing:
-        raise NotImplementedError(
-            f"run_two_stage: no trained ranker for {missing} in artifact_dir={artifact_dir!r}; "
-            "fitting one needs GBDT training, which is not ported yet (ROADMAP M9). Pass an "
-            "artifact_dir holding ranker_<type>.npz of every type")
-    if sgns_config is not None and not (adir / "sgns.npz").exists():
+    to_train = [t for t in EVENT_TYPES if adir is None or not (adir / f"ranker_{t}.npz").exists()]
+    for cfg in (ranker_config, second_ranker_config):
+        if to_train and cfg is not None and not isinstance(cfg, GBDTConfig):
+            raise NotImplementedError(f"run_two_stage: {to_train} would train a "
+                                      f"{type(cfg).__name__}; only GBDTConfig trains here, the "
+                                      "listwise tower is not ported yet (ROADMAP M12)")
+    if sgns_config is not None and (adir is None or not (adir / "sgns.npz").exists()):
         raise NotImplementedError("run_two_stage: sgns_config without sgns.npz in "
                                   "artifact_dir trains SGNS, which is not ported yet "
                                   "(ROADMAP S1)")
+    if adir is not None:
+        adir.mkdir(parents=True, exist_ok=True)
     dev = resolve_device(device)
     times = dict.fromkeys(("covisit_s", "candidates_s", "heuristic_s", "union_s",
-                           "features_s", "forest_s", "blend_s", "report_s", "save_s"), 0.0)
+                           "features_s", "forest_s", "train_s", "blend_s", "report_s",
+                           "save_s"), 0.0)
     clock = time.perf_counter
 
     # ---- stage 0: representation models ----------------------------------
     t0 = clock()
-    matrices_on_disk = matrices is None and (adir / "covisitation").is_dir()
+    matrices_on_disk = matrices is None and adir is not None and (adir / "covisitation").is_dir()
     if matrices_on_disk:
         log.info("resuming covisitation matrices from %s", adir)
         matrices = CovisitationMatrices.load(adir / "covisitation")
     if matrices is None:
         log.info("building covisitation matrices over %d events", train.n_events)
         matrices = build_covisitation(train, n_aids, covisit_config, device=dev)
-        matrices.save(adir / "covisitation")
-        matrices_on_disk = True
+        if adir is not None:
+            matrices.save(adir / "covisitation")
+            matrices_on_disk = True
     sgns = None
     if sgns_config is not None:
         log.info("resuming SGNS embeddings from %s", adir)
@@ -440,7 +462,7 @@ def run_two_stage(
     sess_feats = compute_session_features(target, aid_feats)
     times["features_s"] += clock() - t0
 
-    # ---- stage 3: per-type scoring with the resumed rankers ---------------
+    # ---- stage 3: per-type ranker training or resume, and the prior blend -
     sel_mask = None
     if 0.0 < selection_fraction < 1.0:
         sel_mask = (np.random.default_rng(selection_seed).random(target.n_sessions)
@@ -455,34 +477,59 @@ def run_two_stage(
         X = _type_features(target, cands, etype, heur_rank, feature_list, aid_feats,
                            sess_feats, n_aids)
         times["features_s"] += clock() - t0
-        rk_path = adir / f"ranker_{etype}.npz"
-        log.info("resuming %s ranker from %s", etype, rk_path)
-        t0 = clock()
-        model = load_ranker_model(rk_path)
-        scores = model.predict(X, c >= 0, device=dev)
-        times["forest_s"] += clock() - t0
+        eval_fn = _recall_eval_fn(labels, c, etype, device=dev)
+        if sel_mask is not None:
+            # restrict alpha / early-stop selection to the selection half
+            raw_eval = eval_fn
+
+            def eval_fn(session_indices, s, _raw=raw_eval):
+                keep = sel_mask[session_indices]
+                if not keep.any():
+                    return _raw(session_indices, s)
+                return _raw(session_indices[keep], s[keep])
+
+        rk_path = adir / f"ranker_{etype}.npz" if adir is not None else None
+        resumed = rk_path is not None and rk_path.exists()
+        if resumed:
+            # crash resume: reload the finished fold models and score with
+            # them (fold-averaged rather than OOF)
+            log.info("resuming %s ranker from %s", etype, rk_path)
+            t0 = clock()
+            model = load_ranker_model(rk_path)
+            scores = model.predict(X, c >= 0, device=dev)
+            times["forest_s"] += clock() - t0
+        else:
+            data = RankerData(features=X, labels=cands.labels[etype], mask=c >= 0,
+                              session_ids=target.session_ids, candidates=c,
+                              feature_names=list(feature_list))
+            t0 = clock()
+            model, scores = _train_engine(data, ranker_config, eval_fn, device=dev)
+            if second_ranker_config is not None:
+                # the reference blends a LightGBM and an XGBoost reranker
+                # (ranker/inference.py:64-85): a second model, robust-scaled
+                # weighted blend
+                rankers[f"{etype}_b"], scores_b = _train_engine(data, second_ranker_config,
+                                                                eval_fn, device=dev)
+                scores = _blend_scores(c, [scores, scores_b], list(blend_weights))
+            times["train_s"] += clock() - t0
+            del data
         del X
         rankers[etype] = model
         t0 = clock()
         hr = None if heur_rank is None else heur_rank[etype]
-        if not np.isnan(model.prior_alpha):  # the alpha selected before
+        if resumed and not np.isnan(model.prior_alpha):  # the alpha selected before
             scores = _prior_scores(c, scores, hr, model.prior_alpha)
         else:
-            eval_fn = _recall_eval_fn(labels, c, etype, device=dev)
-            if sel_mask is not None:
-                # restrict the alpha selection to the selection half
-                raw_eval = eval_fn
-
-                def eval_fn(session_indices, s, _raw=raw_eval):
-                    keep = sel_mask[session_indices]
-                    if not keep.any():
-                        return _raw(session_indices, s)
-                    return _raw(session_indices[keep], s[keep])
-
             scores, model.prior_alpha = _prior_blend(c, scores, eval_fn, heur_rank=hr)
             log.info("%s: prior-blend alpha %.2f", etype, model.prior_alpha)
         predictions[etype] = top_k_predictions(c, scores, k=TOP_K)
         times["blend_s"] += clock() - t0
+        if adir is not None and not resumed:
+            t0 = clock()
+            model.save(rk_path)
+            if f"{etype}_b" in rankers:
+                rankers[f"{etype}_b"].save(adir / f"ranker_{etype}_b.npz")
+            times["save_s"] += clock() - t0
 
     t0 = clock()
     report = evaluate_predictions(labels, predictions["clicks"], predictions["carts"],
@@ -504,9 +551,10 @@ def run_two_stage(
         selection_mask=sel_mask, report_disjoint=report_disjoint,
         heuristic_union=heuristic_union, feature_list=list(feature_list),
     )
-    t0 = clock()
-    artifacts.save(adir, matrices=not matrices_on_disk)
-    times["save_s"] = clock() - t0
+    if adir is not None:
+        t0 = clock()
+        artifacts.save(adir, matrices=not matrices_on_disk)
+        times["save_s"] += clock() - t0
     if stats_out is not None:
         stats_out.update(times)
     return artifacts

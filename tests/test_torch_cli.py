@@ -378,8 +378,8 @@ def test_main_two_stage_equal_to_in_memory_calls(tmp_path):
 @pytest.mark.parametrize("argv, match", [
     (["two_stage", "validation", "--ranker", "tower"], "M12"),
     (["two_stage_streamed", "submission"], "M12"),
-    (["two_stage_streamed", "validation", "--ranker", "gbdt"], "M9, M10"),
-    (["two_stage", "validation", "--ranker", "gbdt"], "M9"),
+    (["two_stage_streamed", "validation", "--ranker", "tower"], "M12"),
+    (["two_stage", "submission"], "M12"),
     (["tfidf", "validation"], "M12"),
     (["sequence", "submission"], "M12"),
     (["embedding_knn", "validation"], "S1"),

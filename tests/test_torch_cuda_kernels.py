@@ -389,3 +389,78 @@ def test_cuda_cli_two_stage_launches_forest_kernel_once_a_type(cuda_device, tmp_
                                   device="cpu")
     for t in EVENT_TYPES:
         np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, f, n_bins, n_keys", [
+    (1, 1, 2, 1), (115, 55, 16, 32), (115, 128, 2, 64), (1_000_000, 55, 256, 32),
+    (1_000_000, 128, 256, 64), (1_000_000, 1, 16, 1)])
+def test_cuda_histogram_kernel_matches_twin(cuda_device, n, f, n_bins, n_keys):
+    """K5 against its twin: bit-equal on dyadic vals (k/256, |k| < 256; the
+    sums are exact), within 2^-20 of each column's sum of |vals| on normal
+    vals; two launches on the same inputs bit-identical; -1 keys and a
+    crowded bin included."""
+    from otto_tpu_torch.ops import hist as ths
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + f + n_keys)
+    binned = torch.randint(0, n_bins, (n, f), generator=g, device=cuda_device,
+                           dtype=torch.int32).to(torch.uint8)
+    binned[: n // 2, 0] = 0  # half the rows in one bin
+    key = torch.randint(-1 if n_keys > 1 else 0, n_keys, (n,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    dyadic = torch.randint(-255, 256, (n, 3), generator=g, device=cuda_device).float() / 256
+    normal = torch.randn((n, 3), generator=g, device=cuda_device)
+    before = ths.build_histogram.launches
+    for vals in (dyadic, normal):
+        got = ths.build_histogram(binned, key, vals, n_keys, n_bins)
+        again = ths.build_histogram(binned, key, vals, n_keys, n_bins)
+        want = ths._build_histogram_reference(binned, key, vals, n_keys, n_bins)
+        torch.cuda.synchronize()
+        assert got.shape == (n_keys, f, n_bins, 3)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if vals is dyadic:
+            assert torch.equal(got, want)
+        else:
+            tol = 2.0 ** -20 * vals.abs().sum(dim=0)
+            assert bool(((got - want).abs() <= tol).all())
+    assert ths.build_histogram.launches == before + 4
+    with pytest.raises(ValueError):  # inputs on different devices
+        ths.build_histogram(binned, key.cpu(), normal, n_keys, n_bins)
+    with pytest.raises(ValueError):  # more keys than the kernel takes
+        ths.build_histogram(binned, key, normal, ths.MAX_KEYS + 1, n_bins)
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_fit_deterministic_and_equal_to_cpu_on_dyadic_tree(cuda_device):
+    """One tree on dyadic grad/hess (k/1024, |k| <= 7: every histogram cell
+    and cumulative sum is exact in float32, so the card's cumsum, summing in
+    another order than the CPU's, gives the same bits): the card's
+    ``_grow_tree`` equals the CPU twin's in every output; two 6-tree fits on
+    the card give the same forest, bit for bit."""
+    import numpy as np
+
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt as tg
+
+    rng = np.random.default_rng(5)
+    n, f = 200_000, 55
+    binned = rng.integers(0, 256, (n, f)).astype(np.uint8)
+    grad = (rng.integers(-7, 8, n) / 1024).astype(np.float32)
+    hess = (rng.integers(1, 8, n) / 1024).astype(np.float32)
+    weight = (rng.random(n) < 0.8).astype(np.float32)
+    args = [binned, grad, hess, weight, np.ones(n, np.float32), rng.random(f) < 0.9]
+    kw = dict(depth=7, n_bins=256)
+    scalars = (0.01, 1e-5, 200.0, 1e-3, 0.05)
+    card = tg._grow_tree(*(torch.as_tensor(a, device=cuda_device) for a in args), *scalars, **kw)
+    cpu = tg._grow_tree(*(torch.as_tensor(a) for a in args), *scalars, **kw)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    S, C = 2000, 100
+    x = rng.integers(0, 256, (S, C, f)).astype(np.uint8)
+    labels = (rng.random((S, C)) < 0.05).astype(np.int8)
+    mask = np.ones((S, C), bool)
+    cfg = GBDTConfig(n_trees=6, loss="bce", min_data_in_leaf=200)
+    fits = [tg.fit_gbdt(x, labels, mask, mask.astype(np.float32), cfg, device=cuda_device)
+            for _ in range(2)]
+    for name in ("feat", "thr", "leaf", "gain_importance"):
+        assert np.array_equal(getattr(fits[0], name), getattr(fits[1], name)), name

@@ -28,6 +28,7 @@ import torch
 from otto_tpu import EVENT_TYPES
 from otto_tpu import streaming as jstream
 from otto_tpu import twostage as jts
+from otto_tpu.config import RankerConfig as JRankerConfig
 from otto_tpu.data.splits import split_by_time as j_split_by_time
 from otto_tpu.data.synthetic import synthetic_events_v2 as j_synth_v2
 from otto_tpu.eval import harness as jh
@@ -144,10 +145,14 @@ def test_streamed_aid_features_saved_and_resumed(setup, tmp_path, monkeypatch):
 
 
 def test_training_modes_raise(setup):
+    """Training trains a GBDTConfig (tests/test_torch_twostage_train.py);
+    what still raises: the listwise tower's config, and streamed training
+    without labels."""
     _, tsp, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="M9"):  # no trained rankers to resume
-        tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS, labels=tsp.val_labels, device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="M12"):  # no trained rankers to resume
+        tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS, labels=tsp.val_labels,
+                          ranker_config=JRankerConfig(), device="cpu")
+    with pytest.raises(ValueError, match="requires labels"):
         tstream.run_two_stage_streamed(tsp.train, tsp.val_input, N_AIDS, device="cpu")
 
 

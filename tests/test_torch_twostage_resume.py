@@ -33,9 +33,10 @@ from otto_tpu import twostage as jts
 from otto_tpu.data.splits import split_by_time as j_split_by_time
 from otto_tpu.data.synthetic import synthetic_events_v2 as j_synth_v2
 from otto_tpu.models.candidates import CandidateSet as JCandidateSet
+from otto_tpu.config import RankerConfig as JRankerConfig
 from otto_tpu.models.gbdt import GBDTConfig as JGBDTConfig
 from otto_tpu_torch import twostage as tts
-from otto_tpu_torch.config import GBDTConfig, SGNSConfig
+from otto_tpu_torch.config import SGNSConfig
 from otto_tpu_torch.data.splits import split_by_time
 from otto_tpu_torch.data.synthetic import synthetic_events_v2
 from otto_tpu_torch.models.candidates import CandidateSet
@@ -195,12 +196,16 @@ def test_what_would_train_raises_and_names_its_item(data, tmp_path, case):
     for t in rankers:  # the rankers alone: nothing that could be written over
         shutil.copy(BENCH / f"ranker_{t}.npz", tmp_path / "art")
     kw = dict(labels=labels, artifact_dir=tmp_path / "art", device="cpu")
+    # what trains takes a GBDTConfig; the listwise tower's config raises
     if case == "no_artifact_dir":
-        kw["artifact_dir"], err, match = None, NotImplementedError, "M9"
+        kw["artifact_dir"], kw["ranker_config"] = None, JRankerConfig()
+        err, match = NotImplementedError, r"\['clicks', 'carts', 'orders'\].*M12"
     elif case == "missing_ranker":
-        err, match = NotImplementedError, r"\['carts', 'orders'\].*M9"
+        kw["ranker_config"] = JRankerConfig()
+        err, match = NotImplementedError, r"\['carts', 'orders'\].*RankerConfig.*M12"
     elif case == "second_ranker":
-        kw["second_ranker_config"], err, match = GBDTConfig(), NotImplementedError, "M10"
+        kw["artifact_dir"], kw["second_ranker_config"] = None, JRankerConfig()
+        err, match = NotImplementedError, "M12"
     elif case == "sgns_training":
         kw["sgns_config"], err, match = SGNSConfig(), NotImplementedError, "S1"
     else:
