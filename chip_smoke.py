@@ -100,25 +100,36 @@ exit code):
    folds, early stop 50, ``min_data_in_leaf`` 200, selection seed 17) and
    the committed tables, streaming phase 9's 8,000 training-disjoint
    sessions; counters zeroed before and read after (the histogram kernel
-   launches, its twin is never called); best iterations beside the
-   committed models', the train-subsample report beside the JSON's, and
-   the lift with its paired bootstrap (1,000 draws), held above 0 and
-   overlapping the committed models' ci95; 11a the histogram kernel against
-   its twin at one tree's launches on the first clicks fold's rows (level
-   0, one key; levels 1-6, the left children, keys from the tree's
-   routing): bit-equal on dyadic vals, within 2^-20 of each column's sum
-   of |vals| on the fold's bce gradients, two launches bit-identical; its
-   times (CUDA graph), the twin's, ``index_add_``'s and the bound; 11b one
-   tree on dyadic grad/hess, card against the CPU twin, bit-equal; two
-   10-tree bce fits on the card bit-identical; a 5-tree lambdarank fit
-   (``configs/gbdt_lambdarank.yaml``, trees cut) and ``_lambdarank_gh`` on
-   its scores, card within 1e-5 relative of the CPU; 11d the CLI's
-   ``two_stage validation --config <20 trees, 3 folds>`` on phase 6's store
-   cut to 40,000 sessions into an empty directory (three rankers saved,
-   the histogram kernel launched), the same command resuming (no histogram
-   launch; lists equal to ``predict_two_stage`` with the saved artifacts),
-   and ``two_stage_streamed validation --train-sessions 5000`` on its first
-   20,000 sessions (a lift printed).
+   and the binning kernel launch, once a type; the histogram twin and numpy
+   ``fit_bin_edges`` and ``bin_features`` are never called); the fits'
+   seconds by function (upload, device edges, binning, tree growth, K5,
+   OOF); best iterations and the lift with its paired bootstrap (1,000
+   draws) held equal to the recorded refit to the printed digit, the ci95 above
+   0 and overlapping the committed models'; the train-subsample report and
+   the candidates' ceiling beside the JSON's; then each type's device edges
+   held value-equal to numpy ``fit_bin_edges`` on the same rows; and the
+   committed rankers resumed on the same training sessions, their fold
+   average held to the JSON's train-subsample report and to the committed
+   ``predictions.npz`` (that report is this in-sample one); 11a the
+   histogram kernel against its twin at one tree's launches on the first
+   clicks fold's rows (level 0, the root's row list; levels 1-6, the left
+   children's stretches of the list as the tree's routing splits it):
+   bit-equal on dyadic vals, bit-equal to the plain fixed-point reference
+   on the fold's bce gradients and within 2^-20 of each column's sum of
+   |vals| of the float64 twin, two launches bit-identical; its times (CUDA
+   graph), the twin's, ``index_add_``'s, the list's split and the bound;
+   then the binning kernel on the refit's clicks features against its
+   twin and numpy (times of the kernel, the twin and ``torch.searchsorted``,
+   and the bound); 11b one tree on dyadic grad/hess, card against the CPU
+   twin, bit-equal; two 10-tree bce fits on the card bit-identical; a
+   5-tree lambdarank fit (``configs/gbdt_lambdarank.yaml``, trees cut) and
+   ``_lambdarank_gh`` on its scores, card within 1e-5 relative of the CPU;
+   11d the CLI's ``two_stage validation --config <20 trees, 3 folds>`` on
+   phase 6's store cut to 40,000 sessions into an empty directory (three
+   rankers saved, the histogram and binning kernels launched), the same
+   command resuming (neither launched; lists equal to ``predict_two_stage``
+   with the saved artifacts), and ``two_stage_streamed validation
+   --train-sessions 5000`` on its first 20,000 sessions (a lift printed).
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -1630,6 +1641,13 @@ HIST_SOURCE = "otto_tpu_torch/csrc/hist_kernels.cu"
 # selection seed 17 (subsample and colsample at their 0.9 default).
 REFIT_TRAIN_SESSIONS = 20_000
 REFIT_STREAM_SESSIONS = 8_000  # phase 9's sessions: the first training-disjoint ones
+# The refit as recorded on an H100 with the first histogram kernel (PERF.md
+# §6; the same in every run): each type's fold best iterations, and the lift
+# with its ci95, printed to six places.  The same bins and integer sums give
+# the same forests, so every later kernel must reproduce them.
+REFIT_RECORDED = {
+    "best": {"clicks": [90, 90, 80], "carts": [30, 50, 60], "orders": [60, 140, 80]},
+    "lift": ("+0.010251", ["0.007652", "0.013098"])}
 
 
 def refit_config():
@@ -1645,13 +1663,19 @@ def refit(torch, dev, split, zero_counters, read_counters) -> dict:
     tables: the rankers fit on 20,000 target sessions, then the first 8,000
     training-disjoint sessions stream (phase 9's).  Counters zeroed before,
     read after: the histogram kernel launches and its twin is never called.
-    Prints the stage seconds, each fold's best iteration beside the
-    committed models', the train-subsample report beside
-    ``BENCH_FIT_r05.json``'s, and the lift with its paired bootstrap (1,000
-    draws, seeded); holds the lift's ci95 above 0 and overlapping the
-    committed models' interval on the same sessions (``BENCH_r05.json``).
-    Returns the first clicks fold's ``fit_gbdt`` inputs (11a, 11b use them)
-    and the launches."""
+    The fits bin on the card: the binning kernel launches, and numpy
+    ``fit_bin_edges`` and ``bin_features`` are never called; afterwards each
+    type's device edges are held value-equal to numpy ``fit_bin_edges`` on
+    the same rows.  Prints the stage seconds, the fits' seconds by function,
+    each fold's best iteration beside the committed models', the
+    train-subsample report beside ``BENCH_FIT_r05.json``'s, and the lift
+    with its paired bootstrap (1,000 draws, seeded); holds the best
+    iterations and the lift with its ci95 equal to the recorded refit (the same
+    bins, and K5's integer sums, give the same forests), and the ci95 above
+    0 and overlapping the committed models' interval on the same sessions
+    (``BENCH_r05.json``).  Returns the first clicks fold's ``fit_gbdt``
+    inputs (11a, 11b use them), a type's features with their edges (for
+    ``bin_rows``'s times), and the launches."""
     from otto_tpu_torch import EVENT_TYPES, streaming, twostage
     from otto_tpu_torch.models import gbdt
     from otto_tpu_torch.ops import hist
@@ -1669,9 +1693,18 @@ def refit(torch, dev, split, zero_counters, read_counters) -> dict:
 
     def count_twin(real):
         def twin(*args):
-            twin_calls.append(1)
+            twin_calls.append(real.__name__)
             return real(*args)
         return twin
+
+    trained = []
+
+    def keep_data(real):  # each type's training data and the edges fitted on it
+        def train(data, *args, **kwargs):
+            out = real(data, *args, **kwargs)
+            trained.append((data, out[0].edges))
+            return out
+        return train
 
     def with_stats(real):
         def run(*args, **kwargs):
@@ -1693,13 +1726,16 @@ def refit(torch, dev, split, zero_counters, read_counters) -> dict:
 
     with wrapped(gbdt, "fit_gbdt", keep_first), \
             wrapped(hist, "_build_histogram_reference", count_twin), \
+            wrapped(gbdt, "fit_bin_edges", count_twin), \
+            wrapped(gbdt, "bin_features", count_twin), \
             wrapped(streaming, "run_two_stage", with_stats), \
-            wrapped(gbdt, "fit_bin_edges", timed("edges")), \
-            wrapped(gbdt, "bin_features", timed("binning")), \
+            wrapped(gbdt, "fit_bin_edges_rows", timed("edges")), \
+            wrapped(gbdt, "bin_rows", timed("binning")), \
             wrapped(gbdt, "_grow_tree", timed("grow")), \
-            wrapped(gbdt, "build_histogram", timed("histograms")), \
+            wrapped(gbdt, "node_histograms", timed("histograms")), \
             wrapped(gbdt.GBDTForest, "predict_binned", timed("oof")), \
-            wrapped(twostage, "train_gbdt_ranker", timed("train_gbdt_ranker")):
+            wrapped(twostage, "train_gbdt_ranker", timed("train_gbdt_ranker")), \
+            wrapped(twostage, "train_gbdt_ranker", keep_data):
         zero_counters()
         t0 = time.perf_counter()
         res = streaming.run_two_stage_streamed(
@@ -1710,35 +1746,46 @@ def refit(torch, dev, split, zero_counters, read_counters) -> dict:
             device=dev)
         sync(torch, dev)
         secs = time.perf_counter() - t0
-        launches = read_counters("bench refit", ("build_histogram", "predict_forest",
-                                                 "predict_forest_rows"))
-    check(not twin_calls, f"the refit called the histogram twin {len(twin_calls)} times")
+        launches = read_counters("bench refit", ("node_histograms", "bin_rows",
+                                                 "predict_forest", "predict_forest_rows"))
+    check(not twin_calls, f"the refit called host or twin routes: {sorted(set(twin_calls))} "
+          f"({len(twin_calls)} calls)")
+    check(launches["bin_rows"] == len(trained) == 3, f"{launches['bin_rows']} binning launches "
+          f"for {len(trained)} trained rankers")
     tm = res.timings
-    trees = launches["build_histogram"] / refit_config().max_depth
+    trees = launches["node_histograms"] / refit_config().max_depth
     print(f"run_two_stage_streamed, training mode: {secs:.2f} s; train_s {tm['train_s']} "
           f"({tm['train_sessions']} sessions), stream_s {tm['stream_s']} "
           f"({tm['streamed_sessions']} sessions), global_features_s "
-          f"{tm['global_features_s']}; {launches['build_histogram']} histogram launches = "
+          f"{tm['global_features_s']}; {launches['node_histograms']} histogram launches = "
           f"{trees:.0f} trees grown ({1e3 * stats['train_s'] / max(trees, 1):.1f} ms a tree, "
           f"all of the fit included); run_two_stage stages (s): "
           + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stats.items()), flush=True)
     rest = spent["train_gbdt_ranker"] - sum(spent[k] for k in ("edges", "binning", "grow", "oof"))
     print(f"the fits (s; each timed call drains the card): train_gbdt_ranker "
-          f"{spent['train_gbdt_ranker']:.3f} = edges {spent['edges']:.3f} + binning "
-          f"{spent['binning']:.3f} + grow {spent['grow']:.3f} (of it K5, sort and gathers "
-          f"{spent['histograms']:.3f}) + OOF {spent['oof']:.3f} + the rest of fit_gbdt "
-          f"(gradients, bags, validation routing, MAP@20, reads) {rest:.3f}", flush=True)
+          f"{spent['train_gbdt_ranker']:.3f} = upload, edges (fit_bin_edges_rows) "
+          f"{spent['edges']:.3f} + binning (bin_rows) {spent['binning']:.3f} + grow "
+          f"{spent['grow']:.3f} (of it K5's wrapper {spent['histograms']:.3f}) + OOF "
+          f"{spent['oof']:.3f} + the rest (the upload, fold indexing; in fit_gbdt the "
+          f"padded copy, gradients, bags, validation routing, MAP@20, reads) {rest:.3f}",
+          flush=True)
     for t in EVENT_TYPES:
         got = [f.best_iteration for f in res.artifacts.rankers[t].forests]
         want = [f.best_iteration for f in committed.rankers[t].forests]
-        print(f"  {t}: fold best iterations {got} (committed models {want}); fold recalls "
+        print(f"  {t}: fold best iterations {got} (committed models {want}; the recorded refit "
+              f"{REFIT_RECORDED['best'][t]}); fold recalls "
               f"{[round(r, 6) for r in res.artifacts.rankers[t].fold_recalls]}; alpha "
               f"{res.artifacts.rankers[t].prior_alpha}", flush=True)
+        check(got == REFIT_RECORDED["best"][t], f"{t}: best iterations {got} differ from the "
+              f"recorded refit {REFIT_RECORDED['best'][t]}")
     sub = res.artifacts.report.weighted
     print(f"train-subsample report: weighted {sub:.6f} (BENCH_FIT_r05.json "
           f"{fit_ref['train_subsample_report']['weighted']:.6f}); disjoint half "
           f"{res.artifacts.report_disjoint.weighted:.6f} "
-          f"({fit_ref['train_subsample_report_disjoint']['weighted']:.6f})", flush=True)
+          f"({fit_ref['train_subsample_report_disjoint']['weighted']:.6f}); the candidates' "
+          f"ceiling on the training sessions {json.dumps(res.artifacts.max_recall)} "
+          f"(BENCH_FIT_r05.json {json.dumps(fit_ref['max_recall_train_subsample'])})",
+          flush=True)
     boot = res.bootstrap_vs_heuristic
     want_ci = REPLAY_EXPECTED["bootstrap"]["ci95"]
     print(f"streamed {tm['streamed_sessions']} sessions: weighted {res.report.weighted:.6f}, "
@@ -1748,21 +1795,83 @@ def refit(torch, dev, split, zero_counters, read_counters) -> dict:
           flush=True)
     check(tm["streamed_sessions"] == REFIT_STREAM_SESSIONS and boot["n_boot"] == 1000,
           "the refit did not stream phase 9's sessions with 1,000 bootstrap draws")
+    lift = (f"{res.lift_vs_heuristic:+.6f}", [f"{c:.6f}" for c in boot["ci95"]])
+    check(lift == REFIT_RECORDED["lift"], f"refit lift and ci95 {lift} differ from the "
+          f"recorded refit's {REFIT_RECORDED['lift']}")
     check(boot["ci95"][0] > 0, f"refit lift ci95 {boot['ci95']} does not lie above 0")
     check(boot["ci95"][0] <= want_ci[1] and want_ci[0] <= boot["ci95"][1],
           f"refit lift ci95 {boot['ci95']} does not overlap the committed models' {want_ci}")
+    for data, edges in trained:  # the device edges against numpy's on the same rows
+        t0 = time.perf_counter()
+        want = gbdt.fit_bin_edges(data.features[data.mask], refit_config().n_bins)
+        check(np.array_equal(edges, want), "the device edges differ from numpy fit_bin_edges "
+              f"on the refit's {data.features.shape} features")
+        print(f"device edges of {data.features.shape} features ({int(data.mask.sum())} masked "
+              f"rows): value-equal to numpy fit_bin_edges ({time.perf_counter() - t0:.2f} s on "
+              f"the host; {int((np.signbit(edges) != np.signbit(want)).sum())} edges differ in "
+              f"the sign of a zero)", flush=True)
     return {"launches": launches, "fold": first_fold, "train_s": tm["train_s"],
-            "stream_s": tm["stream_s"], "lift": boot, "trees": trees, "spent": spent}
+            "stream_s": tm["stream_s"], "lift": boot, "trees": trees, "spent": spent,
+            "typed": trained[0]}
 
 
-def hist_bound(key, n_keys: int, n_feat: int, n_bins: int) -> tuple[float, str]:
-    """The histogram's bound on these inputs: the keys of every row, the bins
-    and vals of the rows whose key is in the grid read once, the float32
-    histogram written once; or its adds (three a row and feature of those
-    rows) at the float32 rate."""
-    rows = int(((key >= 0) & (key < n_keys)).sum())
-    n_bytes = 4 * key.numel() + rows * (n_feat + 12) + 12 * n_keys * n_feat * n_bins
-    return bound(n_bytes, 3.0 * rows * n_feat, F32_OPS_PER_S)
+def resumed_train_report(torch, dev, split) -> dict:
+    """Phase 11c: the committed rankers resumed on the refit's 20,000
+    training sessions (seed 23), as ``BENCH_FIT_r05.json``'s run resumed
+    them from its ``artifact_dir`` (``artifacts/bench_e2e``): their fold
+    average on the sessions they were trained on, the heuristic on the host
+    routes.  Held to the JSON's ``train_subsample_report`` per type and to
+    the committed ``predictions.npz`` (that run's lists) in every session:
+    the JSON's report is this in-sample one, a training run's (11c's) the
+    out-of-fold one."""
+    from otto_tpu_torch import EVENT_TYPES, streaming
+    from otto_tpu_torch.eval.harness import evaluate_predictions
+    from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
+    from otto_tpu_torch.models.frequency import FrequencyStatistics
+    from otto_tpu_torch.twostage import predict_two_stage
+
+    art = REPO / "artifacts" / "bench_e2e"
+    fit = json.loads((art / "bench_fit.json").read_text())
+    want = json.loads((REPO / "artifacts" / "BENCH_FIT_r05.json").read_text())
+    S = split.val_input.n_sessions
+    idx = streaming.train_subset_indices(S, fit["train_sessions"], fit["train_subset_seed"])
+    keep = np.zeros(S, bool)
+    keep[idx] = True
+    sub = split.val_input.select_sessions(keep)
+    artifacts = two_stage_artifacts()
+    with np.load(art / "aid_feats.npz") as z:
+        aid_feats = {k: z[k] for k in z.files}
+    t0 = time.perf_counter()
+    stats = FrequencyStatistics.compute(split.train, n_aids=fit["aids"], device=dev)
+    heur = covisit_heuristic_predictions(
+        sub, artifacts.matrices, {t: stats.top_by_type[t] for t in EVENT_TYPES},
+        chunk_sessions=512, recency_host_f64=True, covisit_host=True, device=dev)
+    preds = predict_two_stage(artifacts, split.train, sub, fit["aids"], aid_feats=aid_feats,
+                              heuristic_preds=heur, chunk_sessions=512, device=dev)
+    rep = evaluate_predictions(split.val_labels.take(idx), preds["clicks"], preds["carts"],
+                               preds["orders"], device="cpu")
+    with np.load(art / "predictions.npz") as z:
+        same = {t: int((preds[t] == z[t]).all(axis=1).sum()) for t in EVENT_TYPES}
+    got = {t: round(getattr(rep, t), 6) for t in EVENT_TYPES}
+    ref = {t: round(want["train_subsample_report"][t], 6) for t in EVENT_TYPES}
+    print(f"the committed rankers resumed on the refit's {len(idx)} training sessions "
+          f"({time.perf_counter() - t0:.2f} s): weighted {rep.weighted:.6f}, {got} "
+          f"(BENCH_FIT_r05.json's train-subsample report {ref}); sessions whose lists equal "
+          f"the committed predictions.npz: {same}", flush=True)
+    check(got == ref, f"the resumed fold average on the training sessions {got} differs from "
+          f"BENCH_FIT_r05.json's train-subsample report {ref}")
+    check(all(v == len(idx) for v in same.values()),
+          f"the resumed lists differ from artifacts/bench_e2e/predictions.npz: {same}")
+    return {"weighted": rep.weighted}
+
+
+def hist_bound(listed: int, n_keys: int, n_feat: int, n_bins: int) -> tuple[float, str]:
+    """The histogram's bound on these inputs: each listed row's id (4 bytes),
+    vals (12) and bins (one a feature) read once, the float32 histogram
+    written once; or its adds (three a listed row and feature) at the float32
+    rate."""
+    n_bytes = listed * (4 + 12 + n_feat) + 12 * n_keys * n_feat * n_bins
+    return bound(n_bytes, 3.0 * listed * n_feat, F32_OPS_PER_S)
 
 
 def fold_gradients(torch, dev, fold: dict):
@@ -1772,7 +1881,7 @@ def fold_gradients(torch, dev, fold: dict):
 
     binned, labels, mask, weight, cfg = fold["args"][:5]
     S, C, F = binned.shape
-    x = torch.as_tensor(np.ascontiguousarray(binned.reshape(S * C, F)), device=dev)
+    x = binned.reshape(S * C, F).to(dev)
     p0 = min(max(float((labels * weight).sum()) / max(float(weight.sum()), 1.0), 1e-6), 1 - 1e-6)
     w = torch.as_tensor(weight.reshape(-1), device=dev)
     g, h = gbdt._bce_gh(torch.full((S, C), float(np.log(p0 / (1 - p0))), device=dev),
@@ -1784,15 +1893,19 @@ def fold_gradients(torch, dev, fold: dict):
 def hist_vs_twin(torch, dev, fold: dict) -> dict:
     """Phase 11a: the histogram kernel against its twin on the first clicks
     fold's binned training rows, at the launches of one tree of the fit
-    (level 0, one key; levels 1-6, the left children, keys from the tree's
-    own routing), with the fold's bce gradients, a bag and the keep weights
-    as the tree hands them over: on dyadic vals (k/256) bit-equal, on the
-    real vals within 2^-20 of each column's sum of |vals|, two launches
-    bit-identical.  Times (CUDA graph: device time alone) of the kernel
-    (its wrapper: the sort by key, the gathers, the two kernels), the twin
-    and ``index_add_`` on the flat key in float32 (the one PyTorch call that
-    computes the function; timed, used nowhere), and the bound.  Returns the
-    record of the level-0 launch with the largest error over all levels."""
+    (level 0, the root's row list; levels 1-6, the left children's stretches
+    of the list as the tree's own routing splits it), with the fold's bce
+    gradients, a bag and the keep weights as the tree hands them over: on
+    dyadic vals (k/256) bit-equal to the twin, on the real vals bit-equal to
+    the plain fixed-point reference (the kernel's scale rule) and within
+    2^-20 of each column's sum of |vals| of the float64 twin, two launches
+    bit-identical.  Times (CUDA graph: device time alone) of the kernel (its
+    wrapper: the int64 sums and the float32 finish), the twin, ``index_add_``
+    in float32 of the listed rows' entries at their flat keys (the one
+    PyTorch call that computes the function; timed, used nowhere), the row
+    list's split after each level
+    (``_split_rows``, torch) and the bound.  Returns the record of the level-0
+    launch with the largest error over all levels."""
     from otto_tpu_torch.models import gbdt
     from otto_tpu_torch.ops import hist
 
@@ -1801,7 +1914,7 @@ def hist_vs_twin(torch, dev, fold: dict) -> dict:
     n, F = x.shape
     gen = torch.Generator().manual_seed(cfg.seed)
     bag = (torch.rand(n, generator=gen) < cfg.subsample).to(device=dev, dtype=torch.float32)
-    launches = []
+    launches, splits = [], []
 
     def keep(real):
         def build(*args):
@@ -1809,7 +1922,13 @@ def hist_vs_twin(torch, dev, fold: dict) -> dict:
             return real(*args)
         return build
 
-    with wrapped(gbdt, "build_histogram", keep):
+    def keep_split(real):
+        def split(*args):
+            splits.append(args)
+            return real(*args)
+        return split
+
+    with wrapped(gbdt, "node_histograms", keep), wrapped(gbdt, "_split_rows", keep_split):
         gbdt._grow_tree(x, g, h, w, bag, torch.ones(F, dtype=torch.bool, device=dev),
                         cfg.reg_lambda, cfg.min_split_gain, cfg.min_data_in_leaf,
                         cfg.min_child_weight, cfg.learning_rate, depth=cfg.max_depth,
@@ -1817,13 +1936,16 @@ def hist_vs_twin(torch, dev, fold: dict) -> dict:
     print(f"the first clicks fold: {n} rows x {F} features, {cfg.n_bins} bins; one tree's "
           f"{len(launches)} launches", flush=True)
     g_dy = torch.Generator(device=dev).manual_seed(SEED + 11)
-    rec, totals = None, np.zeros(4)
-    for level, (binned, key, vals, n_keys, n_bins) in enumerate(launches):
+    rec, totals = None, np.zeros(5)
+    for level, (rows, n_feat, vals, vmax, order, start, pre, n_bins) in enumerate(launches):
+        n_keys, listed = start.shape[0], int(pre[-1])
+        key = hist.list_keys(order, start, pre, n)
         dyadic = torch.randint(-255, 256, (n, 3), generator=g_dy, device=dev).float() / 256
         for kind, v in (("dyadic", dyadic), ("real", vals)):
-            a = hist.build_histogram(binned, key, v, n_keys, n_bins)
-            b = hist.build_histogram(binned, key, v, n_keys, n_bins)
-            want = hist._build_histogram_reference(binned, key, v, n_keys, n_bins)
+            args = (rows, n_feat, v, v.abs().amax(dim=0), order, start, pre, n_bins)
+            a = hist.node_histograms(*args)
+            b = hist.node_histograms(*args)
+            want = hist._build_histogram_reference(x, key, v, n_keys, n_bins)
             sync(torch, dev)
             check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
                   f"histogram level {level} ({kind}): two launches differ")
@@ -1831,39 +1953,49 @@ def hist_vs_twin(torch, dev, fold: dict) -> dict:
                 check(torch.equal(a, want), f"histogram level {level}: differs from its twin "
                       "on dyadic vals")
             else:
+                fixed = hist._fixed_point_histogram(x, key, v, n_keys, n_bins)
+                check(torch.equal(a.view(torch.int32), fixed.view(torch.int32)),
+                      f"histogram level {level}: differs from the fixed-point reference")
                 tol = 2.0 ** -20 * v.abs().sum(dim=0)
                 err = (a - want).abs()
                 check(bool((err <= tol).all()), f"histogram level {level}: off its twin by "
                       f"{err.amax(dim=(0, 1, 2)).tolist()} > {tol.tolist()}")
                 max_err = float(err.max())
+                del fixed
         del dyadic, a, b, want
+        # index_add_ over the listed rows' (row, feature) entries, the flat
+        # keys and vals made before it is timed
         size = n_keys * F * n_bins
-        ok = ((key >= 0) & (key < n_keys))[:, None]
-        flat = torch.where(ok, (key.long()[:, None] * F + torch.arange(F, device=dev)) * n_bins
-                           + binned.long(), size).reshape(-1)
-        flat_vals = vals[:, None, :].expand(-1, F, 3).reshape(-1, 3)
-        lib_out = torch.zeros((size + 1, 3), device=dev)
+        on = torch.nonzero((key >= 0) & (key < n_keys))[:, 0]
+        flat = ((key[on].long()[:, None] * F + torch.arange(F, device=dev)) * n_bins
+                + x[on].long()).reshape(-1)
+        flat_vals = vals[on][:, None, :].expand(-1, F, 3).reshape(-1, 3).contiguous()
+        lib_out = torch.zeros((size, 3), device=dev)
+        launch = (rows, n_feat, vals, vmax, order, start, pre, n_bins)
         if dev.type == "cuda":
-            ms = graph_ms(torch, [lambda: hist.build_histogram(binned, key, vals, n_keys,
-                                                               n_bins)])
-            plain = cuda_ms(torch, lambda: hist._build_histogram_reference(binned, key, vals,
+            ms = graph_ms(torch, [lambda: hist.node_histograms(*launch)])
+            plain = cuda_ms(torch, lambda: hist._build_histogram_reference(x, key, vals,
                                                                            n_keys, n_bins), 2)
             lib = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, flat_vals), 3)
+            split_ms = (graph_ms(torch, [lambda: gbdt._split_rows(*splits[level])])
+                        if level < len(splits) else 0.0)
         else:  # a rehearsal on the CPU
-            ms = plain = _host_ms(lambda: hist.build_histogram(binned, key, vals, n_keys,
-                                                               n_bins), 1)
+            ms = plain = _host_ms(lambda: hist.node_histograms(*launch), 1)
             lib = _host_ms(lambda: lib_out.zero_().index_add_(0, flat, flat_vals), 1)
-        del flat, flat_vals, lib_out
-        b_ms, b_by = hist_bound(key, n_keys, F, n_bins)
-        totals += (ms, plain, lib, b_ms)
-        print(f"  level {level}: {n_keys} keys, {int(ok.sum())} rows: bit-equal on dyadic vals, "
-              f"deterministic, largest error on the real vals {max_err:.3e}; kernel {ms:.4f} ms "
-              f"(CUDA graph), twin {plain:.3f} ms, index_add_ float32 {lib:.3f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by}: 4 bytes a key, {F} + 12 a row that adds, 12 a cell out; "
-              f"3 float32 adds a row and feature at 67e12/s): {100 * b_ms / ms:.1f}% of it",
-              flush=True)
+            split_ms = (_host_ms(lambda: gbdt._split_rows(*splits[level]), 1)
+                        if level < len(splits) else 0.0)
+        del on, flat, flat_vals, lib_out
+        b_ms, b_by = hist_bound(listed, n_keys, F, n_bins)
+        totals += (ms, plain, lib, b_ms, split_ms)
+        print(f"  level {level}: {n_keys} keys, {listed} listed rows: bit-equal on dyadic vals "
+              f"and to the fixed-point reference, deterministic, largest error against the "
+              f"float64 twin on the real vals {max_err:.3e}; kernel {ms:.4f} ms (CUDA graph), "
+              f"twin {plain:.3f} ms, index_add_ float32 {lib:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: 16 + {F} bytes a listed row, 12 a cell out; 3 float32 adds a listed "
+              f"row and feature at 67e12/s): {100 * b_ms / ms:.1f}% of it; the list's split "
+              f"after the level {split_ms:.4f} ms", flush=True)
         if rec is None:
-            rec = {"name": "build_histogram", "route": "cuda", "source": HIST_SOURCE,
+            rec = {"name": "node_histograms", "route": "cuda", "source": HIST_SOURCE,
                    "replaces": "otto_tpu/models/gbdt.py:109 (_mm_hist) and :233-266 (the "
                                "scatter branch); XLA, not Pallas",
                    "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
@@ -1871,8 +2003,52 @@ def hist_vs_twin(torch, dev, fold: dict) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err)
     print(f"one tree's {len(launches)} launches: kernel {totals[0]:.3f} ms, twin "
           f"{totals[1]:.3f} ms, index_add_ {totals[2]:.3f} ms, bound {totals[3]:.4f} ms "
-          f"({100 * totals[3] / totals[0]:.1f}%)", flush=True)
+          f"({100 * totals[3] / totals[0]:.1f}%); the list's {len(splits)} splits "
+          f"{totals[4]:.3f} ms", flush=True)
+    rec["tree_ms"], rec["tree_bound_ms"] = float(totals[0]), float(totals[3])
     return rec
+
+
+def bin_rows_vs_twin(torch, dev, typed) -> dict:
+    """Phase 11a: the binning kernel on the refit's clicks features (the
+    float32 rows of every candidate of 20,000 sessions) against its edges:
+    bit-equal to its twin, and to numpy ``bin_features`` on the first
+    200,000 rows; times (CUDA graph) of the kernel, the twin and
+    ``torch.searchsorted`` over the transposed rows (the one PyTorch call
+    near the function: it leaves out NaN -> 0, the + 1 and the transposes;
+    timed, used nowhere), and the bound."""
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import forest
+
+    data, edges = typed
+    S, C, F = data.features.shape
+    x = torch.as_tensor(data.features.reshape(S * C, F), device=dev)
+    packed = forest.pack_edges(edges, device=dev)
+    got = forest.bin_rows(x, packed)
+    want = forest._bin_rows_reference(x, packed)
+    sync(torch, dev)
+    check(torch.equal(got, want), "bin_rows differs from its twin on the refit's features")
+    head = data.features.reshape(S * C, F)[:200_000]
+    check(np.array_equal(got[:200_000].cpu().numpy(), gbdt.bin_features(head, edges)),
+          "bin_rows differs from numpy bin_features on the refit's features")
+    xt = x.T.contiguous()
+    if dev.type == "cuda":
+        ms = graph_ms(torch, [lambda: forest.bin_rows(x, packed)])
+        plain = cuda_ms(torch, lambda: forest._bin_rows_reference(x, packed), 3)
+        lib = cuda_ms(torch, lambda: torch.searchsorted(packed, xt), 3)
+    else:  # a rehearsal on the CPU
+        ms = plain = _host_ms(lambda: forest.bin_rows(x, packed), 1)
+        lib = _host_ms(lambda: torch.searchsorted(packed, xt), 1)
+    b_ms, b_by = bound(5.0 * x.numel() + packed.numel() * 4, 9.0 * x.numel(), F32_OPS_PER_S)
+    print(f"bin_rows on the refit's clicks features [{S * C} x {F}]: bit-equal to its twin "
+          f"and to numpy bin_features; kernel {ms:.4f} ms (CUDA graph), twin {plain:.3f} ms, "
+          f"torch.searchsorted {lib:.3f} ms; bound {b_ms:.4f} ms ({b_by}: 4 bytes in and 1 "
+          f"out a value; 8 compares and a NaN test a value at 67e12/s): "
+          f"{100 * b_ms / ms:.1f}% of it", flush=True)
+    return {"name": "bin_rows", "route": "cuda", "source": FOREST_SOURCE,
+            "replaces": "otto_tpu/models/gbdt.py:80 (bin_features, host numpy; not Pallas)",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib}
 
 
 def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
@@ -1888,7 +2064,8 @@ def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
     from otto_tpu_torch.config import GBDTConfig
     from otto_tpu_torch.models import gbdt
 
-    binned, labels, mask, weight, cfg = fold["args"][:5]
+    rows, labels, mask, weight, cfg = fold["args"][:5]  # the fold's bins, on the card
+    binned = rows.cpu().numpy()
     S, C, F = binned.shape
     rng = np.random.default_rng(SEED + 12)
     n = S * C
@@ -1918,7 +2095,7 @@ def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
     val = fold["val"]
     short = GBDTConfig(**{**vars(cfg), "n_trees": 10})
     t0 = time.perf_counter()
-    fits = [gbdt.fit_gbdt(binned, labels, mask, weight, short, val=val, device=dev)
+    fits = [gbdt.fit_gbdt(rows, labels, mask, weight, short, val=val, device=dev)
             for _ in range(2)]
     fit_s = (time.perf_counter() - t0) / 2
     for name in ("feat", "thr", "leaf", "gain_importance", "split_importance"):
@@ -1931,9 +2108,9 @@ def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
     lcfg = GBDTConfig.from_yaml(REPO / "configs" / "gbdt_lambdarank.yaml")
     lcfg = GBDTConfig(**{**vars(lcfg), "n_trees": 5})
     t0 = time.perf_counter()
-    lam = gbdt.fit_gbdt(binned, labels, mask, weight, lcfg, val=val, device=dev)
+    lam = gbdt.fit_gbdt(rows, labels, mask, weight, lcfg, val=val, device=dev)
     lam_s = time.perf_counter() - t0
-    scores = lam.predict_binned(binned.reshape(n, F), device=dev).reshape(S, C)
+    scores = lam.predict_binned(rows.reshape(n, F), device=dev).reshape(S, C)
     keep = weight > 0
     on = [torch.as_tensor(a, device=dev) for a in (scores, labels, keep)]
     t0 = time.perf_counter()
@@ -1986,7 +2163,8 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
     first = pipelines.main(argv)
     sync(torch, dev)
     train_s = time.perf_counter() - t0
-    trained = read_counters("CLI two_stage validation, training", ("build_histogram",))
+    trained = read_counters("CLI two_stage validation, training", ("node_histograms",
+                                                                    "bin_rows"))
     saved = sorted(p.name for p in adir.glob("ranker_*.npz"))
     check(saved == [f"ranker_{t}.npz" for t in sorted(TYPE_NAMES)],
           f"the training run saved {saved}")
@@ -1996,7 +2174,8 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
     sync(torch, dev)
     resume_s = time.perf_counter() - t0
     resumed = read_counters("CLI two_stage validation, resumed", ("predict_forest_rows",))
-    check(resumed["build_histogram"] == 0, "the resumed run launched the histogram kernel")
+    check(resumed["node_histograms"] == resumed["bin_rows"] == 0,
+          "the resumed run launched the histogram or the binning kernel")
     sp = split_by_fraction(store, val_fraction=0.5, seed=0)
     want = twostage.predict_two_stage(twostage.TwoStageArtifacts.load(adir, device=dev),
                                       sp.train, sp.val_input, 20_000, device=dev)
@@ -2045,7 +2224,8 @@ def main() -> int:
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
                 "predict_forest": (forest.predict_forest, "launches"),
                 "predict_forest_rows": (forest.predict_forest_rows, "launches"),
-                "build_histogram": (hist.build_histogram, "launches")}
+                "bin_rows": (forest.bin_rows, "launches"),
+                "node_histograms": (hist.node_histograms, "launches")}
 
     def zero_counters():
         for fn, attr in counters.values():
@@ -2188,9 +2368,13 @@ def main() -> int:
 
     with phase("11c the bench refit: run_two_stage_streamed in training mode"):
         refit_run = refit(torch, dev, bench_split, zero_counters, read_counters)
+    with phase("11c the committed rankers resumed on the refit's training sessions"):
+        resumed_train_report(torch, dev, bench_split)
     del bench_split
     with phase("11a the histogram kernel vs its twin on the refit's first fold"):
         records.append(hist_vs_twin(torch, dev, refit_run["fold"]))
+    with phase("11a the binning kernel vs its twin on the refit's clicks features"):
+        records.append(bin_rows_vs_twin(torch, dev, refit_run.pop("typed")))
     with phase("11b one tree and short fits, card against the CPU twin"):
         fits_card_vs_cpu(torch, dev, refit_run["fold"])
     del refit_run["fold"]
@@ -2207,13 +2391,15 @@ def main() -> int:
         "refit_train_s": refit_run["train_s"], "refit_stream_s": refit_run["stream_s"],
         "refit_trees": refit_run["trees"], "refit_lift": refit_run["lift"]["lift"],
         "refit_ci95": refit_run["lift"]["ci95"],
-        "build_histogram_launches": refit_run["launches"]["build_histogram"]}), flush=True)
+        "fits_s": refit_run["spent"]["train_gbdt_ranker"],
+        "node_histograms_launches": refit_run["launches"]["node_histograms"],
+        "bin_rows_launches": refit_run["launches"]["bin_rows"]}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
     # the forest kernel's float-row entry on the two-stage path, its uint8
-    # entry on the pre-binned scoring path, the histogram kernel on the
-    # bench refit); launches_by_path adds the file CLI's aid_weight and
+    # entry on the pre-binned scoring path, the histogram and binning kernels
+    # on the bench refit); launches_by_path adds the file CLI's aid_weight and
     # two_stage runs, and its training and resumed two_stage runs
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
@@ -2223,7 +2409,7 @@ def main() -> int:
              "cli_two_stage_resumed": cli_train_run["resumed"]}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
-            "build_histogram": refit_run["launches"]}
+            "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}

@@ -362,6 +362,66 @@ int launch_forest(const void* x, const void* edges, const void* model, const voi
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4 bin: float32 rows -> uint8 bins, alone.
+//
+// Replaces the host numpy bin_features (otto_tpu/models/gbdt.py:80) where the
+// GBDT fit bins its training rows (train_gbdt_ranker, :824-880); not a Pallas
+// kernel in the reference.  The same binning as forest_kernel's float-row
+// staging, by the same bin_value over the same edges staged at the same odd
+// stride: NaN -> 0, otherwise 1 + #(edges[f] < v).
+//
+// What bounds it: bytes.  A value is read once (4 bytes) and its bin written
+// once (1 byte); the 8-step search costs 8 shared loads and compares, far
+// below the card's rate for them.  Design: the rows are one flat stream of
+// N F values; a thread takes four consecutive values a step (one 16-byte
+// load, one 4-byte store of their bins), so a warp reads 512 contiguous bytes
+// and writes 128; a persistent grid, each block holding every feature's edges
+// (F x 257 floats) in shared memory.  Four consecutive values of the stream
+// are four consecutive features (wrapping at F), and a warp's 32 lanes start
+// at features 4 apart, so their searches spread over the banks.
+// ---------------------------------------------------------------------------
+
+constexpr int BIN_THREADS = 256;
+
+__host__ __device__ inline int bin_smem_bytes(int n_feat) {
+  return n_feat * K4_EDGE_STRIDE * 4;
+}
+
+__global__ void __launch_bounds__(BIN_THREADS)
+    bin_rows_kernel(const float* __restrict__ x, const float* __restrict__ edges,
+                    uint8_t* __restrict__ out, long long n_vals, int n_feat) {
+  extern __shared__ __align__(16) float edges_s[];  // [n_feat][257]
+  for (int i = threadIdx.x; i < n_feat * K4_EDGE_SLOTS; i += BIN_THREADS)
+    edges_s[(i >> 8) * K4_EDGE_STRIDE + (i & 255)] = __ldg(edges + i);
+  __syncthreads();
+  const long long n4 = n_vals >> 2;
+  const long long first = (long long)blockIdx.x * BIN_THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * BIN_THREADS;
+  const int f_step = (int)((4 * stride) % n_feat);
+  int f = (int)((4 * first) % n_feat);  // the feature of the step's first value
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
+  for (long long v = first; v < n4; v += stride) {
+    const float4 a = __ldcs(x4 + v);  // read once: keep it out of the caches
+    const float vals[4] = {a.x, a.y, a.z, a.w};
+    uint32_t word = 0;
+    int g = f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      word |= bin_value(vals[u], edges_s + g * K4_EDGE_STRIDE) << (8 * u);
+      if (++g == n_feat) g = 0;
+    }
+    out4[v] = word;
+    f += f_step;
+    if (f >= n_feat) f -= n_feat;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (int)(n_vals & 3)) {  // the last 1-3 values
+    const long long i = (n4 << 2) + threadIdx.x;
+    out[i] = (uint8_t)bin_value(x[i], edges_s + (int)(i % n_feat) * K4_EDGE_STRIDE);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -386,6 +446,41 @@ int predict_forest_rows(const void* x, const void* edges, const void* model,
                         void* stream) {
   return launch_forest<float>(x, edges, model, fold_end, base, out, n_rows, n_feat, n_trees,
                               n_folds, depth, inv, device, stream);
+}
+
+// x f32 [n_rows, n_feat] feature rows, 16-byte aligned; edges f32 [n_feat,
+// 256] as for predict_forest_rows; out uint8 [n_rows, n_feat], 4-byte
+// aligned; all device memory.  A persistent grid: as many blocks as the
+// card holds at this n_feat's shared memory.
+int bin_rows(const void* x, const void* edges, void* out, long long n_rows, int n_feat,
+             int device, void* stream) {
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES || n_rows < 1 || n_feat < 1 ||
+      n_feat > K4_MAX_FEAT || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(edges) % 16 || reinterpret_cast<uintptr_t>(out) % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (sms_of[device] == 0) {
+    e = cudaFuncSetAttribute(bin_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bin_smem_bytes(K4_MAX_FEAT));
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms_of[device], cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int smem = bin_smem_bytes(n_feat);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bin_rows_kernel, BIN_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_vals = n_rows * n_feat;
+  const long long want = (n_vals / 4 + BIN_THREADS - 1) / BIN_THREADS;
+  const long long most = (long long)sms_of[device] * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(want < 1 ? 1 : (want < most ? want : most));
+  bin_rows_kernel<<<grid, BIN_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(edges),
+      static_cast<uint8_t*>(out), n_vals, n_feat);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -8,8 +8,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
-
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -19,57 +17,77 @@ namespace {
 // _grow_tree_impl (:233-266); both are XLA programs in the JAX package, not
 // Pallas kernels (the first a one-hot matmul on the MXU through a bf16 hi/lo
 // pair).  It computes
-//     hist[k, f, b, c] = sum_r [key_r = k] [bin_rf = b] vals_rc
-// over uint8 bins [N, F], keys [N] (a row whose key is outside [0, n_keys)
-// adds nothing; -1 marks a right-going row) and float32 vals [N, 3], into
-// float32 [n_keys, F, n_bins, 3].
+//     hist[k, f, b, c] = sum over the rows r of key k of [bin_rf = b] vals_rc
+// into float32 [n_keys, F, n_bins, 3], where key k's rows are those a row
+// list names: order[start[k] + j] for j < pre[k + 1] - pre[k].  The GBDT keeps
+// that list grouped by tree node across the levels of a tree (split stably
+// after each level's routing), so a level's left children are stretches of
+// it: no sort, no gather of the rows.  A bin of n_bins or more adds nothing.
 //
 // Deterministic: the sums are integer.  Each column c gets a power-of-two
-// scale 2^s_c for the launch, the largest with N * max_r |v_rc| * 2^s_c <=
-// 2^61, so that every value rounds to an int64 q = rn(v * 2^s_c) and the sum of
-// N of them stays below 2^62 in magnitude.  Integer additions commute, so the
-// order of the atomics does not matter, and the launch gives the same bits
-// every time (as XGBoost's GPU `hist` does with its quantised gradients).  The
-// result is float32(sum q) * 2^-s_c: the sum of the quantised values,
-// rounded once.  A value loses at most 2^-(s_c + 1) to the quantisation, a cell
-// at most N 2^-(s_c + 1) <= N max|v| 2^-61 (far below float32's 2^-24 of the
-// cell); where every value is a multiple of 2^-s_c (dyadic values) the result
-// is the exact sum, rounded once to float32.
+// scale 2^s_c, the largest with n_rows * max_r |v_rc| * 2^s_c <= 2^61 over all
+// n_rows rows of vals (those of every key and of none), so that every value
+// rounds to an int64 q = rn(v * 2^s_c) and the sum of n_rows of them stays
+// below 2^62 in magnitude.  Integer additions commute, so the order of the
+// atomics does not matter, and the launch gives the same bits every time (as
+// XGBoost's GPU `hist` does with its quantised gradients).  The result is
+// float32(sum q) * 2^-s_c: the sum of the quantised values, rounded once.  A
+// value loses at most 2^-(s_c + 1) to the quantisation, a cell at most
+// N 2^-(s_c + 1) <= N max|v| 2^-61; where every value is a multiple of 2^-s_c
+// (dyadic values) the result is the exact sum, rounded once to float32.  The
+// GBDT passes the same vals, n_rows and max |v| at every level of a tree, so
+// the scale is the tree's.
 //
-// Rows go to the kernel grouped by key (the wrapper sorts them), so a stretch
-// of rows adds into one key's histogram.  A work item is one key, up to
-// HIST_ITEM_ROWS of its rows, and a group of HIST_FG features; a persistent
-// grid walks the items.  A block keeps the item's [HIST_FG, n_bins, 3] int64
-// sums in shared memory (48 KB at 256 bins: the level-6 left-children
-// histogram, 32 x 55 x 256 x 3 float32 = 5.4 MB, is far larger than shared
-// memory, so a block holds one slice), stages HIST_SUB rows' quantised vals
-// at a time, and adds them with 64-bit shared atomics; at the end of the item it adds its non-zero sums into the
-// int64 histogram in device memory with 64-bit global atomics.  A second
-// kernel converts that to float32.  A thread walks one feature down a stride
-// of rows and sums a run of rows that fall in one bin in registers first, so
-// a feature crowded into few bins costs fewer atomics.
-//
-// What bounds it: bytes on paper (the bins are read once, N F bytes, against
-// 3 adds a byte), but the shared-memory atomics set the pace in this simple
-// design: three 64-bit atomics a run of rows in one bin, issued one at a
-// time where threads hit one cell.  wgmma, TMA and a faster layout are for a
-// later change.
+// What bounds it: bytes on paper (a listed row's 4-byte id, 12 bytes of vals
+// and F bytes of bins, against 3 adds a feature), but in practice the 64-bit
+// shared-memory atomics and the instructions around them.  The design (the
+// first kernel sorted and gathered the rows at every level, walked one
+// feature a thread down a stride of single-byte loads, and flushed 8,192-row
+// items into device memory; 1.4% of its bound):
+// - The rows go to the kernel as a 32-byte aligned copy, uint8 [N, P] with
+//   P = F rounded up to 32, made once per fit: a feature group of 32 is one
+//   aligned 32-byte sector of a row, read by two lanes with one 16-byte load
+//   each, so a listed row, wherever it lies, costs whole sectors (a
+//   feature-major copy would read every feature's column at the listed rows,
+//   a sector for one byte).
+// - A lane owns one feature of the group.  A warp stages 16 listed rows at a
+//   time (bins into a 512-byte warp-private tile, vals quantised there once a
+//   row and group: three float loads and conversions, cheaper than reading a
+//   24-byte int64 copy), then each lane walks its feature down the 16 rows
+//   and adds a run of rows in one bin in registers, with shared atomics only
+//   where its bin changes.  In one atomic instruction the lanes add into 32
+//   different features' cells, so they never meet on a cell, and the
+//   features' rows are spaced by an odd number of words so that lanes on
+//   equal bins fall in different banks.  The list keeps the rows' order, so a
+//   session's candidates come together and its session-level features make
+//   long runs.  The next 16 rows are loaded while these are added.
+// - An int64 cell is two 32-bit words, added with the card's native 32-bit
+//   shared atomics: the low word first, and the high word with the carry that
+//   the low word's returned old value shows (each add sees the exact sum
+//   before it, so every wrap of the low word is counted once).  A 64-bit
+//   shared atomicAdd compiles to a compare-and-swap loop (ATOMS.CAST.SPIN.64
+//   on sm_90a), which the warps that meet on a crowded cell (the
+//   missing-value bin, a count feature's few bins) retry over and over.
+// - A block holds [32 features, n_bins, 3] int64 (197 KB at 256 bins) and
+//   owns one contiguous share of the launch's work, (group, listed row) pairs
+//   ordered by group, key and row: it flushes its sums into the int64
+//   histogram in device memory once per (key, group) that its share touches,
+//   with 64-bit global atomics on the non-zero cells; one block an SM.  (To
+//   combine a thread-block cluster's sums over distributed shared memory
+//   before one flush was measured slower: its remote reads cost more than
+//   the atomics they save, most at the deep levels' many stretches.)  Rows
+//   whose vals are all zero are left off the list by the GBDT (the negatives
+//   that negative sampling drops, the bag's left-out rows): they would add 0.
+// - A second kernel converts the int64 histogram to float32 (a few MB at the
+//   deepest level; it is counted in the launch's time).
 // ---------------------------------------------------------------------------
 
-constexpr int HIST_THREADS = 256;
-constexpr int HIST_FG = 8;             // features of a work item
-constexpr int HIST_SUB = 512;          // rows staged at a time
-constexpr int HIST_ITEM_ROWS = 8192;   // rows of a work item
+constexpr int HIST_THREADS = 1024;
+constexpr int HIST_WARPS = HIST_THREADS / 32;
+constexpr int HIST_FG = 32;      // features of a group: one a lane
+constexpr int HIST_BATCH = 16;   // rows a warp stages at a time: two lanes a row
 constexpr int HIST_MAX_KEYS = 2048;
 constexpr int HIST_MAX_BINS = 256;
-constexpr int HIST_STRIDE = HIST_THREADS / HIST_FG;  // rows between a thread's rows
-
-__device__ __forceinline__ void hist_add(unsigned long long* cell, unsigned long long g,
-                                         unsigned long long h, unsigned long long w) {
-  atomicAdd(cell, g);
-  atomicAdd(cell + 1, h);
-  atomicAdd(cell + 2, w);
-}
 
 // the largest s with n_rows * vmax * 2^s <= 2^61 (0 when vmax is 0 or not
 // finite)
@@ -81,90 +99,141 @@ __device__ __forceinline__ int hist_scale_exp(long long n_rows, float vmax) {
   return 61 - e;
 }
 
-__host__ __device__ inline int hist_smem_bytes(int n_bins, int n_keys) {
-  return (HIST_FG * n_bins * 3 + HIST_SUB * 3 + n_keys + 1) * 8;
+// a feature's row of cells in shared memory: n_bins x 3 int64 as 32-bit
+// words (low, high) and one word more, an odd count, so that lanes on equal
+// bins of different features fall in different banks
+__host__ __device__ inline int hist_feat_words(int n_bins) { return n_bins * 6 + 1; }
+
+__host__ __device__ inline int hist_smem_bytes(int n_bins) {
+  return HIST_FG * hist_feat_words(n_bins) * 4 + HIST_WARPS * HIST_BATCH * 3 * 8 +
+         HIST_WARPS * HIST_BATCH * HIST_FG;
 }
 
-// binned uint8 [n_rows, n_feat], vals f32 [n_rows, 3], both ordered by key;
-// seg int64 [n_keys + 1], the first row of each key (rows seg[k] .. seg[k+1]
-// have key k); vmax f32 [3], max |vals| of each column; acc int64 [n_keys,
-// n_feat, n_bins, 3], zeroed.
-__global__ void __launch_bounds__(HIST_THREADS, 3)
-    hist_accumulate_kernel(const uint8_t* __restrict__ binned, const float* __restrict__ vals,
-                           const long long* __restrict__ seg, const float* __restrict__ vmax,
-                           unsigned long long* __restrict__ acc, long long n_rows, int n_feat,
-                           int n_keys, int n_bins) {
+// cell (low, high) += v, in two native 32-bit atomics
+__device__ __forceinline__ void add64(uint32_t* cell, unsigned long long v) {
+  const uint32_t lo = (uint32_t)v;
+  const uint32_t old = atomicAdd(cell, lo);
+  atomicAdd(cell + 1, (uint32_t)(v >> 32) + (old + lo < old ? 1u : 0u));
+}
+
+// rows uint8 [n_rows, row_bytes] (row_bytes a multiple of 32, 16-byte aligned);
+// vals f32 [n_rows, 3]; vmax f32 [3], max |vals| of each column over all
+// n_rows; order int32, the row list; start int64 [n_keys], each key's first
+// position in it; pre int64 [n_keys + 1], the prefix sums of the keys' row
+// counts (pre[0] = 0); acc int64 [n_keys, n_feat, n_bins, 3], zeroed.
+__global__ void __launch_bounds__(HIST_THREADS, 1)
+    hist_rows_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ vals,
+                     const float* __restrict__ vmax, const int* __restrict__ order,
+                     const long long* __restrict__ start, const long long* __restrict__ pre,
+                     unsigned long long* __restrict__ acc, long long n_rows, int row_bytes,
+                     int n_feat, int n_keys, int n_bins) {
   extern __shared__ __align__(16) unsigned long long smem[];
-  unsigned long long* acc_s = smem;                              // [HIST_FG, n_bins, 3]
-  unsigned long long* q_s = acc_s + HIST_FG * n_bins * 3;       // [HIST_SUB, 3]
-  long long* tile_off = reinterpret_cast<long long*>(q_s + HIST_SUB * 3);  // [n_keys + 1]
-  const int tid = threadIdx.x;
+  const int fw = hist_feat_words(n_bins);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long* q_s = reinterpret_cast<long long*>(smem) + warp * HIST_BATCH * 3;  // [16][3]
+  uint8_t* bins_s = reinterpret_cast<uint8_t*>(smem + HIST_WARPS * HIST_BATCH * 3) +
+                    warp * HIST_BATCH * HIST_FG;                                // [16][32]
+  uint32_t* hist_s = reinterpret_cast<uint32_t*>(smem + HIST_WARPS * HIST_BATCH * 3) +
+                     HIST_WARPS * HIST_BATCH * HIST_FG / 4;                     // [32][fw]
   const int s0 = hist_scale_exp(n_rows, vmax[0]);
   const int s1 = hist_scale_exp(n_rows, vmax[1]);
   const int s2 = hist_scale_exp(n_rows, vmax[2]);
-  if (tid == 0) {  // the first item of each key
-    long long t = 0;
-    for (int k = 0; k < n_keys; ++k) {
-      tile_off[k] = t;
-      t += (seg[k + 1] - seg[k] + HIST_ITEM_ROWS - 1) / HIST_ITEM_ROWS;
-    }
-    tile_off[n_keys] = t;
-  }
-  __syncthreads();
-  const int n_groups = (n_feat + HIST_FG - 1) / HIST_FG;
-  const long long n_items = tile_off[n_keys] * n_groups;
-  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int f0 = (int)(item % n_groups) * HIST_FG;
-    const int fg = min(HIST_FG, n_feat - f0);
-    const long long tile = item / n_groups;
-    int k = 0;  // the last key whose first item is at or before this one
+  const int n_groups = row_bytes / HIST_FG;
+  const long long total = pre[n_keys];  // listed rows of all keys
+  if (total == 0) return;
+  const long long work = total * n_groups;  // (group, listed row) pairs
+  const long long u_end = work * (blockIdx.x + 1) / gridDim.x;
+  const int cells = n_bins * 3;
+  for (long long u = work * blockIdx.x / gridDim.x; u < u_end;) {
+    // the (group, key) of pair u, and how far this block's share stays in it
+    const int grp = (int)(u / total);
+    const long long t = u - grp * total;
+    int k = 0;  // the last key with pre[k] <= t
     for (int hi = n_keys - 1; k < hi;) {
       const int mid = (k + hi + 1) >> 1;
-      if (tile_off[mid] <= tile) k = mid; else hi = mid - 1;
+      if (pre[mid] <= t) k = mid; else hi = mid - 1;
     }
-    const long long r0 = seg[k] + (tile - tile_off[k]) * HIST_ITEM_ROWS;
-    const long long r1 = min(seg[k + 1], r0 + HIST_ITEM_ROWS);
-    const int cells = fg * n_bins * 3;
-    for (int i = tid; i < cells; i += HIST_THREADS) acc_s[i] = 0ull;
-    for (long long a = r0; a < r1; a += HIST_SUB) {
-      const int n = (int)min((long long)HIST_SUB, r1 - a);
-      for (int i = tid; i < n * 3; i += HIST_THREADS) {
-        const int c = i % 3;
-        const float v = vals[a * 3 + i];
-        q_s[i] = (unsigned long long)__float2ll_rn(ldexpf(v, c == 0 ? s0 : (c == 1 ? s1 : s2)));
-      }
-      __syncthreads();
-      // a thread walks one feature down every HIST_STRIDE-th row (a warp:
-      // 32 / HIST_FG rows x HIST_FG features at a time) and sums a run of
-      // rows in one bin in registers before its atomics: real features crowd
-      // into few bins (missing values, counts), and lanes adding to one cell
-      // serialise
-      if (tid % HIST_FG < fg) {
-        const int j = tid % HIST_FG;
-        const uint8_t* col = binned + a * n_feat + f0 + j;
-        int cur = -1;
-        unsigned long long run_g = 0ull, run_h = 0ull, run_w = 0ull;
-        for (int i = tid / HIST_FG; i < n; i += HIST_STRIDE) {
-          const int b = col[(long long)i * n_feat];
-          if (b != cur) {
-            if (cur >= 0) hist_add(acc_s + (j * n_bins + cur) * 3, run_g, run_h, run_w);
-            cur = b < n_bins ? b : -1;
-            run_g = run_h = run_w = 0ull;
-          }
-          run_g += q_s[i * 3];
-          run_h += q_s[i * 3 + 1];
-          run_w += q_s[i * 3 + 2];
+    const long long end = min(u_end, grp * total + pre[k + 1]);
+    const long long a = start[k] + (t - pre[k]);  // list positions a .. a + len
+    const long long len = end - u;
+    const int f0 = grp * HIST_FG;
+    const int fg = min(HIST_FG, n_feat - f0);
+    for (int i = threadIdx.x; i < HIST_FG * fw; i += HIST_THREADS) hist_s[i] = 0u;
+    __syncthreads();
+    {
+      // this warp's stretch of the item's rows, 16 at a time
+      const long long w0 = a + len * warp / HIST_WARPS, w1 = a + len * (warp + 1) / HIST_WARPS;
+      const bool mine = lane < fg;
+      uint32_t* my_hist = hist_s + lane * fw;
+      int cur = -1;
+      unsigned long long sg = 0ull, sh = 0ull, sw = 0ull;
+      // lane l loads half l & 1 of the group's sector of row l >> 1, and
+      // lane l < 16 the vals of row l
+      const int slot = lane >> 1;
+      uint4 pend = make_uint4(0u, 0u, 0u, 0u);
+      float pv0 = 0.f, pv1 = 0.f, pv2 = 0.f;
+      auto fetch = [&](long long p, int n) {
+        if (slot < n) {
+          const int r = __ldg(order + p + slot);
+          pend = __ldg(reinterpret_cast<const uint4*>(rows + (long long)r * row_bytes + f0) +
+                       (lane & 1));
         }
-        if (cur >= 0) hist_add(acc_s + (j * n_bins + cur) * 3, run_g, run_h, run_w);
+        if (lane < n) {
+          const int r = __ldg(order + p + lane);
+          pv0 = __ldg(vals + (long long)r * 3);
+          pv1 = __ldg(vals + (long long)r * 3 + 1);
+          pv2 = __ldg(vals + (long long)r * 3 + 2);
+        }
+      };
+      if (w0 < w1) fetch(w0, (int)min((long long)HIST_BATCH, w1 - w0));
+      for (long long p = w0; p < w1; p += HIST_BATCH) {
+        const int n = (int)min((long long)HIST_BATCH, w1 - p);
+        if (slot < n) reinterpret_cast<uint4*>(bins_s)[lane] = pend;
+        if (lane < n) {
+          q_s[lane * 3] = __float2ll_rn(ldexpf(pv0, s0));
+          q_s[lane * 3 + 1] = __float2ll_rn(ldexpf(pv1, s1));
+          q_s[lane * 3 + 2] = __float2ll_rn(ldexpf(pv2, s2));
+        }
+        __syncwarp();
+        if (p + HIST_BATCH < w1)  // the next rows' loads, in flight while these add
+          fetch(p + HIST_BATCH, (int)min((long long)HIST_BATCH, w1 - p - HIST_BATCH));
+        for (int i = 0; i < n; ++i) {
+          const int b = bins_s[i * HIST_FG + lane];
+          if (b != cur) {
+            if (cur >= 0) {
+              uint32_t* cell = my_hist + cur * 6;
+              add64(cell, sg);
+              add64(cell + 2, sh);
+              add64(cell + 4, sw);
+            }
+            cur = (mine && b < n_bins) ? b : -1;
+            sg = sh = sw = 0ull;
+          }
+          sg += (unsigned long long)q_s[i * 3];
+          sh += (unsigned long long)q_s[i * 3 + 1];
+          sw += (unsigned long long)q_s[i * 3 + 2];
+        }
+        __syncwarp();
       }
-      __syncthreads();
-    }
-    unsigned long long* out = acc + ((long long)k * n_feat + f0) * n_bins * 3;
-    for (int i = tid; i < cells; i += HIST_THREADS) {
-      const unsigned long long v = acc_s[i];
-      if (v != 0ull) atomicAdd(out + i, v);
+      if (cur >= 0) {
+        uint32_t* cell = my_hist + cur * 6;
+        add64(cell, sg);
+        add64(cell + 2, sh);
+        add64(cell + 4, sw);
+      }
     }
     __syncthreads();
+    // flush: a warp a feature, the non-zero cells into device memory
+    for (int f = warp; f < fg; f += HIST_WARPS) {
+      unsigned long long* out = acc + ((long long)k * n_feat + f0 + f) * cells;
+      const uint32_t* src = hist_s + f * fw;
+      for (int j = lane; j < cells; j += 32) {
+        const unsigned long long v = ((unsigned long long)src[2 * j + 1] << 32) | src[2 * j];
+        if (v != 0ull) atomicAdd(out + j, v);
+      }
+    }
+    __syncthreads();
+    u = end;
   }
 }
 
@@ -186,45 +255,41 @@ __global__ void hist_finish_kernel(const long long* __restrict__ acc,
 
 extern "C" {
 
-// binned uint8 [n_rows, n_feat] and vals f32 [n_rows, 3], ordered by key; seg
-// int64 [n_keys + 1] (rows seg[k] .. seg[k+1] have key k); vmax f32 [3];
-// acc int64 [n_keys, n_feat, n_bins, 3] scratch (zeroed here); out f32 of
-// that shape.  All device memory.
-int build_histogram_f32(const void* binned, const void* vals, const void* seg, const void* vmax,
-                        void* acc, void* out, long long n_rows, int n_feat, int n_keys,
-                        int n_bins, int device, void* stream) {
+// rows uint8 [n_rows, row_bytes] (row_bytes a multiple of 32 and >= n_feat,
+// 16-byte aligned, the features first and zeros after); vals f32 [n_rows, 3];
+// vmax f32 [3]; order int32 (the row list); start int64 [n_keys]; pre int64
+// [n_keys + 1]; acc int64 [n_keys, n_feat, n_bins, 3] scratch (zeroed here);
+// out f32 of that shape.  All device memory.
+int build_histogram_rows(const void* rows, const void* vals, const void* vmax,
+                         const void* order, const void* start, const void* pre, void* acc,
+                         void* out, long long n_rows, int row_bytes, int n_feat, int n_keys,
+                         int n_bins, int device, void* stream) {
   constexpr int MAX_DEVICES = 64;
-  static int grid_for[MAX_DEVICES] = {};  // resident blocks on the card, per device
+  static int sms_of[MAX_DEVICES] = {};
   if (device < 0 || device >= MAX_DEVICES || n_rows < 1 || n_feat < 1 || n_keys < 1 ||
-      n_keys > HIST_MAX_KEYS || n_bins < 1 || n_bins > HIST_MAX_BINS)
+      n_keys > HIST_MAX_KEYS || n_bins < 1 || n_bins > HIST_MAX_BINS ||
+      row_bytes % HIST_FG || row_bytes < n_feat || row_bytes - n_feat >= HIST_FG ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int max_smem = hist_smem_bytes(HIST_MAX_BINS, HIST_MAX_KEYS);
-  if (grid_for[device] == 0) {
-    e = cudaFuncSetAttribute(hist_accumulate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             max_smem);
+  if (sms_of[device] == 0) {
+    e = cudaFuncSetAttribute(hist_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             hist_smem_bytes(HIST_MAX_BINS));
     if (e != cudaSuccess) return (int)e;
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    e = cudaDeviceGetAttribute(&sms_of[device], cudaDevAttrMultiProcessorCount, device);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, hist_accumulate_kernel, HIST_THREADS, hist_smem_bytes(HIST_MAX_BINS, 64));
-    if (e != cudaSuccess) return (int)e;
-    grid_for[device] = sms * (per_sm > 0 ? per_sm : 1);
   }
   const long long n_cells = (long long)n_keys * n_feat * n_bins * 3;
   const cudaStream_t s = (cudaStream_t)stream;
   e = cudaMemsetAsync(acc, 0, n_cells * 8, s);
   if (e != cudaSuccess) return (int)e;
-  // no more items than rows allow: each key's last item may be short
-  const long long n_groups = (n_feat + HIST_FG - 1) / HIST_FG;
-  const long long items = ((n_rows + HIST_ITEM_ROWS - 1) / HIST_ITEM_ROWS + n_keys) * n_groups;
-  const int grid = (int)(items < grid_for[device] ? items : grid_for[device]);
-  hist_accumulate_kernel<<<grid, HIST_THREADS, hist_smem_bytes(n_bins, n_keys), s>>>(
-      static_cast<const uint8_t*>(binned), static_cast<const float*>(vals),
-      static_cast<const long long*>(seg), static_cast<const float*>(vmax),
-      static_cast<unsigned long long*>(acc), n_rows, n_feat, n_keys, n_bins);
+  // one block an SM, each a share of the work (its size is on the device)
+  hist_rows_kernel<<<sms_of[device], HIST_THREADS, hist_smem_bytes(n_bins), s>>>(
+      static_cast<const uint8_t*>(rows), static_cast<const float*>(vals),
+      static_cast<const float*>(vmax), static_cast<const int*>(order),
+      static_cast<const long long*>(start), static_cast<const long long*>(pre),
+      static_cast<unsigned long long*>(acc), n_rows, row_bytes, n_feat, n_keys, n_bins);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long fin_blocks = (n_cells + 255) / 256;

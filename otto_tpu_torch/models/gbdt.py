@@ -3,11 +3,13 @@
 Port of ``otto_tpu/models/gbdt.py``:
 
 - :func:`fit_bin_edges` and :func:`bin_features` (:57, :80), copied in
-  numpy: quantile edges, NaN -> bin 0, finite v -> 1 + #edges < v;
+  numpy: quantile edges, NaN -> bin 0, finite v -> 1 + #edges < v; and
+  :func:`fit_bin_edges_rows`, the same edges from rows on the device (a
+  device sort, numpy's interpolation on the host);
 - :func:`_grow_tree` (``_grow_tree_impl``, :163-311): level-wise growth on
   the device, each level's histogram from the hand-written kernel K5
-  (:mod:`otto_tpu_torch.ops.hist`), split search, routing and leaves in
-  plain torch;
+  (:mod:`otto_tpu_torch.ops.hist`) over a row list kept grouped by node,
+  split search, routing and leaves in plain torch;
 - the objectives :func:`_lambdarank_gh` (:354) and :func:`_bce_gh` (:412);
 - :func:`fit_gbdt` (:452-703) and :func:`train_gbdt_ranker` (:824-880), the
   reference's fold protocol with MAP@20 early stopping;
@@ -24,9 +26,9 @@ forest kernel routes every fold over all rows (no batching to a fixed shape,
 no per-fold pass), and :meth:`GBDTRankerModel.predict` hands it the float32
 rows, which it bins in its staging (``predict_forest_rows``); on the CPU the
 plain twins.  The numpy :func:`bin_features` and ``.bin()`` stay as the JAX
-module's API.  A fit keeps its rows, gradients, bags, histograms, routing
-and scores on the device and reads back each tree's arrays and the
-early-stopping metric; on the card it gives the same bits on every run (K5
+module's API; training bins its rows on the device (``bin_rows``).  A fit
+keeps its rows, gradients, bags, histograms, routing and scores on the
+device and reads back each tree's arrays and the early-stopping metric; on the card it gives the same bits on every run (K5
 sums in integer fixed point, and the leaves come from the last level's
 histogram, not from a float scatter).
 
@@ -47,7 +49,8 @@ from otto_tpu_torch.eval.metrics import map_at_k
 from otto_tpu_torch.logging_utils import get_logger
 from otto_tpu_torch.models.ranker import RankerData, group_kfold, negative_sample_mask
 from otto_tpu_torch.ops import forest
-from otto_tpu_torch.ops.hist import build_histogram
+from otto_tpu_torch.ops.forest import bin_rows
+from otto_tpu_torch.ops.hist import node_histograms, pad_rows
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
@@ -91,6 +94,60 @@ def bin_features(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
     return out.reshape(values.shape)
 
 
+def fit_bin_edges_rows(x: torch.Tensor, mask: torch.Tensor, n_bins: int) -> np.ndarray:
+    """:func:`fit_bin_edges` of the rows of ``x`` (float32 [N, F], on any
+    device) where ``mask`` (bool [N]) is True, value-equal to it.
+
+    The heavy part runs on the rows' device: each column sorted (the finite
+    masked entries first: the rest become +inf), the finite entries counted,
+    and, for every quantile, the two order statistics that numpy's
+    ``'linear'`` quantile reads gathered.  The host reads those [F, E, 2]
+    values back once and finishes with numpy's own arithmetic
+    (``numpy/lib/_function_base_impl.py::_quantile``: the virtual index ``(n -
+    1) q`` in float64, a last index past the end for n = 1, and ``_lerp``'s two
+    formulas either side of a weight of 0.5, in float64 from the float32
+    statistics), then ``np.unique`` in float64, the float32 cast and the pads of
+    :func:`fit_bin_edges`.  A statistic that is zero may come back as -0.0
+    where numpy reads +0.0 or the reverse (the sort does not order them): the
+    edges are equal as values, and so are the bins."""
+    N, F = x.shape
+    n_edges = n_bins - 2
+    qs = np.linspace(0.0, 1.0, n_edges + 2)[1:-1]
+    ok = torch.isfinite(x) & mask[:, None]
+    cols = torch.sort(torch.where(ok, x, float("inf")).T.contiguous(), dim=1).values
+    n = ok.sum(dim=0).cpu().numpy().astype(np.int64)
+    virtual = (n[:, None] - 1) * qs[None, :]  # [F, E] float64, as numpy's (n - 1) * q
+    prev = np.floor(virtual)
+    nxt = prev + 1
+    last = virtual >= (n - 1)[:, None]  # numpy reads its last entry (index -1) there
+    prev[last] = -1
+    nxt[last] = -1
+    gamma = virtual - prev
+    at = np.stack([np.where(last, n[:, None] - 1, prev), np.where(last, n[:, None] - 1, nxt)],
+                  axis=2).astype(np.int64).clip(0, max(N - 1, 0))
+    stats = np.zeros((F, n_edges, 2), np.float32)
+    if N:
+        stats = cols.gather(1, torch.as_tensor(at.reshape(F, -1), device=x.device)).cpu() \
+            .numpy().reshape(F, n_edges, 2)
+    a, b = stats[..., 0], stats[..., 1]
+    # the columns without a finite entry read +inf here and are not used
+    with np.errstate(over="ignore", invalid="ignore"):
+        diff = np.subtract(b, a)  # float32, as numpy's _lerp
+        q = np.asanyarray(np.add(a, diff * gamma))
+        np.subtract(b, diff * (1 - gamma), out=q, where=gamma >= 0.5, casting="unsafe",
+                    dtype=type(q.dtype))
+    edges = np.zeros((F, n_edges), np.float32)
+    for f in range(F):
+        if n[f] == 0:
+            continue
+        e = np.unique(q[f])
+        edges[f, : len(e)] = e
+        edges[f, len(e):] = e[-1] if len(e) else 0.0
+        if len(e) < n_edges:
+            edges[f, len(e):] = np.float32(np.finfo(np.float32).max)
+    return edges
+
+
 # ----------------------------------------------------------------- grow
 HIST_IMPLS = ("matmul", "scatter")
 
@@ -101,37 +158,77 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _row_list(vals: torch.Tensor):
+    """A tree's first row list: the rows with a non-zero val, in row order
+    (the others add nothing to any histogram), int32, and its bounds, int64
+    [2]: the root's rows are the whole list.  Reads the list's length back
+    (one read a tree)."""
+    order = torch.nonzero((vals != 0).any(dim=1))[:, 0].to(torch.int32)
+    return order, torch.tensor([0, order.shape[0]], device=vals.device)
+
+
+def _split_rows(order: torch.Tensor, seg: torch.Tensor, node: torch.Tensor):
+    """Split each node's stretch of the row list stably into its left and
+    right children's, after a level's routing (``node``: each row's child,
+    ``2 parent + right``); ``seg`` [n + 1] bounds the n nodes' stretches.
+    Returns the new list and its 2n + 1 bounds: a pure function of the
+    routing, with no read back to the host."""
+    M = order.shape[0]
+    child = node[order.long()]
+    right = (child & 1) == 1
+    sid = child >> 1  # the stretch of each position
+    lefts = torch.zeros(M + 1, dtype=torch.int64, device=order.device)
+    lefts[1:] = torch.cumsum(~right, dim=0)  # left-going positions before each one
+    n_left = lefts[seg[1:]] - lefts[seg[:-1]]  # a stretch's left-going rows
+    first = seg[sid]
+    before = lefts[:-1] - lefts[first]  # left-going positions before this one in its stretch
+    pos = torch.arange(M, device=order.device)
+    dest = torch.where(right, n_left[sid] + pos - before, first + before)
+    new = torch.empty_like(order)
+    new[dest] = order
+    return new, torch.cat([torch.stack([seg[:-1], seg[:-1] + n_left], dim=1).reshape(-1),
+                           seg[-1:]])
+
+
 def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                weight: torch.Tensor, bag: torch.Tensor, feat_mask: torch.Tensor,
                reg_lambda, min_split_gain, min_data_in_leaf, min_child_weight, learning_rate,
-               *, depth: int, n_bins: int, hist_impl: str = "matmul"):
+               *, depth: int, n_bins: int, hist_impl: str = "matmul",
+               rows: torch.Tensor | None = None):
     """Grow one depth-``depth`` tree level-wise on the rows' device
     (``_grow_tree_impl``, :163-311).
 
     binned uint8 [N, F]; grad, hess, weight (1 = usable training row, 0 =
     padding or sampled out) and bag (this tree's bagging mask) float32 [N];
-    feat_mask bool [F] (this tree's feature_fraction).  Returns level-order
-    split features and thresholds int32 and gains float32 (``2^depth - 1``
-    internal nodes: level ``l`` position ``p`` is at ``2^l - 1 + p``), the
-    lr-scaled leaf values float32 [2^depth], and each row's leaf id int32 [N].
+    feat_mask bool [F] (this tree's feature_fraction); ``rows``, the
+    histogram kernel's padded copy of ``binned`` (:func:`pad_rows`; made here
+    when None: a fit makes it once).  Returns level-order split features and
+    thresholds int32 and gains float32 (``2^depth - 1`` internal nodes: level
+    ``l`` position ``p`` is at ``2^l - 1 + p``), the lr-scaled leaf values
+    float32 [2^depth], and each row's leaf id int32 [N].
 
     Level 0 builds the full histogram; every later level builds the left
-    children's only (key = parent, right-going rows -1) and takes right =
-    parent - left, LightGBM's sibling subtraction, the semantics of the
-    reference's default ``hist_impl="matmul"``.  Both names of
-    ``hist_impl`` run the histogram kernel K5 (on the CPU its twin): the
-    MXU one-hot matmul and the XLA scatter are the reference's two ways to
-    the same sums.  A node whose every split is invalid (gain -inf) or gains
-    no more than ``min_split_gain`` does not split: feature 0, threshold
-    ``n_bins``, every row left.  The leaf sums are the last level's
-    histogram at the chosen split (left: the cumulative sums at the
-    threshold; right: the node's total less those), which equal the
+    children's only and takes right = parent - left, LightGBM's sibling
+    subtraction, the semantics of the reference's default
+    ``hist_impl="matmul"``.  Both names of ``hist_impl`` run the histogram
+    kernel K5 (on the CPU its twin): the MXU one-hot matmul and the XLA
+    scatter are the reference's two ways to the same sums.  K5 reads the
+    rows through a row list that stays grouped by node: the rows with a
+    non-zero (grad, hess, weight) in row order (:func:`_row_list`, the one
+    read back of a tree), split stably after each level's routing
+    (:func:`_split_rows`); the vals, their largest magnitudes and so K5's
+    fixed-point scale are the tree's.  A node whose every split is invalid
+    (gain -inf) or gains no more than ``min_split_gain`` does not split:
+    feature 0, threshold ``n_bins``, every row left.  The leaf sums are the
+    last level's histogram at the chosen split (left: the cumulative sums at
+    the threshold; right: the node's total less those), which equal the
     reference's scatter of the rows' gradients where the sums are exact.
     """
     if hist_impl not in HIST_IMPLS:
         raise ValueError(f"_grow_tree: hist_impl {hist_impl!r} is not one of {HIST_IMPLS}")
     N, F = binned.shape
     dev = binned.device
+    rows = pad_rows(binned) if rows is None else rows
     lam = _f32(np.float32(reg_lambda) + np.float32(1e-12))
     min_data = _f32(max(np.float32(min_data_in_leaf), np.float32(1.0)))
     min_child = _f32(min_child_weight)
@@ -140,6 +237,8 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     h = hess * bag
     w = weight * bag
     vals = torch.stack([g, h, w], dim=1).contiguous()
+    vmax = vals.abs().amax(dim=0) if N else torch.zeros(3, device=dev)
+    order, seg = _row_list(vals)
     node = torch.zeros(N, dtype=torch.int64, device=dev)
     fmask = feat_mask.to(device=dev, dtype=torch.bool)[None, :, None]
     feats, thrs, gains = [], [], []
@@ -147,11 +246,11 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     for level in range(depth):
         n_nodes = 1 << level
         if level == 0:
-            hist = build_histogram(binned, torch.zeros(N, dtype=torch.int32, device=dev), vals,
-                                   1, n_bins)
-        else:
-            key = torch.where((node & 1) == 0, node >> 1, -1).to(torch.int32)
-            left = build_histogram(binned, key, vals, n_nodes // 2, n_bins)
+            hist = node_histograms(rows, F, vals, vmax, order, seg[:1], seg - seg[0], n_bins)
+        else:  # the left children, node 2p of the level keyed by its parent p
+            start = seg[0:-1:2]
+            pre = torch.cat([seg.new_zeros(1), torch.cumsum(seg[1::2] - start, dim=0)])
+            left = node_histograms(rows, F, vals, vmax, order, start, pre, n_bins)
             hist = torch.stack([left, parent_hist - left], dim=1).reshape(n_nodes, F, n_bins, 3)
         parent_hist = hist
         cg = torch.cumsum(hist[..., 0], dim=-1)
@@ -173,6 +272,8 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         gains.append(torch.where(ok, best_gain, 0.0))
         bv = binned.gather(1, bf[node][:, None])[:, 0]
         node = node * 2 + (bv.to(torch.int64) > bb[node]).to(torch.int64)
+        if level + 1 < depth:
+            order, seg = _split_rows(order, seg, node)
     # the leaves' sums at the last level's chosen splits: leaf 2n left, 2n + 1 right
     at = torch.arange(len(bf), device=dev)
     col = bb.clamp(max=n_bins - 1)
@@ -254,23 +355,29 @@ class GBDTForest:
     split_importance: np.ndarray  # int64 [F]
     best_iteration: int = 0
 
-    def predict_binned(self, binned: np.ndarray, *, device: str | torch.device) -> np.ndarray:
-        """Scores float32 [N] of this forest over binned uint8 [N, F] rows,
-        on ``device``."""
+    def predict_binned(self, binned, *, device: str | torch.device) -> np.ndarray:
+        """Scores float32 [N] of this forest over binned uint8 [N, F] rows
+        (numpy, or a tensor), on ``device``."""
         dev = resolve_device(device)
         pack = forest.pack_forests([(self.feat, self.thr, self.leaf, self.base)], device=dev)
-        x = torch.as_tensor(np.ascontiguousarray(binned), device=dev)
-        return forest.predict_forest(x, pack).cpu().numpy()
+        return forest.predict_forest(_on(binned, dev), pack).cpu().numpy()
+
+
+def _on(a, dev: torch.device) -> torch.Tensor:
+    """``a`` (numpy, or a tensor) as a contiguous tensor on ``dev``."""
+    if torch.is_tensor(a):
+        return a.to(dev).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
 
 def fit_gbdt(
-    binned: np.ndarray,  # uint8 [S, C, F] (listwise)
+    binned,  # uint8 [S, C, F] (listwise): numpy, or a tensor (on ``device``: kept there)
     labels: np.ndarray,  # int [S, C]
     mask: np.ndarray,  # bool [S, C] — candidate validity
     train_weight: np.ndarray,  # f32 [S, C] — 1 for rows kept for training
     config: GBDTConfig,
     *,
-    val: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
+    val: tuple | None = None,
     seed_offset: int = 0,
     mesh=None,
     device: str | torch.device,
@@ -278,7 +385,10 @@ def fit_gbdt(
     """Boost one forest over listwise candidate groups on ``device``
     (:452-703).
 
-    ``val = (binned, labels, mask)`` enables MAP@20 early stopping with
+    The bins may be numpy or a tensor (``train_gbdt_ranker`` hands over
+    the fold's rows already on the card); the fit pads them once for the
+    histogram kernel (:func:`pad_rows`).  ``val = (binned, labels, mask)``
+    (its bins likewise) enables MAP@20 early stopping with
     ``early_stopping_rounds`` patience, measured every ``eval_every`` trees
     (the reference's valid_sets + eval_at=[20] contract,
     lgb_trainer.py:156-165); with ``trees_per_call > 1`` once per segment of
@@ -301,7 +411,8 @@ def fit_gbdt(
     dev = resolve_device(device)
     S, C, F = binned.shape
     N = S * C
-    flat = torch.as_tensor(np.ascontiguousarray(binned.reshape(N, F)), device=dev)
+    flat = _on(binned, dev).reshape(N, F)
+    rows = pad_rows(flat)
     lab_d = torch.as_tensor(labels, device=dev)
     w_d = torch.as_tensor(np.asarray(train_weight, np.float32), device=dev)
     w_flat = w_d.reshape(N)
@@ -321,7 +432,7 @@ def fit_gbdt(
     if val is not None:
         vb, vl, vm = val
         Sv, Cv, _ = vb.shape
-        vflat = torch.as_tensor(np.ascontiguousarray(vb.reshape(Sv * Cv, F)), device=dev)
+        vflat = _on(vb, dev).reshape(Sv * Cv, F)
         vl_d = torch.as_tensor(vl.astype(np.int32), device=dev)
         vm_d = torch.as_tensor(vm, device=dev)
         val_pred = torch.full((Sv * Cv,), base, dtype=torch.float32, device=dev)
@@ -359,7 +470,7 @@ def fit_gbdt(
 
         feat, thr, leaf, gains, leaf_idx = _grow_tree(
             flat, g, h, w_flat, bag, torch.as_tensor(fm, device=dev), *scalars,
-            depth=depth, n_bins=n_bins, hist_impl=config.hist_impl)
+            depth=depth, n_bins=n_bins, hist_impl=config.hist_impl, rows=rows)
         pred = pred + leaf[leaf_idx].reshape(S, C)
         feat_h, gains_h = feat.cpu().numpy(), gains.cpu().numpy()
         is_split = gains_h > 0
@@ -542,7 +653,12 @@ def train_gbdt_ranker(
     (:824-880); returns the model and the OOF scores [S, C] (-inf where the
     mask is False).
 
-    The edges come from the masked rows; the folds are ``group_kfold`` by
+    The float32 features go to ``device`` once; the edges come from the
+    masked rows (:func:`fit_bin_edges_rows`: sorted on the device, value-equal
+    to numpy :func:`fit_bin_edges`), the rows are binned there
+    (:func:`~otto_tpu_torch.ops.forest.bin_rows`, bit-equal to
+    :func:`bin_features`), and each fold
+    takes its rows there.  The folds are ``group_kfold`` by
     session size, and each fold's training sessions keep their positives and
     a ``negative_sampling_ratio`` of negatives (``np.random.default_rng(
     config.seed)``, so the folds and keep masks equal the reference's).  One
@@ -553,10 +669,20 @@ def train_gbdt_ranker(
     if mesh is not None:
         raise NotImplementedError("train_gbdt_ranker: data-parallel training over a mesh is "
                                   "not ported yet (ROADMAP M15)")
+    if data.features.dtype != np.float32:
+        raise TypeError(f"train_gbdt_ranker: features must be float32, got "
+                        f"{data.features.dtype}")
+    dev = resolve_device(device)
     rng = np.random.default_rng(config.seed)
     S, C, F = data.features.shape
-    edges = fit_bin_edges(data.features[data.mask], config.n_bins)
-    binned = bin_features(data.features, edges)
+    x = torch.as_tensor(np.ascontiguousarray(data.features).reshape(S * C, F), device=dev)
+    edges = fit_bin_edges_rows(x, torch.as_tensor(data.mask.reshape(-1), device=dev),
+                               config.n_bins)
+    binned = bin_rows(x, forest.pack_edges(edges, device=dev)).reshape(S, C, F)
+    del x
+
+    def sessions(idx):
+        return binned[torch.as_tensor(idx, device=dev)]
 
     fold_of = group_kfold(data.mask.sum(axis=1), config.n_folds)
     oof = np.zeros((S, C), np.float32)
@@ -570,15 +696,16 @@ def train_gbdt_ranker(
         train_sessions = train_sessions[usable]
         keep = keep[usable]
 
+        vb = sessions(val_sessions)
         fit = fit_gbdt(
-            binned[train_sessions], data.labels[train_sessions], data.mask[train_sessions],
+            sessions(train_sessions), data.labels[train_sessions], data.mask[train_sessions],
             keep.astype(np.float32), config,
-            val=(binned[val_sessions], data.labels[val_sessions], data.mask[val_sessions]),
-            seed_offset=fold, device=device,
+            val=(vb, data.labels[val_sessions], data.mask[val_sessions]),
+            seed_offset=fold, device=dev,
         )
         forests.append(fit)
-        vb = binned[val_sessions].reshape(-1, F)
-        oof[val_sessions] = fit.predict_binned(vb, device=device).reshape(len(val_sessions), C)
+        oof[val_sessions] = fit.predict_binned(vb.reshape(-1, F), device=dev).reshape(
+            len(val_sessions), C)
         if eval_recall is not None:
             r = eval_recall(val_sessions,
                             np.where(data.mask[val_sessions], oof[val_sessions], -np.inf))

@@ -101,7 +101,8 @@ ENTRY_POINTS = {
     "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
     "predict_forest_binned": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
     "predict_forest_rows": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
-    "build_histogram_f32": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _p],
+    "bin_rows": [_p, _p, _p, _ll, _i, _i, _p],
+    "build_histogram_rows": [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _i, _p],
 }
 
 
@@ -192,15 +193,27 @@ def launch_predict_forest(x: torch.Tensor, edges: torch.Tensor | None, model: to
                "predict_forest_rows")
 
 
-def launch_build_histogram(binned: torch.Tensor, vals: torch.Tensor, seg: torch.Tensor,
-                           vmax: torch.Tensor, acc: torch.Tensor, out: torch.Tensor,
+def launch_bin_rows(x: torch.Tensor, edges: torch.Tensor, out: torch.Tensor) -> None:
+    """x float32 rows [N, F] (16-byte aligned), edges f32 [F, 256] (non-decreasing,
+    +inf pads) -> out uint8 [N, F] bins (``csrc/forest_kernels.cu::bin_rows``)."""
+    err = lib().bin_rows(x.data_ptr(), edges.data_ptr(), out.data_ptr(), x.shape[0],
+                         x.shape[1], x.device.index, _stream(x))
+    _check(err, "bin_rows")
+
+
+def launch_build_histogram(rows: torch.Tensor, n_feat: int, vals: torch.Tensor,
+                           vmax: torch.Tensor, order: torch.Tensor, start: torch.Tensor,
+                           pre: torch.Tensor, acc: torch.Tensor, out: torch.Tensor,
                            n_bins: int) -> None:
-    """binned uint8 [N, F] and vals f32 [N, 3], ordered by key; seg int64
-    [n_keys + 1] (rows seg[k] .. seg[k+1] have key k); vmax f32 [3], each
-    column's largest |val|; acc int64 [n_keys, F, n_bins, 3] scratch -> out
-    f32 of that shape (``csrc/hist_kernels.cu``)."""
-    err = lib().build_histogram_f32(binned.data_ptr(), vals.data_ptr(), seg.data_ptr(),
-                                    vmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                                    binned.shape[0], binned.shape[1], seg.shape[0] - 1, n_bins,
-                                    binned.device.index, _stream(binned))
-    _check(err, "build_histogram_f32")
+    """rows uint8 [N, P] (P the features rounded up to 32, zero pads, 16-byte
+    aligned), vals f32 [N, 3], vmax f32 [3] (each column's largest |val| over
+    all N rows), order int32 (the row list), start int64 [n_keys] and pre int64
+    [n_keys + 1] (key k's rows are order[start[k] + j], j < pre[k + 1] -
+    pre[k]); acc int64 [n_keys, n_feat, n_bins, 3] scratch -> out f32 of that
+    shape (``csrc/hist_kernels.cu``)."""
+    err = lib().build_histogram_rows(rows.data_ptr(), vals.data_ptr(), vmax.data_ptr(),
+                                     order.data_ptr(), start.data_ptr(), pre.data_ptr(),
+                                     acc.data_ptr(), out.data_ptr(), rows.shape[0],
+                                     rows.shape[1], n_feat, start.shape[0], n_bins,
+                                     rows.device.index, _stream(rows))
+    _check(err, "build_histogram_rows")

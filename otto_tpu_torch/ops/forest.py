@@ -10,8 +10,9 @@ not a Pallas kernel, and the binning is host numpy.  Here one launch of a
 hand-written CUDA kernel (``csrc/forest_kernels.cu::forest_kernel``) routes
 every fold of one model over the whole input: :func:`predict_forest` on
 uint8 bins, :func:`predict_forest_rows` on float32 rows, which the kernel
-bins in its staging against the model's edges.  On a CPU tensor each runs
-its plain twin.
+bins in its staging against the model's edges.  :func:`bin_rows` bins float32
+rows alone, by the same search in a kernel of its own (the GBDT fit's
+training rows).  On a CPU tensor each runs its plain twin.
 
 Binning: NaN -> bin 0, any other v -> 1 + #(edges[f] < v).  Routing, for each
 row and each fold: walk every tree, ``pos = 2 pos + (bin[feat[i]] > thr[i])``
@@ -165,6 +166,42 @@ def _bin_rows_reference(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         b = torch.searchsorted(edges, v, side="left") + 1
         out[r0:r0 + step] = torch.where(torch.isnan(v), 0, b).T.to(torch.uint8)
     return out
+
+
+def bin_rows(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """uint8 bins [N, F] of float32 rows [N, F] against packed edges [F, 256]
+    (:func:`pack_edges`), as numpy ``bin_features`` bins them: NaN -> 0,
+    else 1 + #(edges[f] < v).
+
+    On a CUDA tensor this launches the binning kernel (contiguous rows, F <=
+    128, the edges on the same device; anything else raises); on a CPU tensor
+    it runs :func:`_bin_rows_reference`.  Rows of another dtype raise, as in
+    :func:`predict_forest_rows`."""
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise TypeError(f"bin_rows: rows must be float32 [N, F], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if edges.dtype != torch.float32 or tuple(edges.shape) != (x.shape[1], EDGE_SLOTS):
+        raise ValueError(f"bin_rows: edges must be float32 [{x.shape[1]}, {EDGE_SLOTS}] from "
+                         f"pack_edges, got {edges.dtype} {tuple(edges.shape)}")
+    if edges.device != x.device:
+        raise ValueError(f"bin_rows: rows on {x.device}, edges on {edges.device}")
+    if x.device.type == "cpu":
+        return _bin_rows_reference(x, edges)
+    if x.device.type != "cuda":
+        raise ValueError(f"bin_rows: no kernel for device {x.device}")
+    if not 1 <= x.shape[1] <= MAX_FEATURES or not x.is_contiguous():
+        raise ValueError(f"bin_rows: the kernel takes contiguous rows of 1-{MAX_FEATURES} "
+                         f"features, got {tuple(x.shape)}")
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.shape[0]:
+        if x.data_ptr() % 16:  # the kernel reads four values at a time
+            x = x.clone()
+        _kernels.launch_bin_rows(x, edges.contiguous(), out)
+        bin_rows.launches += 1
+    return out
+
+
+bin_rows.launches = 0  # kernel launches made by this wrapper
 
 
 def _route_trees(binned: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,

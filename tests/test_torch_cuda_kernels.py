@@ -398,8 +398,9 @@ def test_cuda_cli_two_stage_launches_forest_kernel_once_a_type(cuda_device, tmp_
 def test_cuda_histogram_kernel_matches_twin(cuda_device, n, f, n_bins, n_keys):
     """K5 against its twin: bit-equal on dyadic vals (k/256, |k| < 256; the
     sums are exact), within 2^-20 of each column's sum of |vals| on normal
-    vals; two launches on the same inputs bit-identical; -1 keys and a
-    crowded bin included."""
+    vals, and there bit-equal to the plain fixed-point reference (the
+    kernel's scale rule); two launches on the same inputs bit-identical; -1
+    keys and a crowded bin included."""
     from otto_tpu_torch.ops import hist as ths
 
     g = torch.Generator(device=cuda_device).manual_seed(n + f + n_keys)
@@ -410,7 +411,7 @@ def test_cuda_histogram_kernel_matches_twin(cuda_device, n, f, n_bins, n_keys):
                         device=cuda_device, dtype=torch.int32)
     dyadic = torch.randint(-255, 256, (n, 3), generator=g, device=cuda_device).float() / 256
     normal = torch.randn((n, 3), generator=g, device=cuda_device)
-    before = ths.build_histogram.launches
+    before = ths.node_histograms.launches
     for vals in (dyadic, normal):
         got = ths.build_histogram(binned, key, vals, n_keys, n_bins)
         again = ths.build_histogram(binned, key, vals, n_keys, n_bins)
@@ -423,7 +424,9 @@ def test_cuda_histogram_kernel_matches_twin(cuda_device, n, f, n_bins, n_keys):
         else:
             tol = 2.0 ** -20 * vals.abs().sum(dim=0)
             assert bool(((got - want).abs() <= tol).all())
-    assert ths.build_histogram.launches == before + 4
+        fixed = ths._fixed_point_histogram(binned, key, vals, n_keys, n_bins)
+        assert torch.equal(got.view(torch.int32), fixed.view(torch.int32))
+    assert ths.node_histograms.launches == before + 4
     with pytest.raises(ValueError):  # inputs on different devices
         ths.build_histogram(binned, key.cpu(), normal, n_keys, n_bins)
     with pytest.raises(ValueError):  # more keys than the kernel takes
@@ -464,3 +467,141 @@ def test_cuda_gbdt_fit_deterministic_and_equal_to_cpu_on_dyadic_tree(cuda_device
             for _ in range(2)]
     for name in ("feat", "thr", "leaf", "gain_importance"):
         assert np.array_equal(getattr(fits[0], name), getattr(fits[1], name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_kernel_over_one_trees_row_lists(cuda_device):
+    """The launches of one depth-7 tree (row lists split by the tree's own
+    routing, zero-val rows left off), on session-like rows (runs of equal
+    bins, a crowded missing bin) at 55 features: each launch bit-equal to the
+    plain fixed-point reference on the tree's real vals, and to the twin on
+    dyadic vals; a repeated launch bit-identical."""
+    import numpy as np
+
+    from otto_tpu_torch.models import gbdt as tg
+    from otto_tpu_torch.ops import hist as ths
+
+    rng = np.random.default_rng(9)
+    n, f = 300_000, 55
+    binned = rng.integers(0, 256, (n, f)).astype(np.uint8)
+    binned[:, :10] = np.repeat(rng.integers(0, 256, (n // 100 + 1, 10)), 100, axis=0)[:n]
+    binned[rng.random((n, f)) < 0.3] = 0
+    x = torch.as_tensor(binned, device=cuda_device)
+    grad = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda_device)
+    hess = torch.as_tensor(rng.random(n).astype(np.float32), device=cuda_device)
+    weight = torch.as_tensor((rng.random(n) < 0.3).astype(np.float32), device=cuda_device)
+    bag = torch.as_tensor((rng.random(n) < 0.9).astype(np.float32), device=cuda_device)
+    calls = []
+    real = tg.node_histograms
+
+    def keep(*args):
+        calls.append(args)
+        return real(*args)
+
+    tg.node_histograms = keep
+    try:
+        tg._grow_tree(x, grad, hess, weight, bag, torch.ones(f, dtype=torch.bool,
+                                                             device=cuda_device),
+                      0.01, 1e-5, 200.0, 1e-3, 0.05, depth=7, n_bins=256)
+    finally:
+        tg.node_histograms = real
+    assert len(calls) == 7
+    dyadic = torch.as_tensor((rng.integers(-255, 256, (n, 3)) / 256).astype(np.float32),
+                             device=cuda_device)
+    for rows, n_feat, vals, vmax, order, start, pre, n_bins in calls:
+        key = ths.list_keys(order, start, pre, n)
+        got = ths.node_histograms(rows, n_feat, vals, vmax, order, start, pre, n_bins)
+        again = ths.node_histograms(rows, n_feat, vals, vmax, order, start, pre, n_bins)
+        fixed = ths._fixed_point_histogram(x, key, vals, start.shape[0], n_bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), fixed.view(torch.int32))
+        dy = ths.node_histograms(rows, n_feat, dyadic, dyadic.abs().amax(dim=0), order, start,
+                                 pre, n_bins)
+        assert torch.equal(dy, ths._build_histogram_reference(x, key, dyadic, start.shape[0],
+                                                              n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 3, 5, 31, 55, 64, 100, 128])
+def test_cuda_bin_rows_bit_equal_to_twin_and_numpy(cuda_device, f):
+    """The binning kernel on float32 rows with NaN, +-inf, +-0.0, denormals,
+    the edges' own values and one ulp either side, at N F not a multiple of
+    4 and on a misaligned view: bit-equal to its twin and to numpy
+    ``bin_features``."""
+    import numpy as np
+
+    from otto_tpu_torch.models import gbdt as tg
+    from otto_tpu_torch.ops import forest as tfo
+
+    rng = np.random.default_rng(f)
+    edges = np.sort(rng.normal(size=(f, 254)).astype(np.float32), axis=1)
+    edges[:, 200:] = np.finfo(np.float32).max  # pads, as fit_bin_edges writes them
+    edges[:, 10:14] = edges[:, 10:11]  # equal edges
+    packed = tfo.pack_edges(edges, device=cuda_device)
+    n = 20_001
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    pick = rng.integers(0, 200, (n, f))
+    on_edge = edges[np.arange(f)[None, :], pick]
+    x = np.where(rng.random((n, f)) < 0.3, on_edge, x)
+    x = np.where(rng.random((n, f)) < 0.1, np.nextafter(on_edge, np.float32(np.inf)), x)
+    x = np.where(rng.random((n, f)) < 0.1, np.nextafter(on_edge, np.float32(-np.inf)), x)
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40,
+                         np.finfo(np.float32).max], np.float32)
+    x[: len(specials) * 3] = np.repeat(specials, 3)[:, None]
+    x = x.astype(np.float32)
+    xd = torch.as_tensor(x, device=cuda_device)
+    before = tfo.bin_rows.launches
+    got = tfo.bin_rows(xd, packed)
+    torch.cuda.synchronize()
+    assert tfo.bin_rows.launches == before + 1
+    assert torch.equal(got, tfo._bin_rows_reference(xd, packed))
+    np.testing.assert_array_equal(got.cpu().numpy(), tg.bin_features(x, edges))
+    shifted = torch.empty(n * f + 1, device=cuda_device)[1:].view(n, f)  # 4 bytes off
+    shifted.copy_(xd)
+    assert torch.equal(tfo.bin_rows(shifted, packed), got)
+    with pytest.raises(TypeError):
+        tfo.bin_rows(xd.double(), packed)
+    with pytest.raises(ValueError):
+        tfo.bin_rows(xd, packed.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_train_gbdt_ranker_bins_on_the_card(cuda_device):
+    """``train_gbdt_ranker`` on the card: the device edges value-equal to
+    numpy ``fit_bin_edges`` (and the model keeps them), the binning kernel and
+    K5 launched, numpy ``bin_features`` and the histogram twin never called;
+    two runs give the same forests, bit for bit."""
+    import numpy as np
+
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt as tg
+    from otto_tpu_torch.models.ranker import RankerData
+    from otto_tpu_torch.ops import forest as tfo
+    from otto_tpu_torch.ops import hist as ths
+
+    rng = np.random.default_rng(13)
+    S, C, F = 400, 60, 20
+    X = rng.normal(size=(S, C, F)).astype(np.float32)
+    X[..., 3] = rng.integers(0, 4, (S, C))
+    X[rng.random(X.shape) < 0.1] = np.nan
+    labels = (X[..., 0] + rng.normal(size=(S, C)) > 1.5).astype(np.int8)
+    mask = rng.random((S, C)) < 0.9
+    data = RankerData(X, labels, mask, np.arange(S), np.zeros((S, C), np.int32))
+    cfg = GBDTConfig(n_trees=8, n_folds=2, loss="bce", min_data_in_leaf=50)
+    refused = []
+    real = (tg.bin_features, ths._build_histogram_reference)
+    tg.bin_features = lambda *a: refused.append("bin_features")
+    ths._build_histogram_reference = lambda *a: refused.append("twin")
+    before = (tfo.bin_rows.launches, ths.node_histograms.launches)
+    try:
+        runs = [tg.train_gbdt_ranker(data, cfg, device=cuda_device) for _ in range(2)]
+    finally:
+        tg.bin_features, ths._build_histogram_reference = real
+    assert not refused
+    assert tfo.bin_rows.launches == before[0] + 2 and ths.node_histograms.launches > before[1]
+    np.testing.assert_array_equal(runs[0][0].edges, tg.fit_bin_edges(X[mask], cfg.n_bins))
+    for a, b in zip(runs[0][0].forests, runs[1][0].forests):
+        for name in ("feat", "thr", "leaf"):
+            assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    assert np.array_equal(runs[0][1], runs[1][1])

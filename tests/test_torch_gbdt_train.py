@@ -107,15 +107,16 @@ def test_histogram_skips_rows_and_bins_outside_the_grid():
 
 
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
-    """On CPU tensors the wrapper runs the twin: the launcher is never
-    called and the launch count stays."""
+    """On CPU tensors the wrappers run the twin: the launcher is never
+    called and the kernel's launch count (kept by ``node_histograms``, the
+    wrapper that launches it) stays."""
     from otto_tpu_torch.ops import _kernels
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor reached the histogram kernel")
 
     monkeypatch.setattr(_kernels, "launch_build_histogram", refuse)
-    before = hist.build_histogram.launches
+    before = hist.node_histograms.launches
     rng = np.random.default_rng(0)
     binned = torch.as_tensor(rng.integers(0, NB, (N, F)).astype(np.uint8))
     out = hist.build_histogram(binned, torch.zeros(N, dtype=torch.int32),
@@ -123,7 +124,7 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     assert out.device.type == "cpu" and float(out[..., 2].sum()) == N * F
     tg._grow_tree(binned, *(torch.ones(N) for _ in range(4)), torch.ones(F, dtype=torch.bool),
                   0.01, 1e-5, 20.0, 1e-3, 0.1, depth=3, n_bins=NB)
-    assert hist.build_histogram.launches == before
+    assert hist.node_histograms.launches == before
 
 
 GROW_CASES = {

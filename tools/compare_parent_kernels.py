@@ -1,15 +1,16 @@
 """Time a parent commit's CUDA kernels against this tree's, in turns, on one card.
 
     git archive <parent> otto_tpu_torch/csrc | tar -x -C tmp/parent
-    python3 tools/compare_parent_kernels.py tmp/parent/otto_tpu_torch/csrc
+    python3 tools/compare_parent_kernels.py tmp/parent/otto_tpu_torch/csrc [k1 k2 k3 k4 k5]
 
 Builds both sides with ``otto_tpu_torch.ops._kernels`` (its nvcc, flags and
-build), and first times this tree's build two ways, in turns: one nvcc over
-all sources into the library, and the package's build (one nvcc a source,
-all started together, then a link).  Then it calls each kernel through the C
-entry point of that name in each library, checks that both sides give the
-same outputs, and times each pair by CUDA graphs (device time alone, no host
-launch cost) in turns: parent, this tree, this tree, parent.
+build), and first (when every kernel is asked for) times this tree's build
+two ways, in turns: one nvcc over all sources into the library, and the
+package's build (one nvcc a source, all started together, then a link).
+Then it calls each kernel through the C entry point of that name in each
+library, checks that both sides give the same outputs, and times each pair
+by CUDA graphs (device time alone, no host launch cost) in turns: parent,
+this tree, this tree, parent.
 
 - K1 (``fused_stage1_bf16``) at [4096 x 102] x [102 x 1,867,776], the
   neighbor table's batch, seeded normal bf16 operands;
@@ -26,9 +27,21 @@ launch cost) in turns: parent, this tree, this tree, parent.
   nodes ``(thr << 16) | feat`` and leaves apart) against this tree's
   ``predict_forest_binned`` on the same bins, with this tree's
   ``predict_forest_rows`` (the float rows, binned in the kernel) timed in
-  the same turns.
+  the same turns;
+- K5 when the parent has the earlier ``build_histogram_f32`` entry (rows
+  sorted by key) and this tree ``build_histogram_rows`` (a row list kept by
+  node): the launches of one depth-7 tree of a bce fit at the refit's first
+  clicks fold's shape, [1,857,664 x 55] at 256 bins, on synthetic
+  session-like rows (184 candidates a session sharing 12 session-level
+  features, 8 count-like features of 3 bins, a quarter of the values
+  missing; 30% of the rows kept, as negative sampling keeps them, and 90%
+  bagged).  The parent's side is its wrapper's work on the card (the sort by
+  key, the gathers, its two kernels), this tree's the kernel on the list
+  (the list is split between levels by ``_split_rows``, timed apart).  Both
+  give the same bits (the same fixed-point scale).
 
-An entry point that either library lacks is skipped.  Prints the card's
+An entry point that either library lacks is skipped, and so is a kernel left
+out of the names after the path (all five when none is named).  Prints the card's
 name and power limit and one JSON line: seconds for the builds, milliseconds
 for the kernels.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
@@ -74,10 +87,101 @@ def timed_builds(_kernels, work: Path) -> dict:
     return res
 
 
+def k5_tree(torch, dev):
+    """One depth-7 bce tree's histogram launches on synthetic session-like
+    rows at the refit's first fold's shape: each launch's arguments (this
+    tree's ``node_histograms``) and each level's ``_split_rows`` arguments."""
+    from otto_tpu_torch.models import gbdt
+
+    rng = np.random.default_rng(7)
+    n, f, c = 1_857_664, 55, 184
+    b = rng.integers(1, 256, (n, f)).astype(np.uint8)
+    b[:, :12] = np.repeat(rng.integers(1, 256, (n // c + 1, 12)), c, axis=0)[:n]
+    b[:, 12:20] = rng.integers(1, 4, (n, 8))
+    b[rng.random((n, f)) < 0.25] = 0
+    y = rng.random(n) < 0.05
+    w = ((rng.random(n) < 0.3) | y).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    grad = t(((0.05 - y) * w).astype(np.float32))
+    hess = t(np.full(n, 0.05 * 0.95, np.float32) * w)
+    bag = t((rng.random(n) < 0.9).astype(np.float32))
+    x = t(b)
+    launches, splits = [], []
+    real_h, real_s = gbdt.node_histograms, gbdt._split_rows
+    gbdt.node_histograms = lambda *a: (launches.append(a), real_h(*a))[1]
+    gbdt._split_rows = lambda *a: (splits.append(a), real_s(*a))[1]
+    try:
+        gbdt._grow_tree(x, grad, hess, t(w), bag, torch.ones(f, dtype=torch.bool, device=dev),
+                        0.01, 1e-5, 200.0, 1e-3, 0.05, depth=7, n_bins=256)
+    finally:
+        gbdt.node_histograms, gbdt._split_rows = real_h, real_s
+    return x, launches, splits
+
+
+def k5_turns(torch, dev, libs, stream, res: dict) -> None:
+    """Each level of one tree: the parent's wrapper work (sort by key,
+    gathers, its kernels) and this tree's kernel on the row list, same bits,
+    timed in turns by CUDA graphs; the list's split after each level apart."""
+    import chip_smoke as cs
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import _kernels, hist
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs["parent"].build_histogram_f32.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
+    libs["parent"].build_histogram_f32.restype = i
+    _kernels._lib = libs["tree"]  # the package's wrappers launch from this tree's build
+    x, launches, splits = k5_tree(torch, dev)
+    n, F = x.shape
+    for level, (rows, n_feat, vals, vmax, order, start, pre, n_bins) in enumerate(launches):
+        n_keys = start.shape[0]
+        key = hist.list_keys(order, start, pre, n)
+        cells = (n_keys, F, n_bins, 3)
+        o = {s: torch.empty(cells, device=dev) for s in libs}
+        acc = {s: torch.empty(cells, dtype=torch.int64, device=dev) for s in libs}
+        ar = torch.arange(n_keys + 1, dtype=torch.int32, device=dev)
+
+        starts = start.contiguous()
+
+        def parent():  # the tensors stay referenced until the launch is queued
+            ks, idx = torch.sort(key)
+            seg = torch.searchsorted(ks, ar)
+            xs, vs, vm = x.index_select(0, idx), vals.index_select(0, idx), vals.abs().amax(0)
+            agree(libs["parent"].build_histogram_f32(
+                xs.data_ptr(), vs.data_ptr(), seg.data_ptr(), vm.data_ptr(),
+                acc["parent"].data_ptr(), o["parent"].data_ptr(), n, F, n_keys, n_bins, 0,
+                stream()) == 0, "launches")
+
+        def tree():
+            agree(libs["tree"].build_histogram_rows(
+                rows.data_ptr(), vals.data_ptr(), vmax.data_ptr(), order.data_ptr(),
+                starts.data_ptr(), pre.data_ptr(), acc["tree"].data_ptr(),
+                o["tree"].data_ptr(), n, rows.shape[1], n_feat, n_keys, n_bins, 0,
+                stream()) == 0, "launches")
+
+        parent()
+        tree()
+        torch.cuda.synchronize()
+        agree(torch.equal(o["parent"].view(torch.int32), o["tree"].view(torch.int32)),
+              f"level-{level} histograms")
+        calls = {"parent": parent, "tree": tree}
+        for side in ("parent", "tree", "tree", "parent"):
+            res.setdefault(f"k5_level{level}_{side}", []).append(cs.graph_ms(torch,
+                                                                             [calls[side]]))
+        if level < len(splits):
+            res[f"k5_level{level}_split"] = [cs.graph_ms(torch, [lambda: gbdt._split_rows(
+                *splits[level])])]
+        res[f"k5_level{level}_keys_listed"] = [n_keys, int(pre[-1])]
+    for side in ("parent", "tree"):
+        res[f"k5_tree_{side}"] = [sum(min(res[f"k5_level{lv}_{side}"])
+                                      for lv in range(len(launches)))]
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    names = set(sys.argv[2:]) or {"k1", "k2", "k3", "k4", "k5"}
+    if len(sys.argv) < 2 or not names <= {"k1", "k2", "k3", "k4", "k5"} \
+            or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -92,7 +196,11 @@ def main() -> int:
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     (REPO / "tmp").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="parent_kernels_", dir=REPO / "tmp"))
-    res = timed_builds(_kernels, work)
+    if len(names) == 5:
+        res = timed_builds(_kernels, work)
+    else:  # a subset: this tree's library built once
+        res = {}
+        _kernels.build(_kernels.SOURCES, work / "build_1.so")
     libs = {"parent": _kernels.load(_kernels.build(sorted(Path(sys.argv[1]).glob("*.cu")),
                                                    work / "parent.so")),
             "tree": _kernels.load(work / "build_1.so")}
@@ -117,7 +225,7 @@ def main() -> int:
     t[:, N_ITEMS:] = 0
     q, t = q.to(torch.bfloat16), t.to(torch.bfloat16)
     x = torch.empty((4096, N_PAD // 128), device=dev)
-    if "fused_stage1_bf16" in both:
+    if "fused_stage1_bf16" in both and names & {"k1", "k2"}:
         packed = {s: torch.empty_like(x) for s in libs}
         k1 = {s: [lambda s=s: libs[s].fused_stage1_bf16(q.data_ptr(), t.data_ptr(),
                                                         packed[s].data_ptr(), 4096, 102, N_PAD,
@@ -136,7 +244,7 @@ def main() -> int:
 
     # K2 on K1's packed maxima
     m, rounds = N_PAD // 128, 6
-    if "peel_rows_f32" in both:
+    if "peel_rows_f32" in both and "k2" in names:
         outs = {s: (torch.empty((4096, rounds, m // 128), device=dev),
                     torch.empty((4096, rounds, m // 128), device=dev, dtype=torch.int32))
                 for s in libs}
@@ -151,7 +259,7 @@ def main() -> int:
         turns("k2", k2)
 
     # K3 on the aid-weight runner's own input and on [4096, 256], warm and cold
-    if "aid_vote_f32" in both:
+    if "aid_vote_f32" in both and "k3" in names:
         sp = split_by_fraction(synthetic_events_v2(n_sessions=200_000, n_aids=N_ITEMS,
                                                    seed=cs.SEED))
         pk = pipelines._packed(sp.val_input)
@@ -191,7 +299,8 @@ def main() -> int:
             res[f"{key}_mean_live"] = [float(np.mean((a >= 0).sum(1).cpu().numpy()))]
 
     # K4: the parent's uint8 kernel against this tree's two entries
-    if hasattr(libs["parent"], "predict_forest") and hasattr(libs["tree"], "predict_forest_rows"):
+    if hasattr(libs["parent"], "predict_forest") and hasattr(libs["tree"], "predict_forest_rows") \
+            and "k4" in names:
         from otto_tpu_torch.models.gbdt import load_ranker_model
         from otto_tpu_torch.ops import forest
 
@@ -231,6 +340,12 @@ def main() -> int:
             if side == "tree":
                 res.setdefault("k4_tree_rows", []).append(cs.graph_ms(torch, [calls["rows"]]))
         res["k4_shape"] = [n, F, pack.n_trees, pack.depth]
+
+    # K5: the parent's sorted-rows entry against this tree's row lists
+    if hasattr(libs["parent"], "build_histogram_f32") and hasattr(libs["tree"],
+                                                                  "build_histogram_rows") \
+            and "k5" in names:
+        k5_turns(torch, dev, libs, stream, res)
     print(json.dumps(res), flush=True)
     return 0
 
