@@ -1,6 +1,6 @@
 """Drive the PyTorch port's paths once on one NVIDIA card: the
 embedding-kNN path, the baselines with the covisitation heuristic, the
-two-stage prediction path, the file CLI, and GBDT training.
+two-stage prediction path, the file CLI, GBDT training and SGNS training.
 
     python3 chip_smoke.py
 
@@ -129,7 +129,27 @@ exit code):
    rankers saved, the histogram and binning kernels launched), the same
    command resuming (neither launched; lists equal to ``predict_two_stage``
    with the saved artifacts), and ``two_stage_streamed validation
-   --train-sessions 5000`` on its first 20,000 sessions (a lift printed).
+   --train-sessions 5000`` on its first 20,000 sessions (a lift printed);
+12. SGNS training on the card with the published configs
+   (``configs/fasttext.yaml``, ``configs/word2vec.yaml``), one epoch each,
+   each cut printed: 12a the four SGNS steps (per-pair, weighted,
+   shared-negative, hierarchical softmax) at full width on identical
+   inputs on the card and the CPU (one batch of phase 7's fasttext pairs,
+   negatives drawn on the host), within 1e-4 * (|x| + 0.01), and each
+   step's ms against its bound; 12b ``train_sgns`` (fasttext ns, word2vec
+   hs) and ``train_sgns_device`` (1,024 shared negatives) on phase 7's
+   store: pairs, pairs/s, ms a step, the loss falling, the device
+   sampler's kept pairs against the host epoch's count; 12c one fasttext
+   epoch on a planted-cluster corpus spread over the full catalog, then
+   ``neighbor_table(k=21)`` (stage 1 and the peel launch) and
+   ``embedding_knn_predictions`` (the session vote launches): the share of
+   trained aids whose top neighbor shares their cluster, recall against
+   the exact scan; 12d the CLI's ``embedding_knn validation``, ``doc2vec
+   validation`` and ``embedding_knn submission`` on phase 7's store as
+   parquet, the file equal to the runner's lists; 12e ``run_two_stage``
+   with ``sgns_config`` on phase 11d's store cut to 20,000 sessions over a
+   100,000-aid catalog: trains SGNS and the rankers and saves, then
+   resumes with no training and lists equal to ``predict_two_stage``.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -2208,6 +2228,397 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
     return {"launches": trained, "resumed": resumed}
 
 
+# ------------------------------------------------------------- phase 12
+# SGNS training on the card with the published configs
+# (configs/fasttext.yaml: dim 32, window 10, negatives 40, subsample 1e-4,
+# batch 8,192, 8 steps a call; configs/word2vec.yaml: hs, window 12,
+# subsample 3e-3) over the full catalog, cut as SGNS_CUTS says.
+# 12e's catalog: the least round count whose table takes the fused route
+# (more than 4 x 16,384 padded items), so K1 and K2 launch; the full
+# catalog's covisitation tables and aid features would add a minute of
+# host work that phases 7 and 9 already drive.
+TWO_STAGE_SGNS_AIDS = 100_000
+SGNS_CUTS = ("epochs 5 -> 1 (each config)",
+             "corpus: phase 7's 200,000-session store (2,599,069 events over the "
+             "1,855,603-aid catalog), not the OTTO training week",
+             "12e: phase 11d's store cut to its first 20,000 sessions (10,000 target), "
+             f"over a {TWO_STAGE_SGNS_AIDS:,}-aid catalog")
+# 12a: card against CPU, each table entry within STEP_RTOL * (|cpu| +
+# STEP_FLOOR) and the loss within LOSS_RTOL relative.  Set from the CPU
+# rehearsal on these inputs: float32 against float64 differed by at most
+# 8.8e-6 * (|x| + 1e-2) and 1.4e-7 in the loss; the card's atomics add in
+# another order, so its distance to the CPU's float32 is up to twice that.
+STEP_RTOL, STEP_FLOOR, LOSS_RTOL = 1e-4, 1e-2, 1e-5
+# 12b: train_sgns_device's kept pairs against the host epoch's pairs scaled
+# to its draws (the same subsample, the same acceptance in expectation).
+KEPT_BAND = 0.01
+# 12c: a planted-cluster corpus over the full catalog's id space (30 aids a
+# cluster, so that an aid's 21 nearest neighbors can all be its own
+# cluster's and none is an untrained aid near a tie), 67 events a trained
+# aid, and the least share of its trained aids whose top neighbor is in
+# their own cluster after one fasttext epoch.  The CPU rehearsal (300
+# clusters of 30 over the same catalog, 30,000 sessions of 20 events, one
+# epoch, 300 trained aids sampled) measured a share of 1.0 and a recall of
+# the compensated retriever's twin against the exact scan of 0.999.
+PLANTED = {"clusters": 1000, "per": 30, "sessions": 100_000, "length": 20}
+PLANTED_SAME_CLUSTER = 0.95
+
+
+def sgns_config(name: str, **over):
+    """``configs/<name>.yaml`` with one epoch (SGNS_CUTS)."""
+    from otto_tpu_torch.config import SGNSConfig
+
+    return SGNSConfig.from_yaml(REPO / "configs" / f"{name}.yaml").replace(epochs=1, **over)
+
+
+def step_bound(rows_in: np.ndarray, rows_out: np.ndarray, index_bytes: int, D: int,
+               flops: float) -> tuple[float, str]:
+    """An SGNS step's bound: each distinct row it updates (w_in and acc_in
+    at the centers, w_out and acc_out at the output rows) read once and
+    written once, float32, plus its index and weight inputs; its float32
+    operations over the CUDA cores' rate."""
+    n_rows = len(np.unique(rows_in)) + len(np.unique(rows_out))
+    return bound(n_rows * D * 4 * 2 * 2 + index_bytes, flops, F32_OPS_PER_S)
+
+
+def sgns_steps(torch, dev, store, n_aids: int, reps: int = 20) -> list[dict]:
+    """Phase 12a: the four SGNS steps at full width, card against CPU on the
+    same inputs: one batch of the store's fasttext pairs (duplicated
+    centers, contexts that are also negatives), per-pair negatives drawn on
+    the host from the store's unigram^0.75 CDF, 1,024 shared ones, weights
+    with 40% rejected draws, synthetic Huffman paths of depth 10-24.  Then
+    each step's time on the card (CUDA events over ``reps`` steps) against
+    its bound."""
+    from otto_tpu_torch.models import embeddings as emb
+
+    cfg = sgns_config("fasttext")
+    B, N, D, L = cfg.batch_centers, cfg.negatives, cfg.dim, 24
+    rng = np.random.default_rng(SEED + 12)
+    counts = np.bincount(store.aid, minlength=n_aids).astype(np.float64)
+    c, x = emb.skipgram_pairs(store, cfg.window, rng, cfg.subsample_t, counts)
+    sel = rng.choice(len(c), B, replace=False)
+    host = {"centers": c[sel].astype(np.int64), "contexts": x[sel].astype(np.int64)}
+    cdf = emb.negative_cdf(counts, cfg.ns_exponent, device="cpu")
+    host["negatives"] = emb.draw_negatives(
+        cdf, torch.from_numpy(rng.random((B, N), dtype=np.float32))).numpy()
+    host["shared"] = emb.draw_negatives(
+        cdf, torch.from_numpy(rng.random(1024, dtype=np.float32))).numpy()
+    host["weight"] = (rng.random(B) >= 0.4).astype(np.float32)
+    depth = rng.integers(10, L + 1, B)
+    signs = np.where(rng.random((B, L)) < 0.5, 1, -1).astype(np.int8)
+    signs[np.arange(L)[None] >= depth[:, None]] = 0
+    host["signs"] = signs
+    host["nodes"] = np.where(signs != 0, rng.integers(0, n_aids - 1, (B, L)), 0)
+    dup = B - len(np.unique(host["centers"]))
+    overlap_share = float(np.isin(host["contexts"], host["negatives"]).mean())
+    print(f"12a inputs: {B} pairs of the store's fasttext epoch ({dup} duplicated centers, "
+          f"{100 * overlap_share:.1f}% of contexts also negatives), [{B} x {N}] negatives "
+          f"({len(np.unique(host['negatives']))} distinct), 1,024 shared, tables {n_aids} x {D}",
+          flush=True)
+    base = [(rng.standard_normal((n_aids, D), dtype=np.float32) * 0.1) for _ in range(2)] + \
+        [rng.uniform(0, 2, (n_aids, D)).astype(np.float32) for _ in range(2)]
+    lr = float(np.float32(cfg.learning_rate))
+    out = []
+    for kind in ("per_pair", "weighted", "shared", "hs"):
+        def run(state, d, kind=kind):
+            t = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+            if kind == "hs":
+                return emb.hs_step(*state, t["centers"], t["nodes"], t["signs"], lr)
+            if kind == "shared":
+                return emb.sgns_shared_neg_step(*state, t["centers"], t["contexts"],
+                                                t["weight"], t["shared"], lr, N)
+            return emb.sgns_step(*state, t["centers"], t["contexts"], t["negatives"], lr,
+                                 weight=t["weight"] if kind == "weighted" else None)
+
+        def state_on(d, kind=kind):
+            s = list(emb.sgns_state_from_jax(*base, device=d))
+            if kind == "hs":  # the node table holds V - 1 rows
+                s[1], s[3] = s[1][:-1].contiguous(), s[3][:-1].contiguous()
+            return s
+
+        results = {}
+        for d in (torch.device("cpu"), dev):
+            s = state_on(d)
+            with emb.full_f32_matmul():
+                loss = float(run(s, d))
+            results[d.type] = (loss, s)
+        (l_cpu, s_cpu), (l_dev, s_dev) = results["cpu"], results[dev.type]
+        worst, err = 0.0, 0.0
+        for a, b in zip(s_dev, s_cpu):
+            diff = (a.cpu() - b).abs()
+            worst = max(worst, float((diff / (b.abs() + STEP_FLOOR)).max()))
+            err = max(err, float(diff.max()))
+        check(worst <= STEP_RTOL, f"12a {kind} step: card vs CPU {worst:.3e} > {STEP_RTOL}")
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        check(loss_rel <= LOSS_RTOL, f"12a {kind} step: loss {l_dev} vs CPU {l_cpu}")
+        del s_cpu, results
+        with emb.full_f32_matmul():
+            ms = (cuda_ms(torch, lambda: run(s_dev, dev), reps) if dev.type == "cuda"
+                  else _host_ms(lambda: run(s_dev, dev), 2))
+        if kind == "hs":
+            rows_out, width = host["nodes"].reshape(-1), L
+        elif kind == "shared":
+            rows_out, width = np.concatenate([host["contexts"], host["shared"]]), 1024
+        else:
+            rows_out, width = np.concatenate([host["contexts"], host["negatives"].ravel()]), N
+        idx_bytes = sum(host[k].nbytes for k in (
+            ("centers", "nodes", "signs") if kind == "hs" else
+            ("centers", "contexts", "shared", "weight") if kind == "shared" else
+            ("centers", "contexts", "negatives") + (("weight",) if kind == "weighted" else ())))
+        n_out = len(rows_out) if kind != "shared" else B + 1024
+        flops = 6.0 * B * width * D + 6.0 * D * (B + n_out)
+        b = step_bound(host["centers"], rows_out, idx_bytes, D, flops)
+        print(f"12a {kind} step [{B} pairs x {width} x {D}]: card vs CPU max "
+              f"|diff|/(|cpu| + {STEP_FLOOR}) {worst:.3e} (limit {STEP_RTOL}), max abs {err:.3e}, "
+              f"loss rel {loss_rel:.2e} (limit {LOSS_RTOL}); {ms:.4f} ms a step; bound "
+              f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / ms:.1f}% of it", flush=True)
+        out.append({"step": kind, "ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                    "max_rel_err": worst})
+        del s_dev
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def trainer_line(name: str, out: dict) -> str:
+    losses = out["losses"]
+    return (f"{name}: {out['pairs_trained']} pairs, {out['steps']} steps in "
+            f"{out['train_s']:.2f} s: {out['pairs_per_s']:.0f} pairs/s, "
+            f"{1e3 * out['train_s'] / max(out['steps'], 1):.3f} ms a step; loss of the first "
+            f"group {losses[0][2]:.4f}, of the last {losses[-1][2]:.4f}")
+
+
+def sgns_trainers(torch, dev, store, n_aids: int) -> dict:
+    """Phase 12b: ``train_sgns`` one epoch with fasttext (ns) and word2vec
+    (hs), ``train_sgns_device`` one epoch with fasttext and 1,024 shared
+    negatives; pairs, rates, ms a step, first and last group's loss (the
+    last must be lower); the device sampler's kept pairs against the host
+    epoch's pair count scaled to its draws, within KEPT_BAND."""
+    from otto_tpu_torch.models.embeddings import train_sgns, train_sgns_device
+
+    res = {}
+    for name in ("fasttext", "word2vec"):
+        cfg = sgns_config(name)
+        out = {}
+        model = train_sgns(store, n_aids, cfg, log_every=cfg.steps_per_call, pairs_out=out,
+                           device=dev)
+        sync(torch, dev)
+        check(bool(torch.isfinite(model.w_in).all()), f"train_sgns {name}: non-finite table")
+        losses = out["losses"]
+        check(len(losses) >= 2 and losses[-1][2] < losses[0][2],
+              f"train_sgns {name}: loss did not fall ({losses[0][2]} -> {losses[-1][2]})")
+        print(trainer_line(f"12b train_sgns {name} ({cfg.objective})", out), flush=True)
+        res[name] = {k: out[k] for k in ("pairs_trained", "steps", "train_s", "pairs_per_s")}
+        res[name]["loss_first_last"] = [losses[0][2], losses[-1][2]]
+        del model
+    cfg = sgns_config("fasttext")
+    out = {}
+    model = train_sgns_device(store, n_aids, cfg, shared_negatives=1024, pairs_out=out,
+                              device=dev)
+    sync(torch, dev)
+    check(bool(torch.isfinite(model.w_in).all()), "train_sgns_device: non-finite table")
+    ep = out["epoch_log"][0]
+    draws = ep["steps_run"] * cfg.batch_centers
+    expected = res["fasttext"]["pairs_trained"] * draws / (2 * ep["kept_events"] * cfg.window)
+    ratio = out["pairs_trained"] / expected
+    print(f"12b train_sgns_device fasttext (1,024 shared negatives): {out['pairs_trained']} "
+          f"pairs kept of {draws} draws in {ep['steps_run']} steps, {out['train_s']:.2f} s: "
+          f"{out['pairs_per_s']:.0f} pairs/s, {1e3 * ep['step_s'] / ep['steps_run']:.3f} ms a "
+          f"step; loss {ep['loss']:.4f}; kept / the host epoch's {res['fasttext']['pairs_trained']} "
+          f"pairs scaled to the draws: {ratio:.5f} (band 1 +- {KEPT_BAND})", flush=True)
+    check(abs(ratio - 1) <= KEPT_BAND, f"train_sgns_device kept {ratio} of the host's rate")
+    res["device"] = {"pairs_trained": out["pairs_trained"], "train_s": out["train_s"],
+                     "pairs_per_s": out["pairs_per_s"], "kept_ratio": ratio}
+    del model
+    return res
+
+
+def planted_store(n_aids: int, clusters: int, per: int, sessions: int, length: int, seed: int):
+    """Sessions confined to one cluster each: ``clusters`` x ``per`` aids
+    drawn without replacement from [0, ``n_aids``), ``length`` events a
+    session drawn from its cluster.  Returns the store and the clusters."""
+    from otto_tpu_torch.data.events import EventStore
+
+    rng = np.random.default_rng(seed)
+    members = rng.choice(n_aids, clusters * per, replace=False).reshape(clusters, per)
+    own = rng.integers(0, clusters, sessions)
+    aid = members[own[:, None], rng.integers(0, per, (sessions, length))].ravel()
+    store = EventStore.from_flat(np.repeat(np.arange(sessions), length), aid,
+                                 np.tile(np.arange(length), sessions),
+                                 np.zeros(sessions * length, np.int8))
+    return store, members
+
+
+def trained_table(torch, dev, target, n_aids: int, zero_counters, read_counters,
+                  planted: dict = PLANTED, n_check: int = 256) -> dict:
+    """Phase 12c: one fasttext epoch on the planted-cluster corpus, then
+    ``neighbor_table(k=21)`` over the whole catalog (the fused route) and
+    ``embedding_knn_predictions`` on phase 7's target with it, counters
+    zeroed before and read after; the share of trained aids whose top
+    neighbor is in their own cluster, and the table's rows against the
+    exact scan on ``n_check`` trained aids."""
+    from otto_tpu_torch.models.embeddings import embedding_knn_predictions, train_sgns
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    store, members = planted_store(n_aids, seed=SEED + 13, **planted)
+    t0 = time.perf_counter()
+    model = train_sgns(store, n_aids, sgns_config("fasttext"), device=dev)
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    zero_counters()
+    t0 = time.perf_counter()
+    table = model.neighbor_table(k=K_NNS)
+    table_s = time.perf_counter() - t0
+    preds = embedding_knn_predictions(target, table, device=dev)
+    launches = read_counters("trained table's neighbor table and kNN serving",
+                             ("fused_stage1", "peel_rows", "aid_vote"))
+    cluster = np.full(n_aids, -1)
+    cluster[members.ravel()] = np.repeat(np.arange(len(members)), members.shape[1])
+    trained = members.ravel()
+    same = float(np.mean(cluster[table[trained, 0]] == cluster[trained]))
+    sample = np.random.default_rng(SEED + 14).choice(trained, n_check, replace=False)
+    _, ei = topk_scan(model.w_in[torch.as_tensor(sample, device=dev)], model.w_in,
+                      k=K_NNS + 1, metric="euclidean")
+    ei = ei.cpu().numpy()
+    rec = overlap(table[sample], np.stack([r[r != a][:K_NNS] for r, a in zip(ei, sample)]))
+    p = preds["clicks"]
+    check(p.shape == (target.n_sessions, 20) and p.max() < n_aids, "12c predictions shape")
+    print(f"12c planted corpus ({planted['clusters']} clusters x {planted['per']} aids spread "
+          f"over [0, {n_aids}), {store.n_events} events): fasttext epoch {train_s:.2f} s; "
+          f"neighbor table k={K_NNS} over {n_aids} aids {table_s:.2f} s; trained aids whose top "
+          f"neighbor is in their cluster {same:.4f} (limit {PLANTED_SAME_CLUSTER}); rows vs "
+          f"exact scan on {n_check} trained aids {rec:.4f} (limit 0.99)", flush=True)
+    check(same >= PLANTED_SAME_CLUSTER, f"12c same-cluster share {same}")
+    check(rec >= 0.99, f"12c trained table recall {rec} < 0.99")
+    return {"launches": launches, "same_cluster": same, "recall": rec, "table_s": table_s,
+            "train_s": train_s}
+
+
+def cli_sgns(torch, dev, store, workdir: Path, n_aids: int, zero_counters,
+             read_counters) -> dict:
+    """Phase 12d: ``embedding_knn validation`` and ``doc2vec validation`` on
+    phase 10's store (phase 7's, as parquet) with a one-epoch copy of
+    ``configs/fasttext.yaml``, then ``embedding_knn submission`` on it with
+    its first 20,000 sessions as ``--test-events``: the file read back equal
+    to the lists the runner returned in that call (a second training on the
+    card would add in another order).  Counters zeroed before each run and
+    read after it."""
+    import yaml
+
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.data.submission import read_submission
+    from otto_tpu_torch.models import embeddings
+
+    events, test, cfg, out = (workdir / "events.parquet", workdir / "test.parquet",
+                              workdir / "fasttext_1epoch.yaml", workdir / "sub.csv.gz")
+    store.to_parquet(events)
+    head = head_sessions(store, 20_000)
+    head.to_parquet(test)
+    cfg.write_text(yaml.safe_dump(sgns_config("fasttext").to_dict()))
+    common = ["--events", str(events), "--config", str(cfg), "--n-aids", str(n_aids),
+              "--device", dev.type]
+    res = {}
+    spent = []
+
+    def timed(real):  # the runner's SGNS training, drained
+        def train(*args, **kwargs):
+            t = time.perf_counter()
+            model = real(*args, **kwargs)
+            sync(torch, dev)
+            spent.append(time.perf_counter() - t)
+            return model
+        return train
+
+    for name, argv, expect in (
+            ("embedding_knn validation", ["embedding_knn", "validation"],
+             ("fused_stage1", "peel_rows", "aid_vote")),
+            ("doc2vec validation", ["doc2vec", "validation"], ()),
+            ("embedding_knn submission", ["embedding_knn", "submission", "--test-events",
+                                          str(test), "--output", str(out)],
+             ("fused_stage1", "peel_rows", "aid_vote"))):
+        zero_counters()
+        t0 = time.perf_counter()
+        with wrapped(embeddings, "train_sgns", timed):
+            r = pipelines.main(argv + common)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters(f"CLI {name}", expect)
+        line = (f"weighted {r.report.weighted:.6f} (clicks {r.report.clicks:.6f}, carts "
+                f"{r.report.carts:.6f}, orders {r.report.orders:.6f})" if r.report else
+                f"{head.n_sessions} sessions written")
+        print(f"12d CLI {name}: {secs:.2f} s, of it SGNS training {spent[-1]:.2f} s "
+              f"({100 * spent[-1] / secs:.1f}%); {line}", flush=True)
+        res[name] = {"s": secs, "train_s": spent[-1], "launches": launches,
+                     "weighted": r.report.weighted if r.report else None}
+        if r.report is not None:
+            check(0 < r.report.weighted < 1, f"CLI {name}: weighted recall")
+    lists = submission_lists(read_submission(out), head.session_ids)
+    for t in TYPE_NAMES:
+        check(np.array_equal(lists[t], r.predictions[t]),
+              f"CLI embedding_knn submission: the {t} file differs from the runner's lists")
+    print("12d the submission file equals the runner's lists", flush=True)
+    return res
+
+
+def two_stage_trains_sgns(torch, dev, bench_store, workdir: Path, n_aids: int, zero_counters,
+                   read_counters) -> dict:
+    """Phase 12e: ``run_two_stage(sgns_config=fasttext, 1 epoch)`` on phase
+    11d's store cut to its first 20,000 sessions (val 0.5, seed 0; 11d's
+    20-tree, 3-fold bce rankers) over ``n_aids`` aids, enough for the SGNS
+    table to take the fused route: the first run trains SGNS, saves ``sgns.npz``
+    and the rankers (K1, K2, K5, K4 bin launch); the second resumes them
+    (no SGNS training, no K5), and its lists equal ``predict_two_stage``
+    with the saved artifacts (the first run's lists rank out-of-fold
+    scores, so they differ, as in 11d)."""
+    from otto_tpu_torch import twostage
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.data.splits import split_by_fraction
+
+    sp = split_by_fraction(head_sessions(bench_store, 20_000), val_fraction=0.5, seed=0)
+    adir = workdir / "two_stage_sgns"
+    kw = dict(labels=sp.val_labels, sgns_config=sgns_config("fasttext"),
+              ranker_config=GBDTConfig(n_trees=20, n_folds=3, min_data_in_leaf=200,
+                                       loss="bce"),
+              artifact_dir=adir, device=dev)
+    trained = []
+
+    def counted(real):
+        def train(*args, **kwargs):
+            trained.append(1)
+            return real(*args, **kwargs)
+        return train
+
+    res = {}
+    with wrapped(twostage, "train_sgns", counted):
+        for run, expect in (("first", ("fused_stage1", "peel_rows", "node_histograms",
+                                       "bin_rows")),
+                            ("resumed", ("fused_stage1", "peel_rows", "predict_forest_rows"))):
+            zero_counters()
+            stats = {}
+            t0 = time.perf_counter()
+            art = twostage.run_two_stage(sp.train, sp.val_input, n_aids, stats_out=stats, **kw)
+            sync(torch, dev)
+            secs = time.perf_counter() - t0
+            launches = read_counters(f"run_two_stage with sgns_config, {run} run", expect)
+            res[run] = {"s": secs, "sgns_s": stats["sgns_s"], "launches": launches,
+                        "weighted": art.report.weighted, "trainings": len(trained)}
+            print(f"12e run_two_stage(sgns_config) {run} run, {sp.val_input.n_sessions} target "
+                  f"sessions: {secs:.2f} s, weighted {art.report.weighted:.6f}; SGNS "
+                  f"trainings so far {len(trained)}; stages (s): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in stats.items()), flush=True)
+    check(res["first"]["trainings"] == 1 and (adir / "sgns.npz").exists(),
+          "the first run did not train and save SGNS")
+    check(res["resumed"]["trainings"] == 1 and res["resumed"]["launches"]["node_histograms"] == 0,
+          "the resumed run trained SGNS or a ranker")
+    want = twostage.predict_two_stage(twostage.TwoStageArtifacts.load(adir, device=dev),
+                                      sp.train, sp.val_input, n_aids, device=dev)
+    for t in TYPE_NAMES:
+        check(np.array_equal(art.predictions[t], want[t]),
+              f"12e resumed {t} lists differ from predict_two_stage's")
+    print("12e the resumed lists equal predict_two_stage with the saved artifacts", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2335,6 +2746,7 @@ def main() -> int:
         two_stage_sgns = two_stage_knn(torch, dev, model, path, 2000, zero_counters,
                                        read_counters)
     phase7_store, phase7_report = path["store"], path["covisitation_report"]
+    phase7_target = path["target"]
     del model, path
 
     workdir = REPO / "tmp" / "chip_smoke_cli"
@@ -2348,7 +2760,6 @@ def main() -> int:
         with phase("10c CLI aid_weight submission on the parquet"):
             cli_aid_weight_run = cli_aid_weight(torch, dev, files, phase7_store, workdir,
                                                 zero_counters, read_counters)
-        del phase7_store
         with phase("10d CLI two_stage validation from a copy of artifacts/bench_e2e"):
             cli_two_stage_run = cli_two_stage(torch, dev, bench_store, workdir, zero_counters,
                                               read_counters)
@@ -2395,23 +2806,68 @@ def main() -> int:
         "node_histograms_launches": refit_run["launches"]["node_histograms"],
         "bin_rows_launches": refit_run["launches"]["bin_rows"]}), flush=True)
 
+    for cut in SGNS_CUTS:
+        print(f"phase 12 cut: {cut}", flush=True)
+    with phase("12a the SGNS steps at full width, card against CPU"):
+        steps = sgns_steps(torch, dev, phase7_store, N_AIDS)
+    with phase("12b the SGNS trainers, one epoch on phase 7's store"):
+        trainers = sgns_trainers(torch, dev, phase7_store, N_AIDS)
+    torch.cuda.empty_cache()
+    with phase("12c a trained table through the kernels (planted clusters)"):
+        planted = trained_table(torch, dev, phase7_target, N_AIDS, zero_counters,
+                                read_counters)
+    del phase7_target
+    torch.cuda.empty_cache()
+    workdir = REPO / "tmp" / "chip_smoke_sgns"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        with phase("12d the CLI: embedding_knn and doc2vec"):
+            cli_s1 = cli_sgns(torch, dev, phase7_store, workdir, N_AIDS, zero_counters,
+                              read_counters)
+        del phase7_store
+        torch.cuda.empty_cache()
+        with phase("12e run_two_stage with sgns_config: trains, then resumes"):
+            ts_sgns = two_stage_trains_sgns(torch, dev, bench_store, workdir, TWO_STAGE_SGNS_AIDS,
+                                     zero_counters, read_counters)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("phase 12 metrics: " + json.dumps({
+        "steps": steps, "trainers": trainers,
+        "planted": {k: planted[k] for k in ("same_cluster", "recall", "table_s", "train_s")},
+        "cli_s": {k: v["s"] for k, v in cli_s1.items()},
+        "cli_train_s": {k: v["train_s"] for k, v in cli_s1.items()},
+        "cli_weighted": {k: v["weighted"] for k, v in cli_s1.items()},
+        "two_stage_s": {k: v["s"] for k, v in ts_sgns.items()},
+        "two_stage_sgns_s": {k: v["sgns_s"] for k, v in ts_sgns.items()}}), flush=True)
+
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
     # the forest kernel's float-row entry on the two-stage path, its uint8
     # entry on the pre-binned scoring path, the histogram and binning kernels
-    # on the bench refit); launches_by_path adds the file CLI's aid_weight and
-    # two_stage runs, and its training and resumed two_stage runs
+    # on the bench refit), plus its launches on the SGNS paths of phase 12
+    # (a trained table's neighbor table and serving, the CLI's embedding_knn
+    # and doc2vec runs, run_two_stage training SGNS and resuming it);
+    # launches_by_path adds the file CLI's aid_weight and two_stage runs, and
+    # its training and resumed two_stage runs
+    sgns_paths = {"sgns_trained_table": planted["launches"],
+                  "cli_embedding_knn_validation": cli_s1["embedding_knn validation"]["launches"],
+                  "cli_doc2vec_validation": cli_s1["doc2vec validation"]["launches"],
+                  "cli_embedding_knn_submission": cli_s1["embedding_knn submission"]["launches"],
+                  "two_stage_sgns_train": ts_sgns["first"]["launches"],
+                  "two_stage_sgns_resumed": ts_sgns["resumed"]["launches"]}
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
              "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
              "cli_two_stage_train": cli_train_run["launches"],
-             "cli_two_stage_resumed": cli_train_run["resumed"]}
+             "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
-        rec["launches"] = home[rec["name"]][rec["name"]]
+        rec["launches"] = home[rec["name"]][rec["name"]] + sum(
+            c[rec["name"]] for c in sgns_paths.values())
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Models (port of ``otto_tpu/models``): SGNS inference and the
-embedding-kNN recommender, frequency statistics, the aid-weight baseline,
+"""Models (port of ``otto_tpu/models``): SGNS training and inference, the
+embedding-kNN and session-embedding recommenders, frequency statistics, the aid-weight baseline,
 covisitation construction and the covisitation heuristic, the candidate
 generators, GBDT inference and the file ensemble."""
 
@@ -16,7 +16,14 @@ from otto_tpu_torch.models.covisitation import (
     covisit_heuristic_predictions,
     session_unique_counts,
 )
-from otto_tpu_torch.models.embeddings import SGNSModel, embedding_knn_predictions
+from otto_tpu_torch.models.embeddings import (
+    SessionEmbeddingModel,
+    SGNSModel,
+    embedding_knn_predictions,
+    session_embeddings,
+    train_sgns,
+    train_sgns_device,
+)
 from otto_tpu_torch.models.frequency import FrequencyStatistics, aid_frequency_predictions
 from otto_tpu_torch.models.gbdt import GBDTForest, GBDTRankerModel, load_ranker_model
 from otto_tpu_torch.models.recency import aid_weight_predictions

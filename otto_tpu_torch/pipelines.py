@@ -5,18 +5,20 @@ argparse ``__main__`` with a ``mode in {validation, submission}`` contract
 writing files under hardcoded paths.  Here the equivalents are plain
 functions over in-memory stores on an explicit ``device``
 (``run_aid_frequency``, ``run_aid_weight``, ``run_covisit_heuristic``, the
-file ensemble ``run_ensemble``), plus the file CLI::
+SGNS recommenders ``run_embedding_knn`` and ``run_doc2vec``, the file
+ensemble ``run_ensemble``), plus the file CLI::
 
     python -m otto_tpu_torch.pipelines <model> <validation|submission> \
         --events <file.parquet|file.jsonl> [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda``; without a card that raises, it never
-runs quietly on the CPU.  ``two_stage`` and ``two_stage_streamed`` (both
-modes, ``--ranker gbdt``) train the fold GBDT rankers of ``--config`` (a
-``GBDTConfig`` YAML) where ``--artifact-dir`` holds none, or resume those it
-holds.  What is not ported raises ``NotImplementedError`` naming its
-ROADMAP item: the listwise tower (``--ranker tower``, ``tfidf``,
-``sequence``: M12) and SGNS training (``embedding_knn``, ``doc2vec``: S1).
+runs quietly on the CPU.  ``embedding_knn`` and ``doc2vec`` train SGNS
+with ``--config`` (an ``SGNSConfig`` YAML; default ``SGNSConfig()``).
+``two_stage`` and ``two_stage_streamed`` (both modes, ``--ranker gbdt``)
+train the fold GBDT rankers of ``--config`` (a ``GBDTConfig`` YAML) where
+``--artifact-dir`` holds none, or resume those it holds.  What is not
+ported raises ``NotImplementedError`` naming its ROADMAP item: the listwise
+tower (``--ranker tower``, ``tfidf``, ``sequence``: M12).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import DataConfig, GBDTConfig
+from otto_tpu_torch.config import DataConfig, GBDTConfig, SGNSConfig
 from otto_tpu_torch.data import splits, submission
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
@@ -116,10 +118,54 @@ def run_covisit_heuristic(
     return BaselineResult(preds, _report("covisitation heuristic", labels, preds, device))
 
 
+def run_embedding_knn(
+    train: EventStore,
+    target: EventStore,
+    n_aids: int,
+    labels: SessionLabels | None = None,
+    k: int = TOP_K,
+    config_path: str | None = None,
+    *,
+    device: str | torch.device,
+) -> BaselineResult:
+    """SGNS embeddings + kNN serving (reference: src/gensim_fasttext/
+    {trainer,inference}.py; n_nns 21 in validation, 101 in submission)."""
+    from otto_tpu_torch.models.embeddings import embedding_knn_predictions, train_sgns
+
+    cfg = SGNSConfig.from_yaml(config_path) if config_path else SGNSConfig()
+    sgns = train_sgns(train, n_aids, cfg, device=device)
+    table = sgns.neighbor_table(k=21 if labels is not None else 101)
+    preds = embedding_knn_predictions(target, table, k=k, device=device)
+    return BaselineResult(preds, _report("embedding-knn", labels, preds, device))
+
+
+def run_doc2vec(
+    train: EventStore,
+    target: EventStore,
+    n_aids: int,
+    labels: SessionLabels | None = None,
+    k: int = TOP_K,
+    config_path: str | None = None,
+    *,
+    device: str | torch.device,
+) -> BaselineResult:
+    """Doc2Vec analog: pooled session embeddings + similar-session retrieval
+    (reference: gensim Doc2Vec mode of src/gensim_fasttext/trainer.py:41-59)."""
+    from otto_tpu_torch.models.embeddings import SessionEmbeddingModel, train_sgns
+
+    cfg = SGNSConfig.from_yaml(config_path) if config_path else SGNSConfig()
+    sgns = train_sgns(train, n_aids, cfg, device=device)
+    model = SessionEmbeddingModel.fit(train, sgns.embeddings, device=device)
+    preds = model.similar_session_predictions(target, k=k)
+    return BaselineResult(preds, _report("doc2vec-analog", labels, preds, device))
+
+
 MODEL_RUNNERS = {
     "aid_frequency": run_aid_frequency,
     "aid_weight": run_aid_weight,
     "covisitation": run_covisit_heuristic,
+    "embedding_knn": run_embedding_knn,
+    "doc2vec": run_doc2vec,
 }
 
 
@@ -166,11 +212,9 @@ def run_ensemble(
 _NOT_PORTED = {
     "tfidf": "the TF-IDF recommender is not ported yet (ROADMAP M12)",
     "sequence": "the sequence model is not ported yet (ROADMAP M12)",
-    "embedding_knn": "SGNS training is not ported yet (ROADMAP S1)",
-    "doc2vec": "SGNS training is not ported yet (ROADMAP S1)",
 }
-_SERVED = ("aid_frequency, aid_weight, covisitation, ensemble, two_stage and "
-           "two_stage_streamed in both modes, the last two with --ranker gbdt")
+_SERVED = ("aid_frequency, aid_weight, covisitation, embedding_knn, doc2vec, ensemble, "
+           "two_stage and two_stage_streamed in both modes, the last two with --ranker gbdt")
 
 
 def main(argv=None):
@@ -200,9 +244,10 @@ def main(argv=None):
     parser.add_argument("--val-fraction", type=float, default=0.1)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--config", default=None,
-                        help="two_stage / two_stage_streamed: the rankers' GBDTConfig YAML "
-                             "(default GBDTConfig()); the sequence / embedding_knn / doc2vec "
-                             "models are not ported yet")
+                        help="embedding_knn / doc2vec: the SGNSConfig YAML (default "
+                             "SGNSConfig()); two_stage / two_stage_streamed: the rankers' "
+                             "GBDTConfig YAML (default GBDTConfig()); the sequence model is "
+                             "not ported yet")
     parser.add_argument("--ranker", choices=["tower", "gbdt"], default="tower",
                         help="two_stage reranking engine: listwise MLP tower (not ported "
                              "yet, ROADMAP M12) or the histogram GBDT (the reference's "
@@ -315,7 +360,8 @@ def main(argv=None):
         runner = MODEL_RUNNERS[args.model]
         if args.model == "aid_weight":
             return runner(target, labels, device=dev)
-        return runner(train, target, args.n_aids, labels, device=dev)
+        kw = {"config_path": args.config} if args.model in ("embedding_knn", "doc2vec") else {}
+        return runner(train, target, args.n_aids, labels, device=dev, **kw)
 
     if args.mode == "validation":
         sp = splits.split_by_fraction(store, val_fraction=args.val_fraction, seed=args.seed)

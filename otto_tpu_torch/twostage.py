@@ -54,7 +54,7 @@ from otto_tpu_torch.models.covisitation import (
     covisit_heuristic_predictions,
 )
 from otto_tpu_torch.models.frequency import FrequencyStatistics
-from otto_tpu_torch.models.embeddings import SGNSModel
+from otto_tpu_torch.models.embeddings import SGNSModel, train_sgns
 from otto_tpu_torch.models.ensemble import robust_scale
 from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model, train_gbdt_ranker
 from otto_tpu_torch.models.ranker import RankerData, top_k_predictions
@@ -341,11 +341,14 @@ def run_two_stage(
     ranker_config: GBDTConfig = GBDTConfig(),
     second_ranker_config: GBDTConfig | None = None,
     blend_weights: tuple[float, float] = (0.5, 0.5),
+    prior_blend: bool = True,
     sgns_config: SGNSConfig | None = None,
     feature_list: list[str] = RANKER_FEATURES,
+    ft_k: int = 20,
     uniq_cap: int = 64,
     k_covisit: int = 100,
     matrices: CovisitationMatrices | None = None,
+    sgns: SGNSModel | None = None,
     artifact_dir=None,
     selection_fraction: float = 0.5,
     selection_seed: int = 17,
@@ -365,13 +368,19 @@ def run_two_stage(
     of ``ranker_config`` is fit on the type's candidate grid (folds,
     negative sampling, MAP@20 early stopping: :func:`train_gbdt_ranker`),
     and with ``second_ranker_config`` a second one, blended with the first
-    by ``blend_weights`` (robust-scaled).  The prior blend's alpha is then
-    selected over ``PRIOR_ALPHAS`` by recall on the *selection* sessions and
-    stored in the ranker.  ``selection_fraction`` splits the target into
+    by ``blend_weights`` (robust-scaled).  With ``prior_blend`` the prior
+    blend's alpha is then selected over ``PRIOR_ALPHAS`` by recall on the
+    *selection* sessions and stored in the ranker; without, the lists rank
+    the ranker's scores.  ``selection_fraction`` splits the target into
     those and a disjoint *report* subset scored by ``report_disjoint`` (the
     reference's OOF-vs-holdout split, src/ranker/inference.py:321-337);
     ``report`` covers all sessions, and fold recalls and early stopping see
     only the selection sessions.
+
+    SGNS embeddings add the kNN candidate route (each aid's ``ft_k``
+    neighbors): ``sgns`` when given, else with ``sgns_config`` the
+    directory's ``sgns.npz``, else a model trained on ``train`` with
+    :func:`train_sgns` (saved as ``sgns.npz`` when there is a directory).
 
     ``artifact_dir`` enables per-stage persistence and resume: what the
     directory holds is reloaded (``covisitation/``, ``sgns.npz`` when
@@ -384,11 +393,11 @@ def run_two_stage(
     the end (the covisitation tables only when they were passed in, since
     tables read from or built into the directory are there already).
 
-    A tower config raises (ROADMAP M12), as does ``sgns_config`` without
-    ``sgns.npz`` (SGNS training, S1); ``labels=None`` raises ``ValueError``,
-    as in the reference (prediction is :func:`predict_two_stage`).
-    ``stats_out`` receives the seconds of each stage, ``train_s`` the
-    rankers' fits.
+    A tower config raises (ROADMAP M12); ``labels=None`` raises
+    ``ValueError``, as in the reference (prediction is
+    :func:`predict_two_stage`).  ``stats_out`` receives the seconds of each
+    stage, ``train_s`` the rankers' fits and ``sgns_s`` the SGNS stage (its
+    load or training and save, and its neighbor table).
     """
     if labels is None:
         raise ValueError("run_two_stage evaluates labeled sessions; prediction-only mode "
@@ -400,14 +409,10 @@ def run_two_stage(
             raise NotImplementedError(f"run_two_stage: {to_train} would train a "
                                       f"{type(cfg).__name__}; only GBDTConfig trains here, the "
                                       "listwise tower is not ported yet (ROADMAP M12)")
-    if sgns_config is not None and (adir is None or not (adir / "sgns.npz").exists()):
-        raise NotImplementedError("run_two_stage: sgns_config without sgns.npz in "
-                                  "artifact_dir trains SGNS, which is not ported yet "
-                                  "(ROADMAP S1)")
     if adir is not None:
         adir.mkdir(parents=True, exist_ok=True)
     dev = resolve_device(device)
-    times = dict.fromkeys(("covisit_s", "candidates_s", "heuristic_s", "union_s",
+    times = dict.fromkeys(("covisit_s", "sgns_s", "candidates_s", "heuristic_s", "union_s",
                            "features_s", "forest_s", "train_s", "blend_s", "report_s",
                            "save_s"), 0.0)
     clock = time.perf_counter
@@ -424,12 +429,19 @@ def run_two_stage(
         if adir is not None:
             matrices.save(adir / "covisitation")
             matrices_on_disk = True
-    sgns = None
-    if sgns_config is not None:
+    times["covisit_s"] = clock() - t0
+    t0 = clock()
+    if (sgns_config is not None and sgns is None and adir is not None
+            and (adir / "sgns.npz").exists()):
         log.info("resuming SGNS embeddings from %s", adir)
         sgns = SGNSModel.load(adir / "sgns.npz", sgns_config, device=dev)
-    ft_neighbors = sgns.neighbor_table(k=20) if sgns is not None else None
-    times["covisit_s"] = clock() - t0
+    if sgns_config is not None and sgns is None:
+        log.info("training SGNS embeddings")
+        sgns = train_sgns(train, n_aids, sgns_config, device=dev)
+        if adir is not None:
+            sgns.save(adir / "sgns.npz")
+    ft_neighbors = sgns.neighbor_table(k=ft_k) if sgns is not None else None
+    times["sgns_s"] = clock() - t0
 
     # ---- stage 1: candidates ---------------------------------------------
     t0 = clock()
@@ -517,9 +529,9 @@ def run_two_stage(
         rankers[etype] = model
         t0 = clock()
         hr = None if heur_rank is None else heur_rank[etype]
-        if resumed and not np.isnan(model.prior_alpha):  # the alpha selected before
-            scores = _prior_scores(c, scores, hr, model.prior_alpha)
-        else:
+        if prior_blend and resumed and not np.isnan(model.prior_alpha):
+            scores = _prior_scores(c, scores, hr, model.prior_alpha)  # the alpha selected before
+        elif prior_blend:
             scores, model.prior_alpha = _prior_blend(c, scores, eval_fn, heur_rank=hr)
             log.info("%s: prior-blend alpha %.2f", etype, model.prior_alpha)
         predictions[etype] = top_k_predictions(c, scores, k=TOP_K)

@@ -382,14 +382,44 @@ def test_main_two_stage_equal_to_in_memory_calls(tmp_path):
     (["two_stage", "submission"], "M12"),
     (["tfidf", "validation"], "M12"),
     (["sequence", "submission"], "M12"),
-    (["embedding_knn", "validation"], "S1"),
-    (["doc2vec", "submission"], "S1"),
 ])
 def test_main_raises_for_what_is_not_ported(cli_files, argv, match):
     d, _, _ = cli_files
     with pytest.raises(NotImplementedError, match=match):
         tpipe.main(argv + ["--events", str(d / "events.parquet"), "--n-aids", str(N_AIDS),
                            "--device", "cpu"])
+
+
+@pytest.mark.parametrize("mode", ["validation", "submission"])
+@pytest.mark.parametrize("model", ["embedding_knn", "doc2vec"])
+def test_main_serves_sgns_models(cli_files, tmp_path, model, mode):
+    """``embedding_knn`` and ``doc2vec`` train SGNS with ``--config`` (an
+    ``SGNSConfig`` YAML): the report, or the submission file, equals the
+    runner's on the same split (the same CPU arithmetic: equal)."""
+    from otto_tpu_torch.config import SGNSConfig
+
+    d, store, _ = cli_files
+    cfg = tmp_path / "sgns.yaml"
+    cfg.write_text("dim: 16\nwindow: 4\nnegatives: 5\nepochs: 1\nbatch_centers: 1024\n")
+    out = tmp_path / "sub.csv.gz"
+    got = tpipe.main([model, mode, "--events", str(d / "events.parquet"), "--n-aids",
+                      str(N_AIDS), "--config", str(cfg), "--output", str(out),
+                      "--device", "cpu"])
+    assert SGNSConfig.from_yaml(cfg).epochs == 1
+    runner = tpipe.MODEL_RUNNERS[model]
+    if mode == "validation":
+        sp = split_by_fraction(store, val_fraction=0.1, seed=42)
+        want = runner(sp.train, sp.val_input, N_AIDS, sp.val_labels, config_path=str(cfg),
+                      device="cpu")
+        assert got.report == want.report and 0 < got.report.weighted < 1
+    else:
+        want = runner(store, store, N_AIDS, None, config_path=str(cfg), device="cpu")
+        assert got.report is None
+        lists = _lists(tsub.read_submission(out), store.session_ids)
+        for t in EVENT_TYPES:
+            np.testing.assert_array_equal(lists[t], want.predictions[t], err_msg=t)
+    for t in EVENT_TYPES:
+        np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)
 
 
 def test_main_device_defaults_to_cuda_and_never_falls_back(cli_files, monkeypatch):

@@ -36,7 +36,6 @@ from otto_tpu.models.candidates import CandidateSet as JCandidateSet
 from otto_tpu.config import RankerConfig as JRankerConfig
 from otto_tpu.models.gbdt import GBDTConfig as JGBDTConfig
 from otto_tpu_torch import twostage as tts
-from otto_tpu_torch.config import SGNSConfig
 from otto_tpu_torch.data.splits import split_by_time
 from otto_tpu_torch.data.synthetic import synthetic_events_v2
 from otto_tpu_torch.models.candidates import CandidateSet
@@ -188,7 +187,7 @@ def test_union_relabels_widened_grid_and_prior_blend_selects_alpha_as_jax():
 
 
 @pytest.mark.parametrize("case", ["no_artifact_dir", "missing_ranker", "second_ranker",
-                                  "sgns_training", "no_labels"])
+                                  "no_labels"])
 def test_what_would_train_raises_and_names_its_item(data, tmp_path, case):
     n_aids, _, (train, target, labels) = data
     rankers = ["clicks"] if case == "missing_ranker" else list(EVENT_TYPES)
@@ -206,8 +205,6 @@ def test_what_would_train_raises_and_names_its_item(data, tmp_path, case):
     elif case == "second_ranker":
         kw["artifact_dir"], kw["second_ranker_config"] = None, JRankerConfig()
         err, match = NotImplementedError, "M12"
-    elif case == "sgns_training":
-        kw["sgns_config"], err, match = SGNSConfig(), NotImplementedError, "S1"
     else:
         kw["labels"], err, match = None, ValueError, "predict_two_stage"
     with pytest.raises(err, match=match):

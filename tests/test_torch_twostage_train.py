@@ -81,6 +81,46 @@ def _stub_engine(pkg, calls: list):
     return engine
 
 
+def _sum_engine(pkg, calls: list):
+    """``_train_engine`` returning the committed clicks model with the sum
+    of each row's finite features as its scores: the same scores in both
+    packages wherever they are handed the same rows, with no forest pass."""
+    def engine(data, cfg, eval_recall, **kw):
+        model = (jg if pkg is jts else tg).load_ranker_model(BENCH / "ranker_clicks.npz")
+        model.prior_alpha = float("nan")
+        x = np.where(np.isfinite(data.features), data.features, 0.0).sum(axis=-1)
+        calls.append({"features": data.features, "candidates": data.candidates})
+        return model, np.where(data.mask, x, -np.inf).astype(np.float32)
+    return engine
+
+
+def test_run_two_stage_without_prior_blend_equal_to_jax(data, tmp_path, monkeypatch):
+    """``prior_blend=False``: the lists rank the ranker's scores, no alpha
+    is selected or stored, as in the JAX package."""
+    n_aids, (j_train, j_target, j_labels), (t_train, t_target, t_labels) = data
+    calls = {"jax": [], "port": []}
+    monkeypatch.setattr(jts, "_train_engine", _sum_engine(jts, calls["jax"]))
+    monkeypatch.setattr(tts, "_train_engine", _sum_engine(tts, calls["port"]))
+    want = jts.run_two_stage(j_train, j_target, n_aids, labels=j_labels, prior_blend=False,
+                             ranker_config=JGBDTConfig(),
+                             matrices=JMatrices.load(BENCH / "covisitation"),
+                             artifact_dir=tmp_path / "jax", chunk_sessions=CHUNK)
+    got = tts.run_two_stage(t_train, t_target, n_aids, labels=t_labels, prior_blend=False,
+                            matrices=CovisitationMatrices.load(BENCH / "covisitation"),
+                            artifact_dir=tmp_path / "port", chunk_sessions=CHUNK,
+                            device="cpu")
+    for g, w in zip(calls["port"], calls["jax"]):
+        np.testing.assert_array_equal(g["features"], w["features"])
+    for t in EVENT_TYPES:
+        assert np.isnan(got.rankers[t].prior_alpha) and np.isnan(want.rankers[t].prior_alpha)
+        np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)
+    _same_report(got.report, want.report)
+    blended = tts.run_two_stage(t_train, t_target, n_aids, labels=t_labels,
+                                matrices=CovisitationMatrices.load(BENCH / "covisitation"),
+                                chunk_sessions=CHUNK, device="cpu")
+    assert any((blended.predictions[t] != got.predictions[t]).any() for t in EVENT_TYPES)
+
+
 def test_trained_run_two_stage_equal_to_jax(data, tmp_path, monkeypatch):
     """A first and a second ranker a type, blended half and half."""
     n_aids, (j_train, j_target, j_labels), (t_train, t_target, t_labels) = data
