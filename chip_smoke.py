@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA card: the
 embedding-kNN path, the baselines with the covisitation heuristic, the
-two-stage prediction path, the file CLI, GBDT training and SGNS training.
+two-stage prediction path, the file CLI, GBDT training, SGNS training, the
+listwise tower ranker and the TF-IDF recommender.
 
     python3 chip_smoke.py
 
@@ -120,8 +121,8 @@ exit code):
    graph), the twin's, ``index_add_``'s, the list's split and the bound;
    then the binning kernel on the refit's clicks features against its
    twin and numpy (times of the kernel, the twin and ``torch.searchsorted``,
-   and the bound); 11b one tree on dyadic grad/hess, card against the CPU
-   twin, bit-equal; two 10-tree bce fits on the card bit-identical; a
+   and the bound); 11b one tree on dyadic grad/hess on the fold's first
+   2,000 sessions, card against the CPU twin, bit-equal; two 10-tree bce fits on the card bit-identical; a
    5-tree lambdarank fit (``configs/gbdt_lambdarank.yaml``, trees cut) and
    ``_lambdarank_gh`` on its scores, card within 1e-5 relative of the CPU;
    11d the CLI's ``two_stage validation --config <20 trees, 3 folds>`` on
@@ -149,7 +150,29 @@ exit code):
    parquet, the file equal to the runner's lists; 12e ``run_two_stage``
    with ``sgns_config`` on phase 11d's store cut to 20,000 sessions over a
    100,000-aid catalog: trains SGNS and the rankers and saves, then
-   resumes with no training and lists equal to ``predict_two_stage``.
+   resumes with no training and lists equal to ``predict_two_stage``;
+13. the listwise tower at ``configs/ranker.yaml``'s widths ((256, 256, 128),
+   55 features), each cut printed: 13a the forward at [4,096 x 184 x 55]
+   (its first 512 sessions against the CPU: 99% of scores within 1e-5 *
+   (|s| + 1e-3), every one within 4e-3 * max |s|), one lambdarank step at
+   [512 x 184 x 55] card against CPU (loss within 1e-5 relative in float32
+   compute, 1e-4 in bfloat16), ms a step, and candidates scored per second
+   at the reference bench's [1,024 x 128 x 52] against the float32 bound;
+   13b ``run_two_stage(ranker_config=<configs/ranker.yaml>)`` on phase
+   11d's store cut to 20,000 sessions into an empty directory (``train_s``,
+   steps, each fold's loss falling from its first epoch to its last,
+   MAP@20 per fold, ``report``, ``report_disjoint``, the paired bootstrap
+   of the lift over the heuristic on the disjoint half with its ci95 upper
+   end above 0), the same call resumed (no step; lists equal to
+   ``predict_two_stage``), and on the store's first 10,000 sessions the
+   tower paired with a small GBDT (K5, K4 and K4 bin launch) and
+   ``run_two_stage_streamed`` training a tower; 13c the
+   CLI's ``two_stage validation`` with no ``--ranker`` (the tower) into an
+   empty directory, then resumed: reports, lists and files equal 13b's
+   in-memory runs; 13d ``tfidf validation`` on phase 7's store as
+   ``.jsonl`` (seconds, recall) and, on 2,000 target sessions, the card
+   against the CPU (lists equal but for near-ties of the float32 scan,
+   counted).
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -2071,8 +2094,9 @@ def bin_rows_vs_twin(torch, dev, typed) -> dict:
             "bound_by": b_by, "library_ms": lib}
 
 
-def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
-    """Phase 11b: on the first clicks fold's rows, one tree on dyadic
+def fits_card_vs_cpu(torch, dev, fold: dict, tree_sessions: int = 2_000) -> None:
+    """Phase 11b: on the first ``tree_sessions`` sessions of the first
+    clicks fold (the CPU twin takes ~18 us a row), one tree on dyadic
     grad/hess (k/1024, |k| <= 7: every histogram cell and cumulative sum is
     exact in float32, so the card and the CPU sum the same numbers):
     ``_grow_tree`` on the card equals the CPU twin's in features,
@@ -2089,9 +2113,10 @@ def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
     S, C, F = binned.shape
     rng = np.random.default_rng(SEED + 12)
     n = S * C
-    host = [binned.reshape(n, F), (rng.integers(-7, 8, n) / 1024).astype(np.float32),
-            (rng.integers(1, 8, n) / 1024).astype(np.float32), weight.reshape(n),
-            np.ones(n, np.float32), np.ones(F, bool)]
+    nt = min(S, tree_sessions) * C
+    host = [binned.reshape(n, F)[:nt], (rng.integers(-7, 8, nt) / 1024).astype(np.float32),
+            (rng.integers(1, 8, nt) / 1024).astype(np.float32), weight.reshape(n)[:nt],
+            np.ones(nt, np.float32), np.ones(F, bool)]
     scalars = (cfg.reg_lambda, cfg.min_split_gain, cfg.min_data_in_leaf, cfg.min_child_weight,
                cfg.learning_rate)
     kw = dict(depth=cfg.max_depth, n_bins=cfg.n_bins)
@@ -2108,7 +2133,7 @@ def fits_card_vs_cpu(torch, dev, fold: dict) -> None:
         check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
               f"_grow_tree on dyadic grad/hess: {name} differs between the card and the CPU")
     splits = int((card[1] < cfg.n_bins).sum())
-    print(f"_grow_tree on dyadic grad/hess, [{n} x {F}]: card {card_s:.2f} s, CPU twin "
+    print(f"_grow_tree on dyadic grad/hess, [{nt} x {F}]: card {card_s:.2f} s, CPU twin "
           f"{cpu_s:.2f} s; features, thresholds, leaves, gains and leaf ids bit-equal "
           f"({splits} of {len(card[1])} nodes split)", flush=True)
 
@@ -2619,6 +2644,396 @@ def two_stage_trains_sgns(torch, dev, bench_store, workdir: Path, n_aids: int, z
     return res
 
 
+# ------------------------------------------------------------- phase 13
+# The listwise tower at its published widths (configs/ranker.yaml: (256,
+# 256, 128), lambdarank, 5 folds, 5 epochs, 512 sessions a step; dropout 0.1,
+# RankerConfig's default, since the file sets none) over the two-stage
+# path's 55 features (RANKER_FEATURES and heuristic_rank_score).
+TOWER_CONFIG = REPO / "configs" / "ranker.yaml"
+# 13a: the forward card against the CPU (the limits of
+# tests/test_torch_ranker.py), one step's loss in float32 and bfloat16
+# compute, and the reference bench's scoring shape (bench.py:360-362,
+# 509-518: one tower over [1,024 x 128 x 52]).
+TOWER_SHARE, TOWER_REL, TOWER_FLOOR, TOWER_WORST = 0.99, 1e-5, 1e-3, 4e-3
+STEP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
+BENCH_TOWER = (1024, 128, 52)
+TOWER_CUTS = ("13b-13c: phase 11d's store cut to its first 20,000 sessions (10,000 target, "
+              "val 0.5, seed 0) over the bench's 20,000 aids; the tower/GBDT pair and the "
+              "streamed run on its first 10,000 (5,000 target), the pair's tower cut to 1 "
+              "epoch and its GBDT to 10 trees, 2 folds; the streamed run trains on 2,500 of "
+              "the 5,000 target sessions and streams the other 2,500",
+              "13d: phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 "
+              "events; the OTTO week has ~220M events) as .jsonl; card vs CPU on the first "
+              "2,000 target sessions")
+
+
+def tower_flops(n_features: int, hidden) -> int:
+    """Multiply-adds times two of one candidate through the tower."""
+    dims = [n_features, *hidden, 1]
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def seeded_tower(torch, n_features: int, hidden, seed: int):
+    """Tower parameters from ``init_tower`` (a seeded generator) with
+    nonzero biases, so every layer's sum is exercised."""
+    from otto_tpu_torch.models import ranker
+
+    params = ranker.init_tower(n_features, hidden, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = torch.from_numpy((rng.normal(size=params[k].shape) * 0.1)
+                                         .astype(np.float32))
+    return params
+
+
+def tower_full_width(torch, dev, n_sessions: int = 4096, n_check: int = 512,
+                     width: int = 184, bench_shape=BENCH_TOWER) -> dict:
+    """Phase 13a: the forward at [4,096 x 184 x 55] on the card, its first
+    512 sessions against the CPU (99% of scores within 1e-5 * (|s| + 1e-3),
+    every one within 4e-3 * max |s|); one lambdarank step at [512 x 184 x
+    55] in float32 and in bfloat16 compute, card against CPU (the loss
+    within 1e-5 and 1e-4 relative); ms a step on the card (bfloat16,
+    dropout on, as training runs it); candidates scored per second at the
+    reference bench's [1,024 x 128 x 52] (``bench_shape``) against the
+    bound of the route the products take."""
+    from otto_tpu_torch.config import RankerConfig
+    from otto_tpu_torch.features import RANKER_FEATURES
+    from otto_tpu_torch.models import ranker
+    from otto_tpu_torch.utils.runtime import full_f32_matmul
+
+    cfg = RankerConfig.from_yaml(TOWER_CONFIG)
+    F = len(RANKER_FEATURES) + 1
+    rng = np.random.default_rng(SEED + 13)
+    params = seeded_tower(torch, F, cfg.hidden_dims, SEED)
+    x = torch.from_numpy((rng.normal(size=(n_sessions, width, F)) * 3).astype(np.float32))
+    card, cpu = ranker.Tower(params).to(dev), ranker.Tower(params)
+    with torch.no_grad(), full_f32_matmul():
+        got = card(x.to(dev)).cpu().numpy()
+        t0 = time.perf_counter()
+        want = cpu(x[:n_check]).numpy()
+        cpu_s = time.perf_counter() - t0
+    check(got.shape == (n_sessions, width) and np.isfinite(got).all(),
+          "tower forward: bad scores")
+    d = np.abs(got[:n_check] - want)
+    share = float((d <= TOWER_REL * (np.abs(want) + TOWER_FLOOR)).mean())
+    worst = float(d.max() / np.abs(want).max())
+    print(f"13a tower forward [{n_sessions} x {width} x {F}] on the card; its first "
+          f"{n_check} sessions vs the "
+          f"CPU ({cpu_s:.2f} s): {100 * share:.3f}% within {TOWER_REL} * (|s| + {TOWER_FLOOR}), "
+          f"largest difference {worst:.3e} of max |s| {np.abs(want).max():.3f}", flush=True)
+    check(share >= TOWER_SHARE and worst <= TOWER_WORST,
+          f"tower forward card vs CPU: {share} within, worst {worst}")
+
+    B = min(cfg.batch_sessions, n_sessions)
+    y = torch.from_numpy((rng.random((B, width)) < 0.1).astype(np.int8))
+    m = torch.from_numpy(rng.random((B, width)) < 0.9)
+    step = {}
+    for compute in ("float32", "bfloat16"):
+        losses, trained = [], []
+        for d_ in (dev, torch.device("cpu")):
+            tower = ranker.Tower(params).to(d_)
+            losses.append(float(ranker.train_step(
+                tower, ranker.make_optimizer(tower, cfg), x[:B].to(d_), y.to(d_), m.to(d_),
+                ranker.learning_rate(cfg, 0), loss=cfg.loss,
+                compute_dtype=getattr(torch, compute))))
+            trained.append(ranker.tower_params_to_numpy(tower))
+        rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        moved = max(float(np.abs(trained[0][k] - trained[1][k]).max()) for k in trained[0])
+        step[compute] = {"loss_card": losses[0], "loss_cpu": losses[1], "rel": rel,
+                         "param_max_diff": moved}
+        print(f"13a one {cfg.loss} step [{B} x {width} x {F}], {compute} compute: loss card "
+              f"{losses[0]:.9g} cpu {losses[1]:.9g} (relative {rel:.2e}); largest parameter "
+              f"difference {moved:.3e} (lr {cfg.learning_rate})", flush=True)
+        check(rel <= STEP_LOSS_RTOL[compute], f"tower step ({compute}): loss relative {rel}")
+
+    tower = ranker.Tower(params).to(dev)
+    opt = ranker.make_optimizer(tower, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xb, yb, mb = x[:B].to(dev), y.to(dev), m.to(dev)
+    step_ms = cuda_ms(torch, lambda: ranker.train_step(
+        tower, opt, xb, yb, mb, ranker.learning_rate(cfg, 0), loss=cfg.loss,
+        dropout=cfg.dropout, generator=gen), reps=20, warmup=3)
+    print(f"13a a training step on the card (bfloat16 compute, dropout {cfg.dropout}): "
+          f"{step_ms:.3f} ms", flush=True)
+
+    B, C, Fb = bench_shape
+    bench = ranker.Tower(seeded_tower(torch, Fb, cfg.hidden_dims, SEED + 1)).to(dev)
+    xb = torch.randn((B, C, Fb), generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+
+    def score():
+        with torch.no_grad(), full_f32_matmul():
+            return bench(xb)
+
+    ms = cuda_ms(torch, score, reps=20, warmup=3)
+    flops = tower_flops(Fb, cfg.hidden_dims) * B * C
+    b_ms, b_by = bound(xb.numel() * 4 + B * C * 4, flops, F32_OPS_PER_S)
+    rate = B * C / (ms / 1e3)
+    print(f"13a candidates scored per second at [{B} x {C} x {Fb}] (one tower, bfloat16 "
+          f"operands, route: float32 products of the rounded values with TF32 off, at the "
+          f"float32 peak of {F32_OPS_PER_S / 1e12:.0f} TFLOP/s): {ms:.4f} ms a call, "
+          f"{rate:.4g} candidates/s; bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP), "
+          f"{100 * b_ms / ms:.1f}% of it", flush=True)
+    return {"forward_share": share, "forward_worst": worst, "step": step, "step_ms": step_ms,
+            "bench_ms": ms, "candidates_per_s": rate, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def artifact_differences(a: Path, b: Path) -> list[str]:
+    """Where two artifact directories' predictions, meta and ranker arrays
+    differ (empty when they are equal)."""
+    names = sorted(p.name for p in a.glob("ranker_*.npz"))
+    if names != sorted(p.name for p in b.glob("ranker_*.npz")):
+        return [f"rankers {names}"]
+    out = []
+    if json.loads((a / "meta.json").read_text()) != json.loads((b / "meta.json").read_text()):
+        out.append("meta.json")
+    for name in ["predictions.npz", *names]:
+        with np.load(a / name, allow_pickle=True) as x, np.load(b / name, allow_pickle=True) as y:
+            for k in sorted(set(x.files) | set(y.files)):
+                if k not in x.files or k not in y.files:
+                    out.append(f"{name}:{k} missing")
+                elif not np.array_equal(x[k], y[k], equal_nan=x[k].dtype.kind == "f"):
+                    diff = (float(np.abs(x[k] - y[k]).max()) if x[k].dtype.kind == "f"
+                            and x[k].shape == y[k].shape else None)
+                    out.append(f"{name}:{k} (max abs diff {diff})")
+    return out
+
+
+def tower_training(torch, dev, bench_store, workdir: Path, zero_counters, read_counters,
+                   n_sessions: int = 20_000) -> dict:
+    """Phase 13b: ``run_two_stage(ranker_config=<configs/ranker.yaml>)`` on
+    phase 11d's store cut to its first 20,000 sessions (val 0.5, seed 0)
+    into an empty artifact directory: ``train_s``, the steps and ms a step,
+    each fold's loss falling from its first epoch to its last, MAP@20 per
+    fold, ``report`` and ``report_disjoint`` and the paired bootstrap of
+    the lift over the heuristic on the disjoint half (1,000 draws; its ci95
+    upper end above 0).  Then the same call resumes (no step) and its lists
+    equal ``predict_two_stage`` with the saved artifacts; the tower paired
+    with a small GBDT (``second_ranker_config``) launches K5, K4 and K4 bin,
+    and ``run_two_stage_streamed`` trains a tower on half the target
+    sessions and streams the other half, both on the store's first
+    ``n_sessions // 2`` sessions.  Returns the runs' numbers and
+    launches."""
+    from otto_tpu_torch import streaming, twostage
+    from otto_tpu_torch.config import GBDTConfig, RankerConfig
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.eval.harness import paired_bootstrap_lift
+    from otto_tpu_torch.models import ranker
+
+    cfg = RankerConfig.from_yaml(TOWER_CONFIG)
+    sp = split_by_fraction(head_sessions(bench_store, n_sessions), val_fraction=0.5, seed=0)
+    adir = workdir / "tower"
+    log = {"steps": 0, "maps": [], "heur": []}
+
+    def count_steps(real):
+        def step(*args, **kwargs):
+            log["steps"] += 1
+            return real(*args, **kwargs)
+        return step
+
+    def keep_maps(real):
+        def fold_map(*args, **kwargs):
+            log["maps"].append(float(real(*args, **kwargs)))
+            return torch.tensor(log["maps"][-1])
+        return fold_map
+
+    def keep_heur(real):
+        def lists(*args):
+            log["heur"].append(real(*args))
+            return log["heur"][-1]
+        return lists
+
+    kw = dict(labels=sp.val_labels, ranker_config=cfg, artifact_dir=adir, device=dev)
+    res = {}
+    with wrapped(ranker, "train_step", count_steps), wrapped(ranker, "map_at_k", keep_maps), \
+            wrapped(twostage, "_heuristic_lists", keep_heur):
+        for run in ("trained", "resumed"):
+            zero_counters()
+            stats, steps0 = {}, log["steps"]
+            t0 = time.perf_counter()
+            art = twostage.run_two_stage(sp.train, sp.val_input, 20_000, stats_out=stats, **kw)
+            sync(torch, dev)
+            secs = time.perf_counter() - t0
+            launches = read_counters(f"run_two_stage with the tower, {run}", ())
+            res[run] = {"s": secs, "stats": stats, "steps": log["steps"] - steps0,
+                        "art": art, "launches": launches}
+            print(f"13b run_two_stage(tower) {run}, {sp.val_input.n_sessions} target sessions: "
+                  f"{secs:.2f} s, {res[run]['steps']} steps; weighted "
+                  f"{art.report.weighted:.6f}, disjoint {art.report_disjoint.weighted:.6f}; "
+                  f"stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stats.items()),
+                  flush=True)
+            if run == "trained":
+                shutil.copytree(adir, workdir / "tower_trained")
+    trained, resumed = res["trained"], res["resumed"]
+    check(resumed["steps"] == 0, "the resumed run trained a tower")
+    art = trained["art"]
+    train_s, steps = trained["stats"]["train_s"], trained["steps"]
+    print(f"13b tower training: train_s {train_s:.2f} s for {steps} steps "
+          f"({1e3 * train_s / steps:.2f} ms a step, fold setup and OOF included)", flush=True)
+    losses = {t: art.rankers[t].epoch_losses for t in TYPE_NAMES}
+    for t in TYPE_NAMES:
+        print(f"13b {t}: per-fold epoch losses "
+              + "; ".join(", ".join(f"{v:.4f}" for v in e) for e in losses[t])
+              + f"; alpha {art.rankers[t].prior_alpha}", flush=True)
+        check(all(e[-1] < e[0] for e in losses[t]), f"13b {t}: a fold's loss did not fall")
+    maps = log["maps"]
+    check(len(maps) == 3 * cfg.n_folds, f"13b: {len(maps)} fold MAP@20 values")
+    print("13b MAP@20 per fold: " + "; ".join(
+        f"{t} " + ", ".join(f"{v:.4f}" for v in maps[i * cfg.n_folds:(i + 1) * cfg.n_folds])
+        for i, t in enumerate(TYPE_NAMES)), flush=True)
+    holdout = np.flatnonzero(~art.selection_mask)
+    heur = log["heur"][0]
+    boot = paired_bootstrap_lift(sp.val_labels.take(holdout),
+                                 {t: art.predictions[t][holdout] for t in TYPE_NAMES},
+                                 {t: heur[t][holdout, :20] for t in TYPE_NAMES}, n_boot=1000,
+                                 seed=17)
+    print(f"13b report {report_fields(art.report)}; report_disjoint ({len(holdout)} sessions) "
+          f"{report_fields(art.report_disjoint)}; lift over the heuristic on the disjoint half "
+          f"{boot['lift']:+.6f} ci95 {boot['ci95']} p<=0 {boot['p_le_0']:.4f}", flush=True)
+    check(boot["ci95"][1] > 0, f"13b: the disjoint lift's ci95 {boot['ci95']} is not above 0")
+    want = twostage.predict_two_stage(twostage.TwoStageArtifacts.load(adir, cfg, device=dev),
+                                      sp.train, sp.val_input, 20_000, device=dev)
+    for t in TYPE_NAMES:
+        check(np.array_equal(resumed["art"].predictions[t], want[t]),
+              f"13b resumed {t} lists differ from predict_two_stage's")
+    differ = {t: int((art.predictions[t] != want[t]).any(axis=1).sum()) for t in TYPE_NAMES}
+    print(f"13b the resumed lists equal predict_two_stage with the saved artifacts; sessions "
+          f"whose lists differ between the training run (out-of-fold scores) and the resumed "
+          f"one (fold average): {differ}", flush=True)
+
+    half = split_by_fraction(head_sessions(bench_store, n_sessions // 2), val_fraction=0.5,
+                             seed=0)
+    pair_cfg = GBDTConfig(n_trees=10, n_folds=2, min_data_in_leaf=200, loss="bce")
+    zero_counters()
+    t0 = time.perf_counter()
+    pair = twostage.run_two_stage(half.train, half.val_input, 20_000, labels=half.val_labels,
+                                  ranker_config=cfg.replace(epochs=1),
+                                  second_ranker_config=pair_cfg, device=dev)
+    sync(torch, dev)
+    pair_s = time.perf_counter() - t0
+    pair_launches = read_counters("run_two_stage, a tower and a GBDT paired",
+                                  ("node_histograms", "predict_forest", "bin_rows"))
+    check(sorted(type(m).__name__ for m in pair.rankers.values())
+          == ["GBDTRankerModel"] * 3 + ["RankerModel"] * 3, "13b: the pair's engines")
+    print(f"13b a tower (1 epoch) paired with a GBDT ({pair_cfg.n_trees} trees, "
+          f"{pair_cfg.n_folds} folds), {half.val_input.n_sessions} target sessions: "
+          f"{pair_s:.2f} s, weighted {pair.report.weighted:.6f}", flush=True)
+
+    stream_train = half.val_input.n_sessions // 2
+    zero_counters()
+    t0 = time.perf_counter()
+    streamed = streaming.run_two_stage_streamed(
+        half.train, half.val_input, 20_000, labels=half.val_labels, ranker_config=cfg,
+        train_sessions=stream_train, n_boot=1000, device=dev)
+    sync(torch, dev)
+    streamed_s = time.perf_counter() - t0
+    streamed_launches = read_counters("run_two_stage_streamed with the tower", ())
+    b = streamed.bootstrap_vs_heuristic
+    check(all(type(m).__name__ == "RankerModel" for m in streamed.artifacts.rankers.values())
+          and streamed.timings["streamed_sessions"] == half.val_input.n_sessions - stream_train,
+          "13b: the streamed run did not train towers and stream the rest")
+    print(f"13b run_two_stage_streamed(tower), {stream_train} trained and "
+          f"{streamed.timings['streamed_sessions']} streamed: {streamed_s:.2f} s (train "
+          f"{streamed.timings['train_s']} s, stream {streamed.timings['stream_s']} s); "
+          f"weighted {streamed.report.weighted:.6f}, lift {b['lift']:+.6f} ci95 {b['ci95']}",
+          flush=True)
+    return {"trained_s": trained["s"], "resumed_s": resumed["s"], "train_s": train_s,
+            "steps": steps, "ms_a_step": 1e3 * train_s / steps, "maps": maps,
+            "weighted": art.report.weighted, "weighted_disjoint": art.report_disjoint.weighted,
+            "lift": boot, "pair_s": pair_s, "streamed_s": streamed_s,
+            "streamed_lift": b, "launches": {"trained": trained["launches"],
+                                             "resumed": resumed["launches"],
+                                             "pair": pair_launches,
+                                             "streamed": streamed_launches},
+            "trained_report": art.report, "resumed_report": resumed["art"].report,
+            "trained_lists": art.predictions, "resumed_lists": resumed["art"].predictions}
+
+
+def tower_cli(torch, dev, bench_store, workdir: Path, trained: dict,
+              n_sessions: int = 20_000) -> dict:
+    """Phase 13c: ``python -m otto_tpu_torch.pipelines two_stage validation``
+    with no ``--ranker`` and no ``--config`` (the tower, ``RankerConfig()``,
+    whose values are configs/ranker.yaml's) on 13b's 20,000 sessions as
+    parquet (``--val-fraction 0.5 --seed 0``), into an empty directory, in
+    this process: it trains, and its report, lists and files equal 13b's
+    training run; the same command again resumes, and equals 13b's resumed
+    run."""
+    from otto_tpu_torch import pipelines
+
+    events, cli_dir = workdir / "bench_20k.parquet", workdir / "cli"
+    head_sessions(bench_store, n_sessions).to_parquet(events)
+    argv = ["two_stage", "validation", "--n-aids", "20000", "--val-fraction", "0.5",
+            "--seed", "0", "--artifact-dir", str(cli_dir), "--events", str(events),
+            "--device", dev.type]
+    out = {}
+    for run, want_dir in (("trained", workdir / "tower_trained"), ("resumed", workdir / "tower")):
+        t0 = time.perf_counter()
+        res = pipelines.main(argv)
+        sync(torch, dev)
+        out[run] = time.perf_counter() - t0
+        same = (res.report == trained[f"{run}_report"]
+                and all(np.array_equal(res.predictions[t], trained[f"{run}_lists"][t])
+                        for t in TYPE_NAMES))
+        check(same, f"13c the CLI's {run} run differs from 13b's in-memory call")
+        differ = artifact_differences(cli_dir, want_dir)
+        check(not differ, f"13c the CLI's {run} files differ from 13b's: {differ}")
+        print(f"13c CLI two_stage validation (default --ranker tower), {run}: {out[run]:.2f} s, "
+              f"weighted {res.report.weighted:.6f}; report, lists and files equal 13b's",
+              flush=True)
+    return out
+
+
+def tfidf_run(torch, dev, store, workdir: Path, n_check: int = 2_000) -> dict:
+    """Phase 13d: ``tfidf validation`` on phase 7's store as ``.jsonl``
+    (the CLI in this process, ``--device cuda``): seconds and weighted
+    recall.  Then on the first 2,000 target sessions the recommender on the
+    card and on the CPU: the lists equal, or, where they differ, each
+    differing session's similar-session sets differ only in near-ties of the
+    float32 scan (float64 scores within 1e-5), counted."""
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.config import DataConfig
+    from otto_tpu_torch.data.ingest import read_jsonl
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.models.tfidf import TfIdfModel, session_vectors
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    jsonl = workdir / "events.jsonl"
+    t0 = time.perf_counter()
+    write_jsonl(store, jsonl)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = pipelines.main(["tfidf", "validation", "--events", str(jsonl), "--device", dev.type])
+    sync(torch, dev)
+    cli_s = time.perf_counter() - t0
+    print(f"13d CLI tfidf validation on the .jsonl ({store.n_sessions} sessions, written in "
+          f"{write_s:.2f} s): {cli_s:.2f} s, weighted {res.report.weighted:.6f} "
+          f"{report_fields(res.report)}", flush=True)
+    check(0 < res.report.weighted < 1, "13d: tfidf's weighted recall")
+    sp = split_by_fraction(read_jsonl(jsonl), val_fraction=0.1, seed=42)
+    model = TfIdfModel.fit(sp.train, DataConfig().n_aids)  # the CLI's --n-aids default
+    target = head_sessions(sp.val_input, n_check)
+    lists = [model.similar_session_predictions(target, device=d)["clicks"]
+             for d in (dev, "cpu")]
+    qv = session_vectors(target, model.n_aids, model.vectors.shape[1])
+    sims = [topk_scan(torch.as_tensor(qv, device=d), torch.as_tensor(model.vectors, device=d),
+                      k=5, block=16384, metric="dot")[1].cpu().numpy() for d in (dev, "cpu")]
+    rows = np.flatnonzero((lists[0] != lists[1]).any(axis=1))
+    for r in rows:
+        # the j-th most similar session of each scan: a near-tie when their
+        # float64 scores agree to 1e-5 at every position
+        exact = model.vectors[np.concatenate([sims[0][r], sims[1][r]])].astype(np.float64) \
+            @ qv[r].astype(np.float64)
+        check(np.abs(exact[:5] - exact[5:]).max() <= 1e-5,
+              f"13d session {r}: card and CPU scans differ beyond near-ties: "
+              f"{sims[0][r].tolist()} vs {sims[1][r].tolist()}, scores {exact.tolist()}")
+    near = len(rows)
+    print(f"13d tfidf on {target.n_sessions} target sessions, card vs CPU: "
+          f"{target.n_sessions - len(rows)} lists equal, {near} differ at near-ties of the "
+          f"float32 scan", flush=True)
+    return {"cli_s": cli_s, "weighted": res.report.weighted, "near_ties": near}
+
+
 def main() -> int:
     import torch
 
@@ -2825,7 +3240,6 @@ def main() -> int:
         with phase("12d the CLI: embedding_knn and doc2vec"):
             cli_s1 = cli_sgns(torch, dev, phase7_store, workdir, N_AIDS, zero_counters,
                               read_counters)
-        del phase7_store
         torch.cuda.empty_cache()
         with phase("12e run_two_stage with sgns_config: trains, then resumes"):
             ts_sgns = two_stage_trains_sgns(torch, dev, bench_store, workdir, TWO_STAGE_SGNS_AIDS,
@@ -2840,6 +3254,35 @@ def main() -> int:
         "cli_weighted": {k: v["weighted"] for k, v in cli_s1.items()},
         "two_stage_s": {k: v["s"] for k, v in ts_sgns.items()},
         "two_stage_sgns_s": {k: v["sgns_s"] for k, v in ts_sgns.items()}}), flush=True)
+
+    for cut in TOWER_CUTS:
+        print(f"phase 13 cut: {cut}", flush=True)
+    with phase("13a the tower at full width, card against CPU"):
+        tower_a = tower_full_width(torch, dev)
+    torch.cuda.empty_cache()
+    workdir = REPO / "tmp" / "chip_smoke_tower"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        with phase("13b run_two_stage trains the tower, resumes, pairs it, streams"):
+            tower_b = tower_training(torch, dev, bench_store, workdir, zero_counters,
+                                     read_counters)
+        with phase("13c the CLI's default ranker: two_stage validation trains, then resumes"):
+            tower_c = tower_cli(torch, dev, bench_store, workdir, tower_b)
+        with phase("13d tfidf validation on phase 7's .jsonl, card against CPU"):
+            tower_d = tfidf_run(torch, dev, phase7_store, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del phase7_store
+    print("phase 13 metrics: " + json.dumps({
+        "forward_share": tower_a["forward_share"], "forward_worst": tower_a["forward_worst"],
+        "step": tower_a["step"], "step_ms": tower_a["step_ms"],
+        "candidates_per_s": tower_a["candidates_per_s"], "bench_ms": tower_a["bench_ms"],
+        "bench_bound_ms": tower_a["bound_ms"],
+        **{k: tower_b[k] for k in ("trained_s", "resumed_s", "train_s", "steps", "ms_a_step",
+                                   "maps", "weighted", "weighted_disjoint", "lift", "pair_s",
+                                   "streamed_s", "streamed_lift")},
+        "cli_s": tower_c, "tfidf": tower_d}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
@@ -2861,7 +3304,8 @@ def main() -> int:
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
              "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
              "cli_two_stage_train": cli_train_run["launches"],
-             "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths}
+             "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths,
+             **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()}}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}

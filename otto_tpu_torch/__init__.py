@@ -4,8 +4,8 @@
 layout and names, so each module's counterpart sits at the same path.  It
 imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
-Ported so far (the embedding-kNN, baseline and two-stage prediction paths,
-and the file CLI):
+Ported so far (the embedding-kNN, baseline and two-stage paths, and the
+file CLI):
 
 - ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy),
                               JSONL ingest, parquet writers and the Kaggle
@@ -19,13 +19,14 @@ and the file CLI):
                               scan, neighbor tables, session ranking and the
                               session vote kernel, multiset and covisitation
                               ops, forest routing (a CUDA kernel)
-- ``otto_tpu_torch.models``   SGNS inference and the embedding-kNN recommender,
-                              frequency and recency baselines, covisitation
-                              and its heuristic, candidate generators, GBDT
-                              inference, the file ensemble
+- ``otto_tpu_torch.models``   SGNS training and inference and the embedding-kNN
+                              recommender, frequency and recency baselines,
+                              covisitation and its heuristic, candidate
+                              generators, GBDT training and inference, the
+                              listwise tower ranker, TF-IDF, the file ensemble
 - ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
-                              prediction with trained artifacts, and
-                              ``run_two_stage``'s resume branch
+                              training (tower or GBDT rankers), resume, and
+                              prediction with trained artifacts
 - ``otto_tpu_torch.pipelines`` the runners and the file CLI
                               (``python -m otto_tpu_torch.pipelines``)
 

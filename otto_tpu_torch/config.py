@@ -2,8 +2,8 @@
 
 Copied from ``otto_tpu/config.py`` (no jax inside): the config base,
 :class:`DataConfig`, :class:`SGNSConfig`, ``COVISIT_KINDS``,
-:class:`CovisitConfig` and :class:`GBDTConfig` (the committed fold models'
-``__config`` is one).  The other model families' configs are copied
+:class:`CovisitConfig`, :class:`RankerConfig` (the listwise tower) and
+:class:`GBDTConfig` (the committed fold models' ``__config`` is one).  The other model families' configs are copied
 with the modules that use them.
 """
 
@@ -109,6 +109,32 @@ class CovisitConfig(ConfigBase):
     cart_weight: float = 6.0
     order_weight: float = 3.0
     accumulator_capacity: int = 64 * 1024 * 1024  # running (key, weight) rows on device
+
+
+@dataclass(frozen=True)
+class RankerConfig(ConfigBase):
+    """Dense scoring tower replacing the LightGBM/XGBoost lambdarank rerankers
+    (reference: src/ranker/lgb_trainer.py + models/lightgbm/config.yaml).
+
+    The fold / sampling semantics mirror the reference: 5-fold GroupKFold by
+    session, negative sampling ratio 0.30 restricted to positive-bearing
+    sessions (lgb_trainer.py:81-133), per-fold OOF recall@20.
+    ``early_stopping_patience`` and ``dtype`` are kept for the JAX package's
+    field set; neither package's trainer reads them."""
+
+    hidden_dims: Sequence[int] = (256, 256, 128)
+    dropout: float = 0.1
+    loss: str = "lambdarank"  # or 'listwise_softmax', 'bce'
+    n_folds: int = 5
+    negative_sampling_ratio: float = 0.30
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5
+    batch_sessions: int = 512  # sessions per step (listwise groups)
+    max_candidates: int = 128  # candidate list width per session (padded)
+    epochs: int = 5
+    early_stopping_patience: int = 200
+    seed: int = 42
+    dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)

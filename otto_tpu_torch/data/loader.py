@@ -32,7 +32,7 @@ class BatchLoader:
 
     def __init__(self, arrays, batch_size: int, *, order: np.ndarray | None = None,
                  drop_remainder: bool = True, transform=None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device):
         self._arrays = tuple(arrays)
         n = len(self._arrays[0])
         for a in self._arrays[1:]:

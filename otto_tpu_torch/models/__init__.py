@@ -1,7 +1,8 @@
 """Models (port of ``otto_tpu/models``): SGNS training and inference, the
 embedding-kNN and session-embedding recommenders, frequency statistics, the aid-weight baseline,
 covisitation construction and the covisitation heuristic, the candidate
-generators, GBDT inference and the file ensemble."""
+generators, GBDT training and inference, the listwise tower ranker, the
+TF-IDF recommender and the file ensemble."""
 
 from otto_tpu_torch.models.candidates import (
     CandidateSet,
@@ -26,4 +27,6 @@ from otto_tpu_torch.models.embeddings import (
 )
 from otto_tpu_torch.models.frequency import FrequencyStatistics, aid_frequency_predictions
 from otto_tpu_torch.models.gbdt import GBDTForest, GBDTRankerModel, load_ranker_model
+from otto_tpu_torch.models.ranker import RankerModel, train_ranker
 from otto_tpu_torch.models.recency import aid_weight_predictions
+from otto_tpu_torch.models.tfidf import TfIdfModel

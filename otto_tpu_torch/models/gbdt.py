@@ -17,7 +17,7 @@ Port of ``otto_tpu/models/gbdt.py``:
 - :class:`GBDTRankerModel`: ``predict``, ``predict_binned_folds``,
   ``feature_importance``, ``save`` and ``load`` (:708-821), and
   :meth:`GBDTRankerModel.from_numpy`, which takes the JAX model's arrays;
-- :func:`load_ranker_model` (:883).
+- :func:`load_ranker_model` (:883), which also loads the listwise tower.
 
 ``save`` and ``load`` read and write the JAX package's npz layout, so a
 model saved by either package loads in the other.  The forest pass goes
@@ -44,10 +44,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from otto_tpu_torch.config import GBDTConfig
+from otto_tpu_torch.config import GBDTConfig, RankerConfig
 from otto_tpu_torch.eval.metrics import map_at_k
 from otto_tpu_torch.logging_utils import get_logger
-from otto_tpu_torch.models.ranker import RankerData, group_kfold, negative_sample_mask
+from otto_tpu_torch.models.ranker import (
+    RankerData,
+    RankerModel,
+    group_kfold,
+    negative_sample_mask,
+)
 from otto_tpu_torch.ops import forest
 from otto_tpu_torch.ops.forest import bin_rows
 from otto_tpu_torch.ops.hist import node_histograms, pad_rows
@@ -720,12 +725,13 @@ def train_gbdt_ranker(
     return model, oof
 
 
-def load_ranker_model(path) -> GBDTRankerModel:
-    """Load a ranker from an npz.  Only the GBDT engine (the ``__gbdt``
-    marker) is ported; the listwise tower's npz raises (ROADMAP M12)."""
+def load_ranker_model(path, tower_config: RankerConfig | None = None):
+    """Load either ranker engine from an npz, dispatching on the ``__gbdt``
+    marker: a :class:`GBDTRankerModel`, or a listwise tower
+    (:class:`~otto_tpu_torch.models.ranker.RankerModel`) with
+    ``tower_config`` (default ``RankerConfig()``)."""
     with np.load(path, allow_pickle=True) as z:
         is_gbdt = "__gbdt" in z.files
-    if not is_gbdt:
-        raise NotImplementedError(f"{path}: a listwise-tower ranker; the tower (RankerModel) "
-                                  "is not ported yet (ROADMAP M12)")
-    return GBDTRankerModel.load(path)
+    if is_gbdt:
+        return GBDTRankerModel.load(path)
+    return RankerModel.load(path, tower_config or RankerConfig())

@@ -5,8 +5,9 @@ argparse ``__main__`` with a ``mode in {validation, submission}`` contract
 writing files under hardcoded paths.  Here the equivalents are plain
 functions over in-memory stores on an explicit ``device``
 (``run_aid_frequency``, ``run_aid_weight``, ``run_covisit_heuristic``, the
-SGNS recommenders ``run_embedding_knn`` and ``run_doc2vec``, the file
-ensemble ``run_ensemble``), plus the file CLI::
+TF-IDF recommender ``run_tfidf``, the SGNS recommenders
+``run_embedding_knn`` and ``run_doc2vec``, the file ensemble
+``run_ensemble``), plus the file CLI::
 
     python -m otto_tpu_torch.pipelines <model> <validation|submission> \
         --events <file.parquet|file.jsonl> [--device cuda|cpu]
@@ -14,11 +15,12 @@ ensemble ``run_ensemble``), plus the file CLI::
 ``--device`` defaults to ``cuda``; without a card that raises, it never
 runs quietly on the CPU.  ``embedding_knn`` and ``doc2vec`` train SGNS
 with ``--config`` (an ``SGNSConfig`` YAML; default ``SGNSConfig()``).
-``two_stage`` and ``two_stage_streamed`` (both modes, ``--ranker gbdt``)
-train the fold GBDT rankers of ``--config`` (a ``GBDTConfig`` YAML) where
+``two_stage`` and ``two_stage_streamed`` (both modes) train the fold
+rankers of ``--ranker``, the listwise tower by default (``--config``: a
+``RankerConfig`` YAML) or ``gbdt`` (a ``GBDTConfig`` YAML), where
 ``--artifact-dir`` holds none, or resume those it holds.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP item: the listwise
-tower (``--ranker tower``, ``tfidf``, ``sequence``: M12).
+ported raises ``NotImplementedError`` naming its ROADMAP item: ``sequence``
+(M12).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import DataConfig, GBDTConfig, SGNSConfig
+from otto_tpu_torch.config import DataConfig, GBDTConfig, RankerConfig, SGNSConfig
 from otto_tpu_torch.data import splits, submission
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
@@ -118,6 +120,24 @@ def run_covisit_heuristic(
     return BaselineResult(preds, _report("covisitation heuristic", labels, preds, device))
 
 
+def run_tfidf(
+    train: EventStore,
+    target: EventStore,
+    n_aids: int,
+    labels: SessionLabels | None = None,
+    k: int = TOP_K,
+    *,
+    device: str | torch.device,
+) -> BaselineResult:
+    """TF-IDF similar-session recommender (reference: src/tfidf/inference.py):
+    session vectors on the host, the similar-session scan on ``device``."""
+    from otto_tpu_torch.models.tfidf import TfIdfModel
+
+    model = TfIdfModel.fit(train, n_aids=n_aids)
+    preds = model.similar_session_predictions(target, k=k, device=device)
+    return BaselineResult(preds, _report("tfidf", labels, preds, device))
+
+
 def run_embedding_knn(
     train: EventStore,
     target: EventStore,
@@ -164,6 +184,7 @@ MODEL_RUNNERS = {
     "aid_frequency": run_aid_frequency,
     "aid_weight": run_aid_weight,
     "covisitation": run_covisit_heuristic,
+    "tfidf": run_tfidf,
     "embedding_knn": run_embedding_knn,
     "doc2vec": run_doc2vec,
 }
@@ -210,11 +231,10 @@ def run_ensemble(
 
 # What the CLI cannot serve yet, and the ROADMAP item that brings it.
 _NOT_PORTED = {
-    "tfidf": "the TF-IDF recommender is not ported yet (ROADMAP M12)",
     "sequence": "the sequence model is not ported yet (ROADMAP M12)",
 }
-_SERVED = ("aid_frequency, aid_weight, covisitation, embedding_knn, doc2vec, ensemble, "
-           "two_stage and two_stage_streamed in both modes, the last two with --ranker gbdt")
+_SERVED = ("aid_frequency, aid_weight, covisitation, tfidf, embedding_knn, doc2vec, ensemble, "
+           "two_stage and two_stage_streamed (--ranker tower or gbdt) in both modes")
 
 
 def main(argv=None):
@@ -246,12 +266,12 @@ def main(argv=None):
     parser.add_argument("--config", default=None,
                         help="embedding_knn / doc2vec: the SGNSConfig YAML (default "
                              "SGNSConfig()); two_stage / two_stage_streamed: the rankers' "
-                             "GBDTConfig YAML (default GBDTConfig()); the sequence model is "
-                             "not ported yet")
+                             "RankerConfig YAML with --ranker tower (default RankerConfig(), "
+                             "e.g. configs/ranker.yaml), GBDTConfig YAML with --ranker gbdt "
+                             "(default GBDTConfig()); the sequence model is not ported yet")
     parser.add_argument("--ranker", choices=["tower", "gbdt"], default="tower",
-                        help="two_stage reranking engine: listwise MLP tower (not ported "
-                             "yet, ROADMAP M12) or the histogram GBDT (the reference's "
-                             "LightGBM stage)")
+                        help="two_stage reranking engine: listwise MLP tower (default) or "
+                             "the histogram GBDT (the reference's LightGBM stage)")
     parser.add_argument("--test-events", default=None,
                         help="submission mode: separate test events file to predict "
                              "(the reference's train.jsonl/test.jsonl split); defaults "
@@ -276,11 +296,6 @@ def main(argv=None):
     if args.model in _NOT_PORTED:
         raise NotImplementedError(f"{args.model}: {_NOT_PORTED[args.model]}. The port "
                                   f"serves {_SERVED}")
-    if args.model.startswith("two_stage"):
-        if args.ranker == "tower":
-            raise NotImplementedError(f"{args.model} --ranker tower: the listwise tower is "
-                                      f"not ported yet (ROADMAP M12). The port serves "
-                                      f"{_SERVED}")
 
     def _read(path):
         if str(path).endswith(".jsonl"):
@@ -315,8 +330,9 @@ def main(argv=None):
     if not args.events:
         parser.error("--events is required")
     store = _read(args.events)
-    rcfg = (GBDTConfig.from_yaml(args.config) if args.config and args.model.startswith("two_stage")
-            else GBDTConfig())
+    cfg_cls = GBDTConfig if args.ranker == "gbdt" else RankerConfig
+    rcfg = (cfg_cls.from_yaml(args.config) if args.config and args.model.startswith("two_stage")
+            else cfg_cls())
 
     def fit_two_stage(train):
         # submission: the rankers are fit on a labeled split of the train

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import CovisitConfig, GBDTConfig, SGNSConfig
+from otto_tpu_torch.config import CovisitConfig, GBDTConfig, RankerConfig, SGNSConfig
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
 from otto_tpu_torch.eval.harness import RecallReport, evaluate_predictions, paired_bootstrap_lift
@@ -99,7 +99,7 @@ def run_two_stage_streamed(
     target: EventStore,
     n_aids: int,
     labels: SessionLabels | None = None,
-    ranker_config: GBDTConfig = GBDTConfig(),
+    ranker_config: RankerConfig | GBDTConfig = RankerConfig(),
     covisit_config: CovisitConfig = CovisitConfig(),
     sgns_config: SGNSConfig | None = None,
     train_sessions: int = 50_000,
@@ -127,7 +127,8 @@ def run_two_stage_streamed(
 
     ``train_sessions`` target sessions (drawn with ``train_subset_seed``;
     requires ``labels``) fit the rankers through :func:`run_two_stage`
-    (``ranker_config``, ``sgns_config``, ``selection_fraction``,
+    (``ranker_config``: a ``RankerConfig`` trains the listwise tower, a
+    ``GBDTConfig`` the GBDT; ``sgns_config``, ``selection_fraction``,
     ``feature_list``; resumed from ``artifact_dir`` where it holds them),
     and every OTHER target session is scored in ``shard_sessions``-sized
     shards.  With ``artifacts`` given, training is skipped and every target

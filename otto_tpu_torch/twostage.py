@@ -7,19 +7,21 @@ processes (SURVEY §3.4) become one call that passes arrays in memory:
 1. the regular candidate generator emits [S, C] candidates and scores, and
    the covisitation heuristic's top-20 is unioned into the grid;
 2. the three feature families assemble the [S, C, 55] tensor;
-3. per event type, fold GBDT rankers are fit on it (histograms by the
-   kernel K5; out-of-fold scores), or the fold-averaged trained ones score
-   it (on the card one forest-kernel launch a model, which bins the float32
-   rows itself);
+3. per event type, fold rankers are fit on it (out-of-fold scores): the
+   listwise tower (``RankerConfig``, the reference's default) or the GBDT
+   (``GBDTConfig``: histograms by the kernel K5); or the fold-averaged
+   trained ones score it (a GBDT on the card with one forest-kernel launch a
+   model, which bins the float32 rows itself; a tower with its folds'
+   float32 products);
 4. the prior blend and the per-session top-20.
 
 :func:`predict_two_stage` scores new sessions with trained artifacts.
 :func:`run_two_stage` is the reference's train-and-evaluate call: per event
-type it fits the fold GBDT rankers on the labeled target's candidate grid
-(or reloads those an artifact directory holds), selects or reuses the
+type it fits the fold rankers on the labeled target's candidate grid (or
+reloads those an artifact directory holds), selects or reuses the
 prior-blend alpha, reports and saves.  Both take a required ``device``:
-candidates, the heuristic (when not given), the GBDT fits and the forest
-pass run there.  A failed device pass raises; nothing falls back to the
+candidates, the heuristic (when not given), the rankers' fits and their
+scoring run there.  A failed device pass raises; nothing falls back to the
 CPU.
 """
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import CovisitConfig, GBDTConfig, SGNSConfig
+from otto_tpu_torch.config import CovisitConfig, GBDTConfig, RankerConfig, SGNSConfig
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
 from otto_tpu_torch.eval.harness import RecallReport, evaluate_predictions
@@ -57,7 +59,7 @@ from otto_tpu_torch.models.frequency import FrequencyStatistics
 from otto_tpu_torch.models.embeddings import SGNSModel, train_sgns
 from otto_tpu_torch.models.ensemble import robust_scale
 from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model, train_gbdt_ranker
-from otto_tpu_torch.models.ranker import RankerData, top_k_predictions
+from otto_tpu_torch.models.ranker import RankerData, RankerModel, top_k_predictions, train_ranker
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
@@ -220,7 +222,7 @@ def _recall_eval_fn(labels: SessionLabels, candidates: np.ndarray, etype: str, *
 @dataclass
 class TwoStageArtifacts:
     """What prediction needs from training: covisitation matrices, the
-    optional SGNS model, the per-type GBDT rankers, and the training-time
+    optional SGNS model, the per-type rankers (towers or GBDTs), and the training-time
     settings prediction must reproduce (whether the heuristic top-k was
     unioned into the grid, the feature list the rankers were fit on).
     ``save``/``load`` use the JAX package's directory layout."""
@@ -228,7 +230,7 @@ class TwoStageArtifacts:
     matrices: CovisitationMatrices
     sgns: SGNSModel | None
     candidates: CandidateSet | None
-    rankers: dict[str, GBDTRankerModel]
+    rankers: dict[str, RankerModel | GBDTRankerModel]
     predictions: dict[str, np.ndarray]  # etype -> [S, 20]
     report: RecallReport | None
     max_recall: dict[str, float] = field(default_factory=dict)
@@ -261,14 +263,16 @@ class TwoStageArtifacts:
         (d / "meta.json").write_text(json.dumps(meta, indent=1))
 
     @classmethod
-    def load(cls, directory, *, device: str | torch.device) -> "TwoStageArtifacts":
+    def load(cls, directory, ranker_config: RankerConfig = RankerConfig(), *,
+             device: str | torch.device) -> "TwoStageArtifacts":
         """Read a directory written by either package's ``save``; the SGNS
-        model (if any) is placed on ``device``.  Only GBDT rankers load."""
+        model (if any) is placed on ``device``.  Towers load with
+        ``ranker_config``, GBDTs with their own config."""
         d = Path(directory)
         meta = json.loads((d / "meta.json").read_text())
         matrices = CovisitationMatrices.load(d / "covisitation")
         sgns = SGNSModel.load(d / "sgns.npz", device=device) if meta["has_sgns"] else None
-        rankers = {name: load_ranker_model(d / f"ranker_{name}.npz")
+        rankers = {name: load_ranker_model(d / f"ranker_{name}.npz", ranker_config)
                    for name in meta["ranker_names"]}
         with np.load(d / "predictions.npz") as z:
             preds = {k: z[k] for k in z.files}
@@ -322,14 +326,16 @@ def _type_features(target: EventStore, cands: CandidateSet, etype: str,
     return assemble_features(feature_list, inter, aid_feats, sess_feats, c)
 
 
-def _train_engine(data: RankerData, cfg, eval_recall, *, device: torch.device):
-    """Fit one ranker of ``cfg``'s engine (``otto_tpu/twostage.py:45-53``):
-    a ``GBDTConfig`` trains the fold GBDT on ``device``.  The listwise tower
-    (the reference's ``RankerConfig``) is not ported and raises."""
-    if not isinstance(cfg, GBDTConfig):
-        raise NotImplementedError(f"{type(cfg).__name__}: only GBDTConfig trains here; the "
-                                  "listwise tower is not ported yet (ROADMAP M12)")
-    return train_gbdt_ranker(data, cfg, eval_recall=eval_recall, device=device)
+def _train_engine(data: RankerData, cfg: RankerConfig | GBDTConfig, eval_recall, *,
+                  device: torch.device):
+    """Fit one ranker of ``cfg``'s engine on ``device``
+    (``otto_tpu/twostage.py:45-53``): a ``GBDTConfig`` trains the fold GBDT,
+    a ``RankerConfig`` the listwise tower."""
+    if isinstance(cfg, GBDTConfig):
+        return train_gbdt_ranker(data, cfg, eval_recall=eval_recall, device=device)
+    if isinstance(cfg, RankerConfig):
+        return train_ranker(data, cfg, eval_recall=eval_recall, device=device)
+    raise TypeError(f"no ranker engine for a {type(cfg).__name__}")
 
 
 def run_two_stage(
@@ -338,8 +344,8 @@ def run_two_stage(
     n_aids: int,
     labels: SessionLabels | None = None,
     covisit_config: CovisitConfig = CovisitConfig(),
-    ranker_config: GBDTConfig = GBDTConfig(),
-    second_ranker_config: GBDTConfig | None = None,
+    ranker_config: RankerConfig | GBDTConfig = RankerConfig(),
+    second_ranker_config: RankerConfig | GBDTConfig | None = None,
     blend_weights: tuple[float, float] = (0.5, 0.5),
     prior_blend: bool = True,
     sgns_config: SGNSConfig | None = None,
@@ -365,10 +371,12 @@ def run_two_stage(
 
     ``train`` supplies statistics (covisitation, aid features); ``target``
     sessions receive candidates and predictions.  Per event type the ranker
-    of ``ranker_config`` is fit on the type's candidate grid (folds,
-    negative sampling, MAP@20 early stopping: :func:`train_gbdt_ranker`),
-    and with ``second_ranker_config`` a second one, blended with the first
-    by ``blend_weights`` (robust-scaled).  With ``prior_blend`` the prior
+    of ``ranker_config`` is fit on the type's candidate grid (folds and
+    negative sampling; a ``RankerConfig`` trains the listwise tower,
+    :func:`train_ranker`, a ``GBDTConfig`` the GBDT with MAP@20 early
+    stopping, :func:`train_gbdt_ranker`), and with ``second_ranker_config`` a
+    second one of either engine, blended with the first by
+    ``blend_weights`` (robust-scaled).  With ``prior_blend`` the prior
     blend's alpha is then selected over ``PRIOR_ALPHAS`` by recall on the
     *selection* sessions and stored in the ranker; without, the lists rank
     the ranker's scores.  ``selection_fraction`` splits the target into
@@ -384,8 +392,9 @@ def run_two_stage(
 
     ``artifact_dir`` enables per-stage persistence and resume: what the
     directory holds is reloaded (``covisitation/``, ``sgns.npz`` when
-    ``sgns_config`` is given, and each type's ``ranker_<type>.npz``, which
-    then scores the target with one forest pass instead of training; its
+    ``sgns_config`` is given, and each type's ``ranker_<type>.npz``, a
+    tower or a GBDT by its own marker, a tower with ``ranker_config``, which
+    then scores the target with one fold-averaged pass instead of training; its
     stored ``prior_alpha`` is reused, finite as ``prior + alpha * ranker``,
     ``inf`` as the ranker alone, NaN selected anew).  What is built or
     trained is saved there as it completes, rankers as
@@ -393,9 +402,8 @@ def run_two_stage(
     the end (the covisitation tables only when they were passed in, since
     tables read from or built into the directory are there already).
 
-    A tower config raises (ROADMAP M12); ``labels=None`` raises
-    ``ValueError``, as in the reference (prediction is
-    :func:`predict_two_stage`).  ``stats_out`` receives the seconds of each
+    ``labels=None`` raises ``ValueError``, as in the reference (prediction
+    is :func:`predict_two_stage`).  ``stats_out`` receives the seconds of each
     stage, ``train_s`` the rankers' fits and ``sgns_s`` the SGNS stage (its
     load or training and save, and its neighbor table).
     """
@@ -403,12 +411,6 @@ def run_two_stage(
         raise ValueError("run_two_stage evaluates labeled sessions; prediction-only mode "
                          "is predict_two_stage")
     adir = Path(artifact_dir) if artifact_dir is not None else None
-    to_train = [t for t in EVENT_TYPES if adir is None or not (adir / f"ranker_{t}.npz").exists()]
-    for cfg in (ranker_config, second_ranker_config):
-        if to_train and cfg is not None and not isinstance(cfg, GBDTConfig):
-            raise NotImplementedError(f"run_two_stage: {to_train} would train a "
-                                      f"{type(cfg).__name__}; only GBDTConfig trains here, the "
-                                      "listwise tower is not ported yet (ROADMAP M12)")
     if adir is not None:
         adir.mkdir(parents=True, exist_ok=True)
     dev = resolve_device(device)
@@ -481,7 +483,7 @@ def run_two_stage(
                     < selection_fraction)
         if sel_mask.all() or not sel_mask.any():  # degenerate tiny inputs
             sel_mask = None
-    rankers: dict[str, GBDTRankerModel] = {}
+    rankers: dict[str, RankerModel | GBDTRankerModel] = {}
     predictions: dict[str, np.ndarray] = {}
     for etype in EVENT_TYPES:
         c = cands.candidates[etype]
@@ -507,7 +509,8 @@ def run_two_stage(
             # them (fold-averaged rather than OOF)
             log.info("resuming %s ranker from %s", etype, rk_path)
             t0 = clock()
-            model = load_ranker_model(rk_path)
+            model = load_ranker_model(
+                rk_path, None if isinstance(ranker_config, GBDTConfig) else ranker_config)
             scores = model.predict(X, c >= 0, device=dev)
             times["forest_s"] += clock() - t0
         else:
@@ -600,11 +603,11 @@ def predict_two_stage(
     receives ``rows_<type>`` (ranker rows scored) and the seconds of each
     stage: ``candidates_s``, ``heuristic_s``, ``union_s``, ``features_s``
     (aid, session, interaction features and assembly), ``binning_s``,
-    ``forest_s`` and ``blend_s`` (prior blend and top-20).  On the card the
-    forest kernel bins the float32 rows itself: ``binning_s`` is 0 and
-    ``forest_s`` holds the rows' upload (once a type), the launches and the
-    scores' download.  On the CPU ``binning_s`` is the twin's binning and
-    ``forest_s`` the twin's routing.
+    ``forest_s`` (the rankers' scoring, a tower's too) and ``blend_s``
+    (prior blend and top-20).  ``forest_s`` holds the rows' upload (once a
+    type), the scoring and the scores' download.  On the card the forest
+    kernel bins a GBDT's float32 rows itself, so ``binning_s`` is 0; on the
+    CPU ``binning_s`` is the twin's binning.  A tower bins nothing.
     """
     dev = resolve_device(device)
     times = dict.fromkeys(("candidates_s", "heuristic_s", "union_s", "features_s",
@@ -665,8 +668,9 @@ def predict_two_stage(
         per_model = []
         for m in (model,) if second is None else (model, second):
             t0, binning = clock(), times["binning_s"]
-            # on the card one kernel launch bins and routes the rows; on the
-            # CPU the twins, with the binning timed apart
+            # a GBDT on the card: one kernel launch bins and routes the rows
+            # (on the CPU the twins, with the binning timed apart); a tower:
+            # its folds' products
             scores = m.predict_rows(x, times).cpu().numpy().reshape(c.shape)
             times["forest_s"] += clock() - t0 - (times["binning_s"] - binning)
             per_model.append(np.where(mask, scores, -np.inf))

@@ -357,6 +357,7 @@ def test_cuda_cli_two_stage_launches_forest_kernel_once_a_type(cuda_device, tmp_
     import numpy as np
 
     from otto_tpu_torch import EVENT_TYPES, pipelines, twostage
+    from otto_tpu_torch.config import GBDTConfig
     from otto_tpu_torch.data.splits import split_by_fraction
     from otto_tpu_torch.data.synthetic import synthetic_events_v2
     from otto_tpu_torch.ops import forest as tfo
@@ -385,8 +386,8 @@ def test_cuda_cli_two_stage_launches_forest_kernel_once_a_type(cuda_device, tmp_
     assert tfo.predict_forest_rows.launches == 3
     sp = split_by_fraction(store, val_fraction=0.5, seed=0)
     want = twostage.run_two_stage(sp.train, sp.val_input, 20_000, labels=sp.val_labels,
-                                  artifact_dir=tmp_path / "cpu", heuristic_preds=heur[0],
-                                  device="cpu")
+                                  ranker_config=GBDTConfig(), artifact_dir=tmp_path / "cpu",
+                                  heuristic_preds=heur[0], device="cpu")
     for t in EVENT_TYPES:
         np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)
 

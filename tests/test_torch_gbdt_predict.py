@@ -233,9 +233,29 @@ def test_from_numpy_and_importances(models):
 
 
 def test_load_ranker_model_refuses_a_tower(tmp_path):
-    np.savez(tmp_path / "tower.npz", w0=np.zeros((2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="M12"):
-        tg.load_ranker_model(tmp_path / "tower.npz")
+    """``load_ranker_model`` dispatches on the ``__gbdt`` marker: a tower's
+    npz, written by the JAX package, loads as the port's ``RankerModel``
+    with the given config (default ``RankerConfig()``), a GBDT's as
+    ``GBDTRankerModel``."""
+    from otto_tpu.config import RankerConfig as JRankerConfig
+    from otto_tpu_torch.config import RankerConfig
+
+    rng = np.random.default_rng(3)
+    params = {"w0": rng.normal(size=(4, 3)).astype(np.float32), "b0": np.zeros(3, np.float32),
+              "w1": rng.normal(size=(3, 1)).astype(np.float32), "b1": np.zeros(1, np.float32)}
+    jrk.RankerModel([params], jrk.FeatureNormalizer(np.zeros(4, np.float32),
+                                                    np.ones(4, np.float32), np.zeros(4, bool)),
+                    JRankerConfig(hidden_dims=(3,)), feature_names=list("abcd"),
+                    prior_alpha=0.5).save(tmp_path / "tower.npz")
+    for cfg, want in ((None, RankerConfig()), (RankerConfig(hidden_dims=(3,)),
+                                               RankerConfig(hidden_dims=(3,)))):
+        model = tg.load_ranker_model(tmp_path / "tower.npz", cfg)
+        assert isinstance(model, trk.RankerModel) and model.config == want
+        assert model.feature_names == list("abcd") and model.prior_alpha == 0.5
+        for k, v in params.items():
+            np.testing.assert_array_equal(model.params_per_fold[0][k], v)
+    assert isinstance(tg.load_ranker_model(BENCH / "ranker_clicks.npz", RankerConfig()),
+                      tg.GBDTRankerModel)
 
 
 def test_ranker_helpers_equal():

@@ -353,7 +353,7 @@ def test_loader_matches_jax_batches(drop):
         order = np.random.default_rng(n).permutation(n)
         jl = JLoader((a, b), G * B, order=order, drop_remainder=drop)
         want = [tuple(np.asarray(x) for x in batch) for batch in jl]
-        tl = BatchLoader((a, b), G * B, order=order, drop_remainder=drop)
+        tl = BatchLoader((a, b), G * B, order=order, drop_remainder=drop, device="cpu")
         assert len(tl) == len(want) == (max(n // (G * B), 1) if drop else -(-n // (G * B)))
         got = list(tl)
         for (tx, ty), (wx, wy) in zip(got, want):

@@ -34,6 +34,7 @@ from otto_tpu.data.synthetic import synthetic_events_v2 as j_synth_v2
 from otto_tpu.eval import harness as jh
 from otto_tpu.eval import metrics as jmet
 from otto_tpu.models import gbdt as jg
+from otto_tpu.models import ranker as jrk
 from otto_tpu.models.covisitation import build_covisitation as j_build
 from otto_tpu_torch import streaming as tstream
 from otto_tpu_torch import twostage as tts
@@ -41,7 +42,9 @@ from otto_tpu_torch.data.splits import split_by_time
 from otto_tpu_torch.data.synthetic import synthetic_events_v2
 from otto_tpu_torch.eval import harness as th
 from otto_tpu_torch.eval import metrics as tmet
+from otto_tpu_torch.config import RankerConfig
 from otto_tpu_torch.models import gbdt as tg
+from otto_tpu_torch.models import ranker as trk
 from otto_tpu_torch.models.covisitation import CovisitationMatrices
 
 torch.set_num_threads(1)
@@ -145,17 +148,90 @@ def test_streamed_aid_features_saved_and_resumed(setup, tmp_path, monkeypatch):
 
 
 def test_training_modes_raise(setup):
-    """Training trains a GBDTConfig (tests/test_torch_twostage_train.py);
-    what still raises: the listwise tower's config, and streamed training
-    without labels."""
+    """Training trains either engine (GBDT: tests/test_torch_twostage_train.py):
+    a ``RankerConfig`` trains the listwise tower, one a type; streamed
+    training without labels still raises."""
     _, tsp, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="M12"):  # no trained rankers to resume
-        tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS, labels=tsp.val_labels,
-                          ranker_config=JRankerConfig(), device="cpu")
+    art = tts.run_two_stage(tsp.train, tsp.val_input, N_AIDS, labels=tsp.val_labels,
+                            ranker_config=RankerConfig(hidden_dims=(16, 8), n_folds=2, epochs=1),
+                            chunk_sessions=CHUNK, device="cpu")
+    assert all(isinstance(art.rankers[t], trk.RankerModel) for t in EVENT_TYPES)
+    assert all(len(art.rankers[t].epoch_losses) == 2 for t in EVENT_TYPES)
+    assert 0 < art.report.weighted <= 1
     with pytest.raises(ValueError, match="requires labels"):
         tstream.run_two_stage_streamed(tsp.train, tsp.val_input, N_AIDS, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def towers(setup, tmp_path_factory):
+    """JAX-trained small towers ((16, 8), dropout 0), one a type, each on
+    its own seeded data over the artifacts' 55 features (a heavy tail in
+    half of the columns, so the normalizer log-compresses them), saved by
+    JAX: the npz paths."""
+    _, _, ja, _, _ = setup
+    d = tmp_path_factory.mktemp("towers")
+    rng = np.random.default_rng(11)
+    S, C, F = 160, 24, len(ja.feature_list)
+    cfg = JRankerConfig(hidden_dims=(16, 8), n_folds=2, epochs=2, batch_sessions=64,
+                        dropout=0.0, learning_rate=1e-2)
+    paths = {}
+    for etype in EVENT_TYPES:
+        feats = rng.normal(size=(S, C, F)).astype(np.float32)
+        feats[..., ::2] = rng.lognormal(0.0, 3.0, (S, C, (F + 1) // 2))
+        logits = np.log1p(feats[..., 0]) - 2.0
+        labels = (rng.random((S, C)) < 1 / (1 + np.exp(-logits))).astype(np.int8)
+        mask = np.ones((S, C), bool)
+        model, _ = jrk.train_ranker(jrk.RankerData(feats, labels, mask, np.arange(S),
+                                                   np.zeros((S, C), np.int32),
+                                                   list(ja.feature_list)), cfg)
+        paths[etype] = d / f"ranker_{etype}.npz"
+        model.save(paths[etype])
+    return paths
+
+
+def test_towers_through_predict_two_stage(setup, towers, monkeypatch):
+    """JAX's towers, saved by JAX, loaded by each package, score the same
+    candidate grids through ``predict_two_stage`` (heuristic union, no prior
+    alpha: the lists rank the towers' fold average).  The grids and features
+    are bit-equal (tests/test_torch_{candidates,features}.py), the forward is
+    not: 99% of scores within 1e-5 * (|s| + 1e-3) and every one within
+    4e-3 * max |s| (tests/test_torch_ranker.py); >= 99% of list positions
+    equal, and where a position differs, the two candidates' JAX scores are
+    within twice that worst-case distance."""
+    jsp, tsp, ja, ta, _ = setup
+    scored = {"jax": [], "torch": []}
+    for name, mod in (("jax", jts), ("torch", tts)):
+        def keep(c, s, k=20, _real=mod.top_k_predictions, _log=scored[name]):
+            _log.append((c, s))
+            return _real(c, s, k=k)
+
+        monkeypatch.setattr(mod, "top_k_predictions", keep)
+    old = ja.rankers, ta.rankers
+    try:
+        ja.rankers = {t: jg.load_ranker_model(p, JRankerConfig(hidden_dims=(16, 8)))
+                      for t, p in towers.items()}
+        ta.rankers = {t: tg.load_ranker_model(p, RankerConfig(hidden_dims=(16, 8)))
+                      for t, p in towers.items()}
+        assert all(isinstance(m, trk.RankerModel) for m in ta.rankers.values())
+        want = jts.predict_two_stage(ja, jsp.train, jsp.val_input, N_AIDS, chunk_sessions=CHUNK)
+        got = tts.predict_two_stage(ta, tsp.train, tsp.val_input, N_AIDS, chunk_sessions=CHUNK,
+                                    device="cpu")
+    finally:
+        ja.rankers, ta.rankers = old
+    for t, (cj, sj), (ct, st) in zip(EVENT_TYPES, scored["jax"], scored["torch"]):
+        np.testing.assert_array_equal(ct, cj)
+        finite = np.isfinite(sj)
+        assert np.array_equal(finite, np.isfinite(st)), t
+        d = np.abs(st[finite] - sj[finite])
+        worst = 4e-3 * np.abs(sj[finite]).max()
+        assert (d <= 1e-5 * (np.abs(sj[finite]) + 1e-3)).mean() >= 0.99, t
+        assert d.max() <= worst, t
+        g, w = got[t], want[t]
+        assert g.shape == w.shape and (g == w).mean() >= 0.99, t
+        for r, j in zip(*np.nonzero(g != w)):
+            slot = [int(np.flatnonzero(cj[r] == a)[0]) for a in (g[r, j], w[r, j])]
+            gap = abs(sj[r, slot[0]] - sj[r, slot[1]])
+            assert gap <= 2 * worst, (t, r, j, gap)
 def test_artifacts_directory_round_trips_both_ways(setup, tmp_path):
     _, tsp, ja, ta, want = setup
     ta.predictions = dict(want)

@@ -33,12 +33,14 @@ from otto_tpu import twostage as jts
 from otto_tpu.data.splits import split_by_time as j_split_by_time
 from otto_tpu.data.synthetic import synthetic_events_v2 as j_synth_v2
 from otto_tpu.models.candidates import CandidateSet as JCandidateSet
-from otto_tpu.config import RankerConfig as JRankerConfig
 from otto_tpu.models.gbdt import GBDTConfig as JGBDTConfig
 from otto_tpu_torch import twostage as tts
+from otto_tpu_torch.config import GBDTConfig, RankerConfig
 from otto_tpu_torch.data.splits import split_by_time
 from otto_tpu_torch.data.synthetic import synthetic_events_v2
 from otto_tpu_torch.models.candidates import CandidateSet
+from otto_tpu_torch.models.gbdt import GBDTRankerModel, load_ranker_model
+from otto_tpu_torch.models.ranker import RankerModel
 
 torch.set_num_threads(1)
 
@@ -186,26 +188,47 @@ def test_union_relabels_widened_grid_and_prior_blend_selects_alpha_as_jax():
     assert tts.PRIOR_ALPHAS == jts.PRIOR_ALPHAS
 
 
+TINY_TOWER = RankerConfig(hidden_dims=(16, 8), n_folds=2, epochs=1, dropout=0.0)
+
+
 @pytest.mark.parametrize("case", ["no_artifact_dir", "missing_ranker", "second_ranker",
                                   "no_labels"])
 def test_what_would_train_raises_and_names_its_item(data, tmp_path, case):
+    """What raised before the tower was ported now trains: a tower config
+    with no artifacts; the types a directory lacks (the one it holds, a
+    GBDT, resumes by its marker); a GBDT paired with a tower through
+    ``second_ranker_config``.  Without labels ``run_two_stage`` still raises
+    ``ValueError``, as in the reference."""
     n_aids, _, (train, target, labels) = data
     rankers = ["clicks"] if case == "missing_ranker" else list(EVENT_TYPES)
     tmp_path.joinpath("art").mkdir()
     for t in rankers:  # the rankers alone: nothing that could be written over
         shutil.copy(BENCH / f"ranker_{t}.npz", tmp_path / "art")
-    kw = dict(labels=labels, artifact_dir=tmp_path / "art", device="cpu")
-    # what trains takes a GBDTConfig; the listwise tower's config raises
+    kw = dict(labels=labels, artifact_dir=tmp_path / "art", ranker_config=TINY_TOWER,
+              chunk_sessions=CHUNK, device="cpu")
+    if case == "no_labels":
+        kw["labels"] = None
+        with pytest.raises(ValueError, match="predict_two_stage"):
+            tts.run_two_stage(train, target, n_aids, **kw)
+        return
     if case == "no_artifact_dir":
-        kw["artifact_dir"], kw["ranker_config"] = None, JRankerConfig()
-        err, match = NotImplementedError, r"\['clicks', 'carts', 'orders'\].*M12"
+        kw["artifact_dir"] = None
+        engines = dict.fromkeys(EVENT_TYPES, RankerModel)
     elif case == "missing_ranker":
-        kw["ranker_config"] = JRankerConfig()
-        err, match = NotImplementedError, r"\['carts', 'orders'\].*RankerConfig.*M12"
-    elif case == "second_ranker":
-        kw["artifact_dir"], kw["second_ranker_config"] = None, JRankerConfig()
-        err, match = NotImplementedError, "M12"
+        engines = {"clicks": GBDTRankerModel, "carts": RankerModel, "orders": RankerModel}
     else:
-        kw["labels"], err, match = None, ValueError, "predict_two_stage"
-    with pytest.raises(err, match=match):
-        tts.run_two_stage(train, target, n_aids, **kw)
+        kw["artifact_dir"] = None
+        kw["ranker_config"] = GBDTConfig(n_trees=3, n_folds=2, min_data_in_leaf=50)
+        kw["second_ranker_config"] = TINY_TOWER
+        engines = {**dict.fromkeys(EVENT_TYPES, GBDTRankerModel),
+                   **{f"{t}_b": RankerModel for t in EVENT_TYPES}}
+    art = tts.run_two_stage(train, target, n_aids, **kw)
+    assert {k: type(v) for k, v in art.rankers.items()} == engines
+    assert 0 < art.report.weighted <= 1 and 0 < art.report_disjoint.weighted <= 1
+    for t in EVENT_TYPES:
+        assert art.predictions[t].shape == (target.n_sessions, 20)
+    if case == "missing_ranker":
+        for t in ("carts", "orders"):
+            saved = load_ranker_model(tmp_path / "art" / f"ranker_{t}.npz", TINY_TOWER)
+            assert isinstance(saved, RankerModel) and saved.config == TINY_TOWER
+            assert not np.isnan(saved.prior_alpha)

@@ -169,9 +169,22 @@ def test_trained_run_two_stage_equal_to_jax(data, tmp_path, monkeypatch):
     assert stats["train_s"] > 0 and stats["forest_s"] == 0
 
 
-def test_train_engine_takes_gbdt_configs_only():
-    with pytest.raises(NotImplementedError, match="M12"):
-        tts._train_engine(None, object(), None, device=torch.device("cpu"))
+def test_train_engine_takes_gbdt_configs_only(monkeypatch):
+    """``_train_engine`` dispatches on the config's type: a ``GBDTConfig``
+    to ``train_gbdt_ranker``, a ``RankerConfig`` to the tower's
+    ``train_ranker``; any other config raises."""
+    from otto_tpu_torch.config import RankerConfig
+
+    calls = []
+    for name in ("train_gbdt_ranker", "train_ranker"):
+        monkeypatch.setattr(tts, name, lambda data, cfg, eval_recall, device, _n=name:
+                            calls.append((_n, cfg)) or (_n, None))
+    cpu = torch.device("cpu")
+    assert tts._train_engine(None, GBDTConfig(), None, device=cpu)[0] == "train_gbdt_ranker"
+    assert tts._train_engine(None, RankerConfig(), None, device=cpu)[0] == "train_ranker"
+    assert calls == [("train_gbdt_ranker", GBDTConfig()), ("train_ranker", RankerConfig())]
+    with pytest.raises(TypeError, match="object"):
+        tts._train_engine(None, object(), None, device=cpu)
 
 
 # ---------------------------------------------------------------- the CLI
