@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA card: the
 embedding-kNN path, the baselines with the covisitation heuristic, the
 two-stage prediction path, the file CLI, GBDT training, SGNS training, the
-listwise tower ranker and the TF-IDF recommender.
+listwise tower ranker, the TF-IDF recommender and the sequence
+recommenders.
 
     python3 chip_smoke.py
 
@@ -172,7 +173,28 @@ exit code):
    in-memory runs; 13d ``tfidf validation`` on phase 7's store as
    ``.jsonl`` (seconds, recall) and, on 2,000 target sessions, the card
    against the CPU (lists equal but for near-ties of the float32 scan,
-   counted).
+   counted);
+14. the sequence recommenders with the seven published configs
+   (``configs/sequence_*.yaml``: dim 64, hidden 128, max_len 20, batch
+   2,048, 512 negatives) over the full catalog, epochs cut to 1 (and the
+   six non-default configs' training sessions to 45,000): 14a each
+   config's session vectors on 512 of phase 7's sessions and one training
+   step, card against CPU (vectors within 1e-5 * (|x| + 1e-3), the loss
+   within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
+   but where a rounding-level gradient decides Adam's sign, counted), ms a
+   step against the dense Adam's bound; 14b ``pipelines.run_sequence`` with
+   each config on phase 7's split (``train_s``, steps, ms a step and the
+   host draw's share, the loss falling from the first tenth of the steps to
+   the last, routes, serve seconds, sessions/s, weighted recall@20, K1, K2
+   and K3 launched); 14c K1 on the path's own operands ([4,096 x 198]
+   against the compensated dim-64 table) and K3's block kernel on the
+   recency route's [S, 256] input against their twins, with times and
+   bounds, and ``full_sort_topk`` against the exact scan on 2,000 sessions
+   (recall >= 0.99); 14d ``sequence validation`` through the CLI on phase
+   7's store as ``.jsonl`` (report and lists equal to 14b's gru run: the
+   card's training is bit-reproducible), ``sequence submission`` in a
+   process of its own on 20,000 sessions, and a saved model loaded back
+   (lists equal).
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -3034,6 +3056,430 @@ def tfidf_run(torch, dev, store, workdir: Path, n_check: int = 2_000) -> dict:
     return {"cli_s": cli_s, "weighted": res.report.weighted, "near_ties": near}
 
 
+# ------------------------------------------------------------- phase 14
+# The sequence recommenders with their published configs
+# (configs/sequence_{gru,gru4rec_plus,narm,stamp,caser,transformer,moe}.yaml:
+# dim 64, hidden 128, max_len 20, batch 2,048, 512 negatives, lr 1e-3, 3
+# epochs; the transformers 2 layers of 2 heads, the MoE's FFNs 4 experts)
+# over the full catalog.
+SEQ_CONFIGS = ("gru", "gru4rec_plus", "narm", "stamp", "caser", "transformer", "moe")
+SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with epochs: 1); "
+            "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
+            "OTTO week has ~220M events): run_sequence trains gru on its 180,000-session "
+            "split",
+            "14b: the six other configs train on the split's first 45,000 training sessions "
+            "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s) and serve "
+            "the same 20,000 target sessions",
+            "14d: the subprocess's sequence submission on phase 7's first 20,000 sessions",
+            "14a: card against CPU on one step from one seeded batch of phase 7's examples "
+            "and on 512 of its sessions")
+SEQ_CUT_TRAIN_SESSIONS = 45_000  # 14b: the non-default configs' training sessions
+SEQ_SUBMISSION_SESSIONS = 20_000  # 14d: the subprocess's store
+# 14a: session vectors within SEQ_ENC_RTOL * (|x| + SEQ_ENC_FLOOR * max |x|),
+# max over the batch (cuBLAS and the CPU sum each float32 dot in another
+# order, and the GRU carries the difference through 20 steps: some 1e-7 of
+# the vectors' O(1) scale, which at an entry near 0 is far more than 1e-5 of
+# the entry itself; the share within 1e-5 * (|x| + 1e-3) is printed); one
+# step's loss within SEQ_LOSS_RTOL relative, every updated parameter within
+# SEQ_STEP_RTOL * (|x| + SEQ_STEP_FLOOR) but where the CPU's gradient is at
+# most SEQ_TINY_GRAD of its leaf's largest (Adam's first step moves an entry
+# by about +-lr whatever |g|, so a gradient at its rounding error's level
+# decides the sign; those within 2 lr, counted, at most 1e-5 of the entries).
+SEQ_ENC_RTOL, SEQ_ENC_FLOOR = 1e-5, 0.1
+SEQ_LOSS_RTOL = 1e-5
+SEQ_STEP_RTOL, SEQ_STEP_FLOOR, SEQ_TINY_GRAD = 1e-4, 0.01, 1e-4
+SEQ_RECALL = 0.99  # 14c: full_sort_topk against the exact scan
+
+
+def seq_config_path(name: str) -> Path:
+    return REPO / "configs" / f"sequence_{name}.yaml"
+
+
+def seq_cut_yaml(name: str, workdir: Path) -> Path:
+    """A copy of the published YAML with ``epochs: 1`` (SEQ_CUTS)."""
+    import yaml
+
+    d = yaml.safe_load(seq_config_path(name).read_text())
+    d["epochs"] = 1
+    path = workdir / f"sequence_{name}_1epoch.yaml"
+    path.write_text(yaml.safe_dump(d))
+    return path
+
+
+def seq_step_bound(params) -> tuple[float, str]:
+    """A training step's bound: the dense Adam's bytes, every parameter, its
+    gradient and both moments read and the parameter and moments written,
+    4 bytes each, at the memory rate."""
+    from otto_tpu_torch.models import sequence as sq
+
+    n = sum(t.numel() for t in sq.tree_leaves(params))
+    return bound(7 * 4 * n, 0.0, F32_OPS_PER_S)
+
+
+def seq_step_matches(torch, cpu, card, lr: float) -> int:
+    """Phase 14a's hold of the card's updated parameters on the CPU's
+    (SEQ_STEP_*, SEQ_TINY_GRAD); ``cpu`` carries its gradients.  Returns the
+    count of entries whose sign a rounding-level gradient decided."""
+    from otto_tpu_torch.models import sequence as sq
+
+    flipped, total = 0, 0
+    for c, g in zip(sq.tree_leaves(cpu), sq.tree_leaves(card)):
+        d = (g.detach().cpu() - c.detach()).abs()
+        off = d > SEQ_STEP_RTOL * (c.detach().abs() + SEQ_STEP_FLOOR)
+        tiny = c.grad.abs() <= SEQ_TINY_GRAD * c.grad.abs().max()
+        check(not bool((off & ~tiny).any()), f"14a: an updated parameter of shape "
+              f"{tuple(c.shape)} differs beyond {SEQ_STEP_RTOL} * (|x| + {SEQ_STEP_FLOOR})")
+        check(bool((d[off] <= 2 * lr).all()), "14a: a sign-decided entry moved beyond 2 lr")
+        flipped += int(off.sum())
+        total += c.numel()
+    check(flipped <= 1e-5 * total, f"14a: {flipped} of {total} entries sign-decided")
+    return flipped
+
+
+def seq_card_vs_cpu(torch, dev, store, n_aids: int, n_enc: int = 512, reps: int = 10) -> dict:
+    """Phase 14a: for each published config at its widths over ``n_aids``,
+    the session vectors of ``store``'s first ``n_enc`` sessions and one
+    training step (the first batch and negatives a seed-``config.seed``
+    trainer would draw from ``store``'s examples) on the card and the CPU
+    from the same parameters; then ms a step on the card (CUDA events over
+    ``reps`` steps on that batch) against the dense Adam's bound."""
+    from otto_tpu_torch.models import sequence as sq
+
+    enc_store = head_sessions(store, n_enc)
+    out = {}
+    examples = None
+    for name in SEQ_CONFIGS:
+        cfg = sq.SequenceModelConfig.from_yaml(seq_config_path(name)).replace(n_aids=n_aids)
+        if examples is None or examples[0].shape[1] != cfg.max_len:
+            examples = sq._training_examples(store, cfg.max_len, n_aids)
+        seqs, masks, targets = examples
+        rng = np.random.default_rng(cfg.seed)
+        sel = rng.permutation(len(targets))[:cfg.batch_size]
+        negs = rng.integers(0, n_aids, (cfg.batch_size, cfg.n_negatives)).astype(np.int32)
+        batch = (seqs[sel], masks[sel], targets[sel], negs)
+        base = sq._config_params(cfg, torch.Generator().manual_seed(cfg.seed))
+        runs = []
+        for d in ("cpu", dev):
+            p = sq._tree_map(lambda t: t.to(d, copy=True), base)
+            vec = sq.SequenceModel(p, cfg).session_vectors(enc_store).cpu()
+            p = sq._tree_map(lambda t: t.requires_grad_(True), p)
+            opt = sq.make_optimizer(p, cfg)
+            xb = tuple(torch.as_tensor(a, device=d) for a in batch)
+            loss = float(sq.train_step(p, opt, *xb, loss=cfg.loss, bpr_reg=cfg.bpr_reg))
+            runs.append((vec, loss, p, opt, xb))
+        del base
+        (cv, cl, cp, _, _), (gv, gl, gp, gopt, gxb) = runs
+        dv = (gv - cv).abs()
+        scale = float(cv.abs().max())
+        enc_err = float((dv / (cv.abs() + SEQ_ENC_FLOOR * scale)).max())
+        enc_share = float((dv <= 1e-5 * (cv.abs() + 1e-3)).float().mean())
+        check(enc_err <= SEQ_ENC_RTOL, f"14a {name}: session vectors, card vs CPU, {enc_err}")
+        check(abs(gl - cl) <= SEQ_LOSS_RTOL * abs(cl), f"14a {name}: loss {gl} vs CPU {cl}")
+        flipped = seq_step_matches(torch, cp, gp, cfg.learning_rate)
+        del runs, cp
+        if dev.type == "cuda":
+            ms = cuda_ms(torch, lambda: sq.train_step(gp, gopt, *gxb, loss=cfg.loss,
+                                                      bpr_reg=cfg.bpr_reg), reps)
+        else:
+            ms = _host_ms(lambda: sq.train_step(gp, gopt, *gxb, loss=cfg.loss,
+                                                bpr_reg=cfg.bpr_reg), 1)
+        b = seq_step_bound(gp)
+        out[name] = {"enc_rel_err": enc_err, "enc_max_abs_err": float(dv.max()),
+                     "enc_max_abs": scale, "enc_share_1e5": enc_share, "loss": gl, "loss_cpu": cl, "sign_decided": flipped,
+                     "step_ms": ms, "bound_ms": b[0]}
+        print(f"14a {name}: session vectors card vs CPU max abs err {float(dv.max()):.3e} "
+              f"(max |x| {scale:.3f}), max {enc_err:.3e} of (|x| + {SEQ_ENC_FLOOR} max |x|) "
+              f"(limit {SEQ_ENC_RTOL}), {100 * enc_share:.3f}% within 1e-5 * (|x| + 1e-3); "
+              f"one step's loss {gl:.7f} card, "
+              f"{cl:.7f} CPU; updated parameters within the limits, {flipped} entries "
+              f"sign-decided by rounding-level gradients; {ms:.3f} ms a step at "
+              f"[{cfg.batch_size} x {cfg.max_len}], {cfg.n_negatives} negatives (CUDA events); "
+              f"bound {b[0]:.3f} ms ({b[1]}: the dense Adam over "
+              f"{sum(t.numel() for t in sq.tree_leaves(gp)):,} parameters), "
+              f"{100 * b[0] / ms:.1f}% of it", flush=True)
+        del gp, gopt, gxb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def seq_draw_ms(n_aids: int, B: int, n_neg: int, reps: int = 20) -> float:
+    """Host ms of one step's negative draw, as the trainer makes it."""
+    rng = np.random.default_rng(0)
+    return _host_ms(lambda: rng.integers(0, n_aids, (B, n_neg)).astype(np.int32), reps)
+
+
+def seq_runs(torch, dev, split, workdir: Path, zero_counters, read_counters) -> dict:
+    """Phase 14b: ``run_sequence`` with each published config (epochs cut to
+    1) on phase 7's split, counters zeroed before each run and read after
+    (K1, K2 and K3 must launch): ``train_s``, steps, ms a step and the
+    negative draw's host share, the mean loss of the last tenth of the steps
+    against the first tenth (it must fall), the routes, serve seconds,
+    sessions/s, weighted recall@20.  gru, the default, trains on the whole
+    split; the others on its first SEQ_CUT_TRAIN_SESSIONS training sessions
+    (SEQ_CUTS).  Returns each run's numbers, lists, report and model (the
+    model of gru alone)."""
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.models import sequence as sq
+    from otto_tpu_torch.models.covisitation import session_unique_counts
+
+    target = split.val_input
+    counts = session_unique_counts(target)
+    out = {}
+    for name in SEQ_CONFIGS:
+        cfg_path = seq_cut_yaml(name, workdir)
+        spans, losses, kept = {}, [], {}
+
+        def timed(key):
+            def wrap(real):
+                def call(*a, **kw):
+                    t0 = time.perf_counter()
+                    res = real(*a, **kw)
+                    sync(torch, dev)
+                    spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+                    kept.setdefault(key, res)
+                    return res
+                return call
+            return wrap
+
+        def step_losses(real):
+            def call(*a, **kw):
+                losses.append(real(*a, **kw))
+                return losses[-1]
+            return call
+
+        zero_counters()
+        t0 = time.perf_counter()
+        with wrapped(sq, "train_sequence_model", timed("train")), \
+                wrapped(sq, "sequence_serving_predictions", timed("serve")), \
+                wrapped(sq, "train_step", step_losses):
+            train = (split.train if name == "gru"
+                     else head_sessions(split.train, SEQ_CUT_TRAIN_SESSIONS))
+            res = pipelines.run_sequence(train, target, N_AIDS, split.val_labels,
+                                         config_path=str(cfg_path), device=dev)
+        sync(torch, dev)
+        total_s = time.perf_counter() - t0
+        launches = read_counters(f"sequence path ({name})", ("fused_stage1", "peel_rows",
+                                                              "aid_vote"))
+        model = kept["train"]
+        cfg = model.config
+        seen = np.zeros(N_AIDS, bool)
+        seen[train.aid] = True
+        in_vocab = seen[target.last_aid()]
+        routes = {"recency": int((counts >= 20).sum()),
+                  "model": int(((counts < 20) & in_vocab).sum()),
+                  "fallback": int(((counts < 20) & ~in_vocab).sum())}
+        check(routes["recency"] > 0 and routes["model"] > 0, f"14b {name}: a route is empty")
+        ls = torch.stack(losses).double().cpu().numpy()
+        tenth = max(len(ls) // 10, 1)
+        first, last = float(ls[:tenth].mean()), float(ls[-tenth:].mean())
+        check(np.isfinite(ls).all() and last < first,
+              f"14b {name}: the loss did not fall ({first} -> {last})")
+        draw = seq_draw_ms(N_AIDS, cfg.batch_size, cfg.n_negatives)
+        ms_step = 1e3 * spans["train"] / len(ls)
+        r = res.report
+        for t in TYPE_NAMES:
+            p = res.predictions[t]
+            check(p.shape == (target.n_sessions, 20) and p.min() >= -1 and p.max() < N_AIDS,
+                  f"14b {name} {t}: prediction shape/range")
+        check(0.0 < r.weighted < 1.0, f"14b {name}: weighted recall")
+        out[name] = {"train_sessions": train.n_sessions, "total_s": total_s,
+                     "train_s": spans["train"], "steps": len(ls),
+                     "ms_a_step": ms_step, "draw_ms": draw, "host_draw_share": draw / ms_step,
+                     "loss_first_tenth": first, "loss_last_tenth": last,
+                     "serve_s": spans["serve"],
+                     "sessions_per_s": target.n_sessions / spans["serve"],
+                     "weighted": r.weighted, "launches": launches, "routes": routes,
+                     "report": report_fields(r), "predictions": res.predictions, "model": model}
+        print(f"14b run_sequence {name} ({train.n_sessions} training sessions; target "
+              f"{target.n_sessions}, routes {routes}): {total_s:.2f} s; train_s "
+              f"{spans['train']:.2f} "
+              f"({len(ls)} steps, {ms_step:.3f} ms a step; the negative draw {draw:.3f} ms, "
+              f"{100 * draw / ms_step:.1f}% of a step, on the host); loss {first:.4f} over the "
+              f"first tenth -> {last:.4f} over the last; serve {spans['serve']:.2f} s "
+              f"({target.n_sessions / spans['serve']:.0f} sessions/s); weighted recall@20 "
+              f"{r.weighted:.6f} {report_fields(r)}", flush=True)
+        if name != "gru":
+            del out[name]["model"]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def seq_kernels_on_path(torch, dev, target, model, n_aids: int, n_recall: int = 2_000,
+                        batch: int = 4096) -> dict:
+    """Phase 14c: K1 and K3 against their twins on the operands the sequence
+    path gives them, with their times and bounds.  K1: ``full_sort_topk``'s
+    first batch of the model route ([4,096 x 3(64 + 2)] against the
+    compensated [198 x N_pad] table), within 2^-15 relative with the same
+    window position >= 0.999 (compare_kernels); then the lists of
+    ``full_sort_topk`` against the exact ``topk_scan`` on ``n_recall``
+    sessions (recall >= SEQ_RECALL).  K3: the recency route's input
+    ([S, 256], the block kernel): ``first``/``firstpos`` bit-equal, ``agg``
+    within 2^-16 * sum|w| of its row (the twin sums by einsum)."""
+    from otto_tpu_torch.models.covisitation import session_unique_counts
+    from otto_tpu_torch.ops import fused_retrieval as fr
+    from otto_tpu_torch.ops import fused_sessions as fs
+    from otto_tpu_torch.ops import sessions as ses
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    counts = session_unique_counts(target)
+    model_rows = np.flatnonzero(counts < 20)
+    sub = target.select_sessions(model_rows[:batch])
+    vecs = model.session_vectors(sub)
+    items = model.params["item_emb"][:n_aids]
+    retriever = fr.FusedRetriever(items, metric="dot", precision="compensated", device=dev)
+    q_aug, _ = fr._augment_queries(vecs, retriever.max_sq, "dot")
+    qhi, qlo = fr._bf16_split(q_aug)
+    q = torch.cat([qhi, qhi, qlo], dim=1)
+    t = retriever.items_aug_t
+    k = fr.fused_stage1(q, t)
+    r = fr._stage1_reference(q, t)
+    live = r >= 1.0
+    check(torch.equal(live, k >= 1.0), "14c K1: live windows differ from the twin")
+    rel = float(((k - r).abs() / r.abs())[live].max())
+    same = float(((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean())
+    k1_err = float((k - r).abs().max())
+    check(rel <= 2.0**-15 and same >= 0.999,
+          f"14c K1 [{tuple(q.shape)} x {tuple(t.shape)}]: rel err {rel}, same position {same}")
+    del k, r
+    if dev.type == "cuda":
+        k1_ms = cuda_ms(torch, lambda: fr.fused_stage1(q, t), 10)
+        k1_plain = cuda_ms(torch, lambda: fr._stage1_reference(q, t), 2)
+        k1_ms = min(k1_ms, cuda_ms(torch, lambda: fr.fused_stage1(q, t), 10))
+    else:
+        k1_ms = _host_ms(lambda: fr.fused_stage1(q, t), 1)
+        k1_plain = _host_ms(lambda: fr._stage1_reference(q, t), 1)
+    k1_bound = stage1_bound(q, t)
+    print(f"14c K1 on the sequence path's operands [{q.shape[0]} x {q.shape[1]}] x "
+          f"[{t.shape[0]} x {t.shape[1]}] bf16: max rel err {rel:.3e} (limit 2^-15), same "
+          f"window position {same:.6f} (limit 0.999); kernel {k1_ms:.3f} ms, twin "
+          f"{k1_plain:.3f} ms; bound {k1_bound[0]:.3f} ms ({k1_bound[1]}): "
+          f"{100 * k1_bound[0] / k1_ms:.1f}% of it", flush=True)
+    k1 = {"shape": [int(q.shape[0]), int(q.shape[1]), int(t.shape[1])], "ms": k1_ms,
+          "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+          "max_abs_err": k1_err, "max_rel_err": rel, "same_position": same}
+    del q, t, qhi, qlo, q_aug
+
+    head = head_sessions(sub, n_recall)
+    got = model.full_sort_topk(head, k=20)
+    _, want = topk_scan(model.session_vectors(head), items, k=20, block=16384)
+    want = want.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / 20 for a, b in zip(got, want)]))
+    check(recall >= SEQ_RECALL, f"14c full_sort_topk recall {recall} against the exact scan")
+    print(f"14c full_sort_topk on {head.n_sessions} sessions: recall@20 {recall:.6f} against "
+          f"the exact topk_scan (limit {SEQ_RECALL})", flush=True)
+
+    packed = target.select_sessions(np.flatnonzero(counts >= 20)).pack(max_len=256, keep="last")
+
+    def d(a):
+        return torch.as_tensor(a, device=dev)
+
+    mask = d(packed.mask)
+    coef = torch.tensor([1.0, 6.0, 3.0], dtype=torch.float32, device=dev)
+    w = ses.recency_event_weights(d(packed.aids), d(packed.types), mask, d(packed.lengths), coef)
+    aids = torch.where(mask, d(packed.aids), -1).to(torch.int32)
+    w = torch.where(mask, w, 0.0)
+    ka, kf, kp = fs.aid_vote_aggregate(aids, w)
+    ra, rf, rp = fs._vote_reference(aids, w)
+    sync(torch, dev)
+    check(torch.equal(kf, rf) and torch.equal(kp, rp),
+          "14c K3: first/firstpos differ from the twin on the recency route's input")
+    dd = (ka - ra).abs()
+    check(bool((dd <= vote_bound(torch, w)).all()), "14c K3: agg beyond 2^-16 * sum|w|")
+    k3_err, agg_equal = float(dd.max()), bool(torch.equal(ka, ra))
+    S, L = aids.shape
+    if dev.type == "cuda":
+        k3_times = time_vote(torch, aids, w, 5)
+    else:
+        k3_times = {"ms": _host_ms(lambda: fs.aid_vote_aggregate(aids, w), 1),
+                    "warm_ms": None, "plain_ms": _host_ms(lambda: fs._vote_reference(aids, w), 1)}
+    k3_bound = vote_time_bound(torch, aids)
+    print(f"14c K3 on the recency route's input [{S}, {L}] (the block kernel): first/firstpos "
+          f"bit-equal, agg {'bit-equal' if agg_equal else f'max abs err {k3_err:.3e}'} "
+          f"(limit 2^-16 * sum|w| of the row); bound {k3_bound[0]:.4f} ms ({k3_bound[1]}): "
+          f"cold {100 * k3_bound[0] / k3_times['ms']:.1f}% of it", flush=True)
+    k3 = {"shape": [S, L], "ms": k3_times["ms"], "warm_ms": k3_times["warm_ms"],
+          "plain_ms": k3_times["plain_ms"], "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+          "max_abs_err": k3_err, "agg_bit_equal": agg_equal}
+    return {"k1": k1, "k3": k3, "recall": recall}
+
+
+def seq_cli(torch, dev, store, workdir: Path, trained: dict, zero_counters,
+            read_counters) -> dict:
+    """Phase 14d: ``sequence validation --config <sequence_gru.yaml, 1
+    epoch>`` in process on phase 7's store as ``.jsonl``: if its report and
+    lists equal 14b's gru run (a second training run of the same data: the
+    card's training is then bit-reproducible), else held within 1e-3 of
+    its weighted recall and named; ``sequence submission`` in a process of
+    its own on the store's first SEQ_SUBMISSION_SESSIONS sessions (exit 0,
+    a row a session and type); 14b's gru model saved and loaded back, its
+    parameters bit-equal and its lists on 2,000 target sessions equal."""
+    from otto_tpu_torch import pipelines
+    from otto_tpu_torch.data import submission
+    from otto_tpu_torch.data.splits import split_by_fraction
+    from otto_tpu_torch.models import sequence as sq
+
+    jsonl = workdir / "events.jsonl"
+    write_jsonl(store, jsonl)
+    cfg_path = seq_cut_yaml("gru", workdir)
+    zero_counters()
+    t0 = time.perf_counter()
+    res = pipelines.main(["sequence", "validation", "--events", str(jsonl), "--config",
+                          str(cfg_path), "--n-aids", str(N_AIDS), "--device", dev.type])
+    sync(torch, dev)
+    cli_s = time.perf_counter() - t0
+    launches = read_counters("CLI sequence validation", ("fused_stage1", "peel_rows", "aid_vote"))
+    ref = trained["gru"]
+    same_report = report_fields(res.report) == ref["report"]
+    same_lists = all(np.array_equal(res.predictions[t], ref["predictions"][t])
+                     for t in TYPE_NAMES)
+    print(f"14d CLI sequence validation (gru, 1 epoch) on the .jsonl: {cli_s:.2f} s, weighted "
+          f"{res.report.weighted:.6f}; report equal to 14b's: {same_report}, lists equal: "
+          f"{same_lists}", flush=True)
+    if not (same_report and same_lists):
+        rows = int((res.predictions["clicks"] != ref["predictions"]["clicks"]).any(axis=1).sum())
+        print(f"14d: the card's training is not bit-reproducible: {rows} lists differ",
+              flush=True)
+        check(abs(res.report.weighted - ref["weighted"]) <= 1e-3,
+              "14d: the CLI's weighted recall beyond 1e-3 of 14b's")
+
+    head = head_sessions(store, SEQ_SUBMISSION_SESSIONS)
+    head_jsonl = workdir / "events_head.jsonl"
+    write_jsonl(head, head_jsonl)
+    out = workdir / "sequence_submission.csv.gz"
+    cmd = [sys.executable, "-m", "otto_tpu_torch.pipelines", "sequence", "submission",
+           "--events", str(head_jsonl), "--config", str(cfg_path), "--n-aids", str(N_AIDS),
+           "--output", str(out), "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+    sub = submission.read_submission(out)
+    check(all(len(sub[t]) == head.n_sessions for t in TYPE_NAMES)
+          and set(sub["clicks"]) == set(head.session_ids.tolist()),
+          "14d: the subprocess's submission does not hold a row a session and type")
+    print(f"14d python -m otto_tpu_torch.pipelines sequence submission on {head.n_sessions} "
+          f"sessions: exit 0 in {sub_s:.2f} s; {out.stat().st_size / 1e6:.2f} MB, "
+          f"{3 * head.n_sessions} rows read back", flush=True)
+
+    model = ref["model"]
+    t0 = time.perf_counter()
+    model.save(workdir / "gru.npz")
+    loaded = sq.SequenceModel.load(workdir / "gru.npz", model.config, device=dev)
+    save_load_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(sq.tree_leaves(loaded.params),
+                                                  sq.tree_leaves(model.params))),
+          "14d: the loaded parameters differ from the saved ones")
+    head = head_sessions(split_by_fraction(store).val_input, 2_000)
+    same_saved = np.array_equal(loaded.full_sort_topk(head), model.full_sort_topk(head))
+    check(same_saved, "14d: the saved and loaded model's lists differ")
+    print(f"14d the gru model saved and loaded ({save_load_s:.2f} s): parameters bit-equal, "
+          f"lists on 2,000 target sessions equal", flush=True)
+    return {"cli_s": cli_s, "submission_s": sub_s, "bit_reproducible": same_report and same_lists,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3273,7 +3719,6 @@ def main() -> int:
             tower_d = tfidf_run(torch, dev, phase7_store, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del phase7_store
     print("phase 13 metrics: " + json.dumps({
         "forward_share": tower_a["forward_share"], "forward_worst": tower_a["forward_worst"],
         "step": tower_a["step"], "step_ms": tower_a["step_ms"],
@@ -3283,6 +3728,39 @@ def main() -> int:
                                    "maps", "weighted", "weighted_disjoint", "lift", "pair_s",
                                    "streamed_s", "streamed_lift")},
         "cli_s": tower_c, "tfidf": tower_d}), flush=True)
+
+    from otto_tpu_torch.data.splits import split_by_fraction
+
+    for cut in SEQ_CUTS:
+        print(f"phase 14 cut: {cut}", flush=True)
+    torch.cuda.empty_cache()
+    with phase("14a the sequence encoders and one step at full width, card against CPU"):
+        seq_a = seq_card_vs_cpu(torch, dev, phase7_store, N_AIDS)
+    workdir = REPO / "tmp" / "chip_smoke_seq"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        split7 = split_by_fraction(phase7_store)  # phase 7's split, as the CLI makes it
+        with phase("14b run_sequence with each published config on phase 7's split"):
+            seq_b = seq_runs(torch, dev, split7, workdir, zero_counters, read_counters)
+        with phase("14c K1 and K3 on the sequence path's operands"):
+            seq_c = seq_kernels_on_path(torch, dev, split7.val_input, seq_b["gru"]["model"],
+                                        N_AIDS)
+        with phase("14d the CLI: sequence validation in process, submission as a process"):
+            seq_d = seq_cli(torch, dev, phase7_store, workdir, seq_b, zero_counters,
+                            read_counters)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del phase7_store, split7
+    print("phase 14 metrics: " + json.dumps({
+        "card_vs_cpu": seq_a,
+        "runs": {k: {f: v[f] for f in ("train_sessions", "total_s", "train_s", "steps",
+                                       "ms_a_step", "draw_ms",
+                                       "host_draw_share", "loss_first_tenth",
+                                       "loss_last_tenth", "serve_s", "sessions_per_s",
+                                       "weighted", "routes")} for k, v in seq_b.items()},
+        "recall_vs_exact": seq_c["recall"], "k1": seq_c["k1"], "k3": seq_c["k3"],
+        "cli": seq_d}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
@@ -3299,20 +3777,30 @@ def main() -> int:
                   "cli_embedding_knn_submission": cli_s1["embedding_knn submission"]["launches"],
                   "two_stage_sgns_train": ts_sgns["first"]["launches"],
                   "two_stage_sgns_resumed": ts_sgns["resumed"]["launches"]}
+    seq_paths = {f"sequence_{k}": v["launches"] for k, v in seq_b.items()}
+    seq_paths["cli_sequence_validation"] = seq_d["launches"]
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
              "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
              "cli_two_stage_train": cli_train_run["launches"],
              "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths,
-             **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()}}
+             **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()},
+             **seq_paths}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]] + sum(
-            c[rec["name"]] for c in sgns_paths.values())
+            c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values()))
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
+    # K1 and K3 at the sequence path's shapes (phase 14c): the compensated
+    # dim-64 table's contraction of 198, and the recency route's block kernel
+    for rec in records:
+        if rec["name"] == "fused_stage1":
+            rec["sequence_path"] = seq_c["k1"]
+        elif rec["name"] == "aid_vote":
+            rec["sequence_path"] = seq_c["k3"]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

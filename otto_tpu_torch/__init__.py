@@ -4,8 +4,8 @@
 layout and names, so each module's counterpart sits at the same path.  It
 imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
-Ported so far (the embedding-kNN, baseline and two-stage paths, and the
-file CLI):
+Ported so far (the embedding-kNN, baseline, two-stage and sequence
+paths, and the file CLI):
 
 - ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy),
                               JSONL ingest, parquet writers and the Kaggle
@@ -18,12 +18,15 @@ file CLI):
                               stage-1 window max and the window peel), exact
                               scan, neighbor tables, session ranking and the
                               session vote kernel, multiset and covisitation
-                              ops, forest routing (a CUDA kernel)
+                              ops, the mixture-of-experts FFN, forest
+                              routing (a CUDA kernel)
 - ``otto_tpu_torch.models``   SGNS training and inference and the embedding-kNN
                               recommender, frequency and recency baselines,
                               covisitation and its heuristic, candidate
                               generators, GBDT training and inference, the
-                              listwise tower ranker, TF-IDF, the file ensemble
+                              listwise tower ranker, TF-IDF, the sequence
+                              recommenders (GRU, NARM, STAMP, Caser,
+                              transformer and MoE encoders), the file ensemble
 - ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
                               training (tower or GBDT rankers), resume, and
                               prediction with trained artifacts

@@ -2,9 +2,10 @@
 
 Copied from ``otto_tpu/config.py`` (no jax inside): the config base,
 :class:`DataConfig`, :class:`SGNSConfig`, ``COVISIT_KINDS``,
-:class:`CovisitConfig`, :class:`RankerConfig` (the listwise tower) and
-:class:`GBDTConfig` (the committed fold models' ``__config`` is one).  The other model families' configs are copied
-with the modules that use them.
+:class:`CovisitConfig`, :class:`RankerConfig` (the listwise tower),
+:class:`GBDTConfig` (the committed fold models' ``__config`` is one) and
+:class:`SequenceModelConfig` (the sequence recommenders).  The other model
+families' configs are copied with the modules that use them.
 """
 
 from __future__ import annotations
@@ -184,3 +185,30 @@ class GBDTConfig(ConfigBase):
     # remote-attached device) — and it multiplies XLA compile time by the
     # segment length.  ES metric cadence follows the segment when > 1.
     trees_per_call: int = 1
+
+
+@dataclass(frozen=True)
+class SequenceModelConfig(ConfigBase):
+    """Sequential session encoder replacing the RecBole stack
+    (reference: src/recbole/{dataset,trainer,inference}.py).  The reference
+    instantiates arbitrary RecBole recommenders via ``eval(model_name)``
+    (recbole/trainer.py:28-47); here ``architecture`` selects the encoder:
+    GRU (GRU4Rec-style), NARM, STAMP, Caser or a causal transformer
+    (SASRec-style)."""
+
+    n_aids: int = 1_855_604
+    dim: int = 64
+    hidden: int = 128
+    max_len: int = 20  # RecBole pads item lists to length 20 (recbole/inference.py:63-68)
+    batch_size: int = 2048
+    learning_rate: float = 1e-3
+    epochs: int = 3
+    n_negatives: int = 512
+    seed: int = 42
+    architecture: str = "gru"  # 'gru' | 'narm' | 'transformer' | 'stamp' | 'caser'
+    loss: str = "sampled_softmax"  # 'sampled_softmax' | 'bpr_max' (GRU4Rec+)
+    bpr_reg: float = 1.0  # BPR-max score-regularization weight
+    n_layers: int = 2  # transformer only
+    n_heads: int = 2  # transformer only
+    moe_experts: int = 0  # transformer only: > 0 replaces each FFN with a
+    # top-1-gated mixture of experts (ops/moe.py)

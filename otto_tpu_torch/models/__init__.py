@@ -2,7 +2,8 @@
 embedding-kNN and session-embedding recommenders, frequency statistics, the aid-weight baseline,
 covisitation construction and the covisitation heuristic, the candidate
 generators, GBDT training and inference, the listwise tower ranker, the
-TF-IDF recommender and the file ensemble."""
+TF-IDF recommender, the sequence recommenders (GRU, NARM, STAMP, Caser, the
+transformer with dense or mixture-of-experts FFNs) and the file ensemble."""
 
 from otto_tpu_torch.models.candidates import (
     CandidateSet,
@@ -29,4 +30,11 @@ from otto_tpu_torch.models.frequency import FrequencyStatistics, aid_frequency_p
 from otto_tpu_torch.models.gbdt import GBDTForest, GBDTRankerModel, load_ranker_model
 from otto_tpu_torch.models.ranker import RankerModel, train_ranker
 from otto_tpu_torch.models.recency import aid_weight_predictions
+from otto_tpu_torch.models.sequence import (
+    SequenceModel,
+    sequence_params_from_numpy,
+    sequence_params_to_numpy,
+    sequence_serving_predictions,
+    train_sequence_model,
+)
 from otto_tpu_torch.models.tfidf import TfIdfModel

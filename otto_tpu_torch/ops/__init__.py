@@ -1,6 +1,6 @@
-"""Retrieval, selection, session, multiset and covisitation ops (port of
-``otto_tpu/ops``), and forest routing (the forest pass of
-``otto_tpu/models/gbdt.py``).
+"""Retrieval, selection, session, multiset, covisitation and
+mixture-of-experts ops (port of ``otto_tpu/ops``), and forest routing (the
+forest pass of ``otto_tpu/models/gbdt.py``).
 
 The hand-written CUDA kernels live in ``otto_tpu_torch/csrc`` and are built
 at first CUDA use by :mod:`otto_tpu_torch.ops._kernels`; importing this
@@ -24,6 +24,7 @@ from otto_tpu_torch.ops.forest import (
 )
 from otto_tpu_torch.ops.fused_retrieval import FusedRetriever, fused_stage1
 from otto_tpu_torch.ops.fused_sessions import aid_vote_aggregate, per_aid_weight_top_fused
+from otto_tpu_torch.ops.moe import init_moe, moe_apply
 from otto_tpu_torch.ops.multiset import (
     compact_rows,
     concat_unique_cascade,

@@ -6,21 +6,21 @@ writing files under hardcoded paths.  Here the equivalents are plain
 functions over in-memory stores on an explicit ``device``
 (``run_aid_frequency``, ``run_aid_weight``, ``run_covisit_heuristic``, the
 TF-IDF recommender ``run_tfidf``, the SGNS recommenders
-``run_embedding_knn`` and ``run_doc2vec``, the file ensemble
-``run_ensemble``), plus the file CLI::
+``run_embedding_knn`` and ``run_doc2vec``, the sequence recommenders
+``run_sequence``, the file ensemble ``run_ensemble``), plus the file CLI::
 
     python -m otto_tpu_torch.pipelines <model> <validation|submission> \
         --events <file.parquet|file.jsonl> [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda``; without a card that raises, it never
 runs quietly on the CPU.  ``embedding_knn`` and ``doc2vec`` train SGNS
-with ``--config`` (an ``SGNSConfig`` YAML; default ``SGNSConfig()``).
-``two_stage`` and ``two_stage_streamed`` (both modes) train the fold
-rankers of ``--ranker``, the listwise tower by default (``--config``: a
-``RankerConfig`` YAML) or ``gbdt`` (a ``GBDTConfig`` YAML), where
-``--artifact-dir`` holds none, or resume those it holds.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP item: ``sequence``
-(M12).
+with ``--config`` (an ``SGNSConfig`` YAML; default ``SGNSConfig()``);
+``sequence`` trains the encoder of ``--config`` (a ``SequenceModelConfig``
+YAML, e.g. ``configs/sequence_gru.yaml``; default
+``SequenceModelConfig()``).  ``two_stage`` and ``two_stage_streamed`` (both
+modes) train the fold rankers of ``--ranker``, the listwise tower by default
+(``--config``: a ``RankerConfig`` YAML) or ``gbdt`` (a ``GBDTConfig``
+YAML), where ``--artifact-dir`` holds none, or resume those it holds.
 """
 
 from __future__ import annotations
@@ -31,7 +31,13 @@ import numpy as np
 import torch
 
 from otto_tpu_torch import EVENT_TYPES, TOP_K
-from otto_tpu_torch.config import DataConfig, GBDTConfig, RankerConfig, SGNSConfig
+from otto_tpu_torch.config import (
+    DataConfig,
+    GBDTConfig,
+    RankerConfig,
+    SequenceModelConfig,
+    SGNSConfig,
+)
 from otto_tpu_torch.data import splits, submission
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.data.labels import SessionLabels
@@ -180,11 +186,43 @@ def run_doc2vec(
     return BaselineResult(preds, _report("doc2vec-analog", labels, preds, device))
 
 
+def run_sequence(
+    train: EventStore,
+    target: EventStore,
+    n_aids: int,
+    labels: SessionLabels | None = None,
+    k: int = TOP_K,
+    config_path: str | None = None,
+    *,
+    device: str | torch.device,
+) -> BaselineResult:
+    """Sequential recommender with 3-way serving routing (reference:
+    src/recbole/{trainer,inference}.py): trains the encoder of
+    ``config_path`` (a ``SequenceModelConfig`` YAML; default
+    ``SequenceModelConfig()``) on ``device`` and serves the target there;
+    sessions whose last aid was not seen in training get no list (no kNN
+    table is passed, as in the reference)."""
+    from otto_tpu_torch.models.sequence import (
+        sequence_serving_predictions,
+        train_sequence_model,
+    )
+
+    cfg = (SequenceModelConfig.from_yaml(config_path) if config_path
+           else SequenceModelConfig()).replace(n_aids=n_aids)
+    model = train_sequence_model(train, cfg, device=device)
+    seen = np.zeros(n_aids, bool)
+    seen[train.aid] = True
+    preds = sequence_serving_predictions(target, model, trained_aid_mask=seen, k=k)
+    return BaselineResult(preds, _report(f"sequence ({cfg.architecture})", labels, preds,
+                                         device))
+
+
 MODEL_RUNNERS = {
     "aid_frequency": run_aid_frequency,
     "aid_weight": run_aid_weight,
     "covisitation": run_covisit_heuristic,
     "tfidf": run_tfidf,
+    "sequence": run_sequence,
     "embedding_knn": run_embedding_knn,
     "doc2vec": run_doc2vec,
 }
@@ -229,14 +267,6 @@ def run_ensemble(
     return BaselineResult(preds_out, report)
 
 
-# What the CLI cannot serve yet, and the ROADMAP item that brings it.
-_NOT_PORTED = {
-    "sequence": "the sequence model is not ported yet (ROADMAP M12)",
-}
-_SERVED = ("aid_frequency, aid_weight, covisitation, tfidf, embedding_knn, doc2vec, ensemble, "
-           "two_stage and two_stage_streamed (--ranker tower or gbdt) in both modes")
-
-
 def main(argv=None):
     import argparse
 
@@ -268,7 +298,9 @@ def main(argv=None):
                              "SGNSConfig()); two_stage / two_stage_streamed: the rankers' "
                              "RankerConfig YAML with --ranker tower (default RankerConfig(), "
                              "e.g. configs/ranker.yaml), GBDTConfig YAML with --ranker gbdt "
-                             "(default GBDTConfig()); the sequence model is not ported yet")
+                             "(default GBDTConfig()); sequence: the SequenceModelConfig YAML "
+                             "(default SequenceModelConfig(), e.g. "
+                             "configs/sequence_gru.yaml)")
     parser.add_argument("--ranker", choices=["tower", "gbdt"], default="tower",
                         help="two_stage reranking engine: listwise MLP tower (default) or "
                              "the histogram GBDT (the reference's LightGBM stage)")
@@ -292,10 +324,6 @@ def main(argv=None):
                              "card it raises: pass cpu to run on the CPU)")
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
-
-    if args.model in _NOT_PORTED:
-        raise NotImplementedError(f"{args.model}: {_NOT_PORTED[args.model]}. The port "
-                                  f"serves {_SERVED}")
 
     def _read(path):
         if str(path).endswith(".jsonl"):
@@ -376,7 +404,8 @@ def main(argv=None):
         runner = MODEL_RUNNERS[args.model]
         if args.model == "aid_weight":
             return runner(target, labels, device=dev)
-        kw = {"config_path": args.config} if args.model in ("embedding_knn", "doc2vec") else {}
+        kw = ({"config_path": args.config}
+              if args.model in ("embedding_knn", "doc2vec", "sequence") else {})
         return runner(train, target, args.n_aids, labels, device=dev, **kw)
 
     if args.mode == "validation":

@@ -376,14 +376,37 @@ def test_main_two_stage_equal_to_in_memory_calls(tmp_path):
             np.testing.assert_array_equal(lists[t], preds[t], err_msg=name)
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["sequence", "submission"], "M12"),
-])
-def test_main_raises_for_what_is_not_ported(cli_files, argv, match):
-    d, _, _ = cli_files
-    with pytest.raises(NotImplementedError, match=match):
-        tpipe.main(argv + ["--events", str(d / "events.parquet"), "--n-aids", str(N_AIDS),
-                           "--device", "cpu"])
+TINY_SEQUENCE = ("architecture: gru\ndim: 8\nhidden: 8\nmax_len: 5\nbatch_size: 256\n"
+                 "epochs: 1\nn_negatives: 8\n")
+
+
+@pytest.mark.parametrize("mode", ["validation", "submission"])
+def test_main_serves_sequence(cli_files, tmp_path, mode):
+    """What raised before the sequence models were ported: ``sequence``
+    trains the encoder of ``--config`` (a ``SequenceModelConfig`` YAML) in
+    both modes.  The report, or the submission file, equals
+    ``run_sequence`` on the same split (the same CPU arithmetic: equal)."""
+    d, store, _ = cli_files
+    cfg = tmp_path / "sequence.yaml"
+    cfg.write_text(TINY_SEQUENCE)
+    out = tmp_path / "sub.csv.gz"
+    got = tpipe.main(["sequence", mode, "--events", str(d / "events.parquet"), "--n-aids",
+                      str(N_AIDS), "--config", str(cfg), "--output", str(out),
+                      "--device", "cpu"])
+    if mode == "validation":
+        sp = split_by_fraction(store, val_fraction=0.1, seed=42)
+        want = tpipe.run_sequence(sp.train, sp.val_input, N_AIDS, sp.val_labels,
+                                  config_path=str(cfg), device="cpu")
+        assert got.report == want.report and 0 < got.report.weighted < 1
+    else:
+        want = tpipe.run_sequence(store, store, N_AIDS, None, config_path=str(cfg),
+                                  device="cpu")
+        assert got.report is None
+        lists = _lists(tsub.read_submission(out), store.session_ids)
+        for t in EVENT_TYPES:
+            np.testing.assert_array_equal(lists[t], want.predictions[t], err_msg=t)
+    for t in EVENT_TYPES:
+        np.testing.assert_array_equal(got.predictions[t], want.predictions[t], err_msg=t)
 
 
 TINY_TOWER = "hidden_dims: [16, 8]\nn_folds: 2\nepochs: 1\ndropout: 0.0\n"

@@ -203,9 +203,10 @@ def test_pipeline_runners_match_jax(setup, monkeypatch):
     the device recency route (see the module docstring)."""
     sp_j, sp_t = setup["sp_j"], setup["sp_t"]
     # the SGNS runners are held to otto_tpu's in test_torch_sgns_pipelines.py,
-    # the TF-IDF runner in test_torch_tfidf.py
+    # the TF-IDF runner in test_torch_tfidf.py, the sequence runner in
+    # test_torch_sequence_train.py
     assert set(tpipe.MODEL_RUNNERS) == {"aid_frequency", "aid_weight", "covisitation",
-                                        "tfidf", "embedding_knn", "doc2vec"}
+                                        "tfidf", "sequence", "embedding_knn", "doc2vec"}
     for name in ("build_covisitation", "covisit_heuristic_predictions"):
         monkeypatch.setattr(jcov, name,
                             functools.partial(getattr(jcov, name), chunk_sessions=CHUNK))
