@@ -1,8 +1,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA card: the
 embedding-kNN path, the baselines with the covisitation heuristic, the
 two-stage prediction path, the file CLI, GBDT training, SGNS training, the
-listwise tower ranker, the TF-IDF recommender and the sequence
-recommenders.
+listwise tower ranker, the TF-IDF recommender, the sequence recommenders,
+and matrix factorization and collaborative filtering with the training
+utilities.
 
     python3 chip_smoke.py
 
@@ -194,7 +195,24 @@ exit code):
    7's store as ``.jsonl`` (report and lists equal to 14b's gru run: the
    card's training is bit-reproducible), ``sequence submission`` in a
    process of its own on 20,000 sessions, and a saved model loaded back
-   (lists equal).
+   (lists equal);
+15. matrix factorization and collaborative filtering with the published
+   configs (``configs/matrix_factorization.yaml``,
+   ``configs/collaborative_filtering.yaml``: 32 factors, batch 262,144),
+   each cut printed; no hand kernel launches (the counters are zeroed
+   before and read after): 15a one sparse adagrad step of each at full
+   table height (MF's 14,571,582 x 32 session and 1,855,604 x 32 aid
+   tables, CF's 1,855,603 x 32 table with both lookups into it), card
+   against CPU on the touched rows (within 1e-4 * (|x| + 0.01), the loss
+   within 1e-5 relative), ms a step against the bytes the code moves;
+   15b ``train_mf`` and ``train_cf`` on phase 7's split (epochs cut to 10:
+   pair seconds, ``train_s``, ms a step, samples/s, the training loss
+   falling, the validation scores), the card against a CPU run cut to 2
+   epochs, both models saved and loaded back equal; 15c ``train_mf`` for
+   one epoch at the full table shape (14,571,582 sessions of 2 events:
+   ``train_s``, samples/s, the card's peak memory, finite tables); 15d
+   ``TrainingGuard`` rolling back card tensors after a planted NaN, a
+   ``trace`` of 3 steps, ``roofline()`` of 15a's step.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -3480,6 +3498,352 @@ def seq_cli(torch, dev, store, workdir: Path, trained: dict, zero_counters,
             "launches": launches}
 
 
+# ------------------------------------------------------------- phase 15
+# Matrix factorization and collaborative filtering with the published
+# configs (configs/matrix_factorization.yaml: 32 factors, MSE, lr 0.05
+# halved every 5,000 steps, batch 262,144, a 14,571,582-session table over
+# 1,855,604 aids; configs/collaborative_filtering.yaml: 32 factors, BCE, lr
+# 5e-4 halved every 7,500 steps, 'diff' pairs over 1,855,603 aids), cut as
+# MF_CUTS says.  No hand kernel: the step is torch ops (gathers, the
+# closed-form gradient, index_add_ adagrad).
+MF_CONFIG = REPO / "configs" / "matrix_factorization.yaml"
+CF_CONFIG = REPO / "configs" / "collaborative_filtering.yaml"
+MF_EPOCHS = 10  # 15b: epochs 250 -> 10 (at 20, phase 15 took 103 s on an H100)
+MF_CHECK_EPOCHS = 2  # 15b: the card against the CPU
+MF_FULL_EVENTS = 2  # 15c: events a session
+MF_CUTS = ("15a: the tables and accumulators seeded, not trained; MF's batch is 262,144 of "
+           "phase 7's (session, aid, type) rows, its sessions spread over the 14,571,582-row "
+           "table (session s -> row 72 s)",
+           f"15b: epochs 250 -> {MF_EPOCHS} (patience 20); phase 7's 180,000 training "
+           "sessions (a 180,000-row session table), not the OTTO week's 14,571,582; the card "
+           f"against a CPU run of the same config cut to {MF_CHECK_EPOCHS} epochs",
+           f"15c: {MF_FULL_EVENTS} events a session (OTTO has ~15), the aids and types drawn "
+           "from phase 7's events; one epoch, no save")
+# 15a-15b: card against CPU, each touched table and accumulator entry within
+# MF_RTOL * (|cpu| + MF_FLOOR) (the SGNS steps' bar: the card's atomics add a
+# row's duplicates in another order), a step's loss and each epoch's
+# train and validation loss within MF_LOSS_RTOL relative.
+MF_RTOL, MF_FLOOR, MF_LOSS_RTOL = 1e-4, 1e-2, 1e-5
+
+
+def mf_configs():
+    from otto_tpu_torch.config import CFConfig, MFConfig
+
+    return MFConfig.from_yaml(MF_CONFIG), CFConfig.from_yaml(CF_CONFIG)
+
+
+def mf_step_bytes(batch, D: int, lookups) -> tuple[float, float]:
+    """A sparse step's bytes as the code moves them, and the unique-row
+    floor.  The code, for each of the two lookups of B rows: the gather
+    (B x D read), the accumulator's index_add_ (read and write), its
+    re-read at the rows, the table's index_add_ (read and write): 6 B D
+    float32; plus the batch's three columns.  The floor: each distinct row
+    of each table and accumulator read once and written once."""
+    B = len(batch[0])
+    cols = sum(np.asarray(c).nbytes for c in batch)
+    code = 2 * 6 * B * D * 4 + cols
+    rows = {}
+    for table, col in lookups:
+        rows.setdefault(table, []).append(np.asarray(batch[col]))
+    distinct = sum(len(np.unique(np.concatenate(r))) for r in rows.values())
+    return code, distinct * D * 4 * 4 + cols
+
+
+def mf_steps(torch, dev, store, reps: int = 20) -> list[dict]:
+    """Phase 15a: one sparse adagrad step of each published config at full
+    table height, card against CPU on the same tables and batch: MF over a
+    14,571,582 x 32 session table and a 1,855,604 x 32 aid table, CF over
+    one 1,855,603 x 32 table with both lookups into it (phase 7's
+    ``cf_pairs_diff`` pairs, so the hot aids repeat within a batch as they
+    do in training).  The touched rows are compared; then ms a step on the
+    card (CUDA events over ``reps`` steps) against the bytes the code moves
+    at 3.35 TB/s."""
+    from otto_tpu_torch.models import matrix_factorization as tmf
+
+    mf, cf = mf_configs()
+    B, D = mf.batch_size, mf.n_factors
+    rng = np.random.default_rng(SEED + 15)
+    rows = rng.choice(store.n_events, B, replace=False)
+    spread = mf.n_sessions // store.n_sessions
+    mf_batch = ((store.session_idx[rows] * spread).astype(np.int32), store.aid[rows].astype(np.int32),
+                store.type[rows].astype(np.float32))
+    x1, x2, y = tmf.cf_pairs_diff(store, np.random.default_rng(cf.seed))
+    sel = rng.choice(len(y), B, replace=False)
+    cases = {"mf": (mf, {"session_embeddings": mf.n_sessions, "aid_embeddings": mf.n_aids},
+                    (("session_embeddings", 0), ("aid_embeddings", 1)), mf_batch),
+             "cf": (cf, {"embeddings": cf.n_aids}, (("embeddings", 0), ("embeddings", 1)),
+                    (x1[sel], x2[sel], y[sel]))}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out = []
+    for name, (cfg, heights, lookups, batch) in cases.items():
+        tables = {k: torch.randn((h, D), generator=gen, device=dev).mul_(0.05)
+                  for k, h in heights.items()}
+        accs = {k: torch.rand((h, D), generator=gen, device=dev).mul_(1e-10)
+                for k, h in heights.items()}
+        host = tuple({k: v.to("cpu", copy=True) for k, v in d.items()} for d in (tables, accs))
+        lr = tmf.lr_at(cfg, 0)
+        l_dev = float(tmf.sparse_step(tables, accs, lookups, cfg.loss, lr,
+                                      *(torch.as_tensor(c, device=dev) for c in batch)))
+        l_cpu = float(tmf.sparse_step(*host, lookups, cfg.loss, lr,
+                                      *(torch.as_tensor(c) for c in batch)))
+        worst, err = 0.0, 0.0
+        for k in heights:
+            idx = np.unique(np.concatenate([batch[c] for t, c in lookups if t == k]))
+            idx_d = torch.as_tensor(idx, device=dev)
+            for card, cpu in ((tables, host[0]), (accs, host[1])):
+                a, b = card[k][idx_d].cpu().double(), cpu[k][torch.as_tensor(idx)].double()
+                diff = (a - b).abs()
+                worst = max(worst, float((diff / (b.abs() + MF_FLOOR)).max()))
+                err = max(err, float(diff.max()))
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        check(worst <= MF_RTOL, f"15a {name} step: card vs CPU {worst:.3e} > {MF_RTOL}")
+        check(loss_rel <= MF_LOSS_RTOL, f"15a {name} step: loss {l_dev} vs CPU {l_cpu}")
+        del host
+        b_dev = [torch.as_tensor(c, device=dev) for c in batch]
+        def run():
+            return tmf.sparse_step(tables, accs, lookups, cfg.loss, lr, *b_dev)
+
+        ms = cuda_ms(torch, run, reps) if dev.type == "cuda" else _host_ms(run, 2)
+        code_bytes, floor_bytes = mf_step_bytes(batch, D, lookups)
+        b_ms = code_bytes / HBM_BYTES_PER_S * 1e3
+        floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
+        dup = {f"col{c}": [len(np.unique(batch[c])), int(np.bincount(batch[c]).max())]
+               for _, c in lookups}
+        shapes = ", ".join(f"{k} {h:,} x {D}" for k, h in heights.items())
+        print(f"15a {name} step [{B} x {D}] over {shapes} (distinct rows and the largest "
+              f"repeat a column: {dup}): card vs CPU max |diff|/(|cpu| + {MF_FLOOR}) "
+              f"{worst:.3e} (limit {MF_RTOL}), max abs {err:.3e}, loss rel {loss_rel:.2e} "
+              f"(limit {MF_LOSS_RTOL}); {ms:.4f} ms a step; bound {b_ms:.4f} ms (bytes: "
+              f"{code_bytes / 1e6:.1f} MB as the code moves them): {100 * b_ms / ms:.1f}% of "
+              f"it; the unique-row floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%)",
+              flush=True)
+        out.append({"step": name, "ms": ms, "bound_ms": b_ms, "bound_by": "bytes",
+                    "bytes": code_bytes, "share": b_ms / ms, "floor_ms": floor_ms,
+                    "max_rel_err": worst, "loss_rel": loss_rel})
+        del tables, accs, b_dev, run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mf_card_vs_cpu(torch, dev, train, name: str, cfg) -> float:
+    """15b: the config cut to MF_CHECK_EPOCHS on the card and on the CPU:
+    the same epochs, each loss within MF_LOSS_RTOL relative, the tables
+    within MF_RTOL * (|cpu| + MF_FLOOR); returns the worst table error."""
+    from otto_tpu_torch.models import matrix_factorization as tmf
+
+    fn = tmf.train_mf if name == "mf" else tmf.train_cf
+    short = cfg.replace(epochs=MF_CHECK_EPOCHS)
+    card, cpu = (fn(train, cfg.n_aids, short, device=d) for d in (dev, "cpu"))
+    check([h["epoch"] for h in card.history] == [h["epoch"] for h in cpu.history],
+          f"15b {name}: card epochs {card.history} vs CPU {cpu.history}")
+    for hd, hc in zip(card.history, cpu.history):
+        for key in ("train_loss", "val_loss"):
+            check(abs(hd[key] - hc[key]) <= MF_LOSS_RTOL * abs(hc[key]),
+                  f"15b {name} {key}: card {hd} vs CPU {hc}")
+    names = ("session_embeddings", "aid_embeddings") if name == "mf" else ("embeddings",)
+    worst = 0.0
+    for n in names:
+        a, b = getattr(card, n).astype(np.float64), getattr(cpu, n).astype(np.float64)
+        worst = max(worst, float((np.abs(a - b) / (np.abs(b) + MF_FLOOR)).max()))
+    check(worst <= MF_RTOL, f"15b {name}: card tables vs CPU {worst:.3e} > {MF_RTOL}")
+    return worst
+
+
+def mf_training(torch, dev, split, workdir: Path) -> dict:
+    """Phase 15b: ``train_mf`` and ``train_cf`` with the published configs,
+    epochs cut to MF_EPOCHS, on phase 7's training sessions over the full
+    catalog: the host's pair building, ``train_s``, steps, ms a step,
+    samples/s, the training loss (it must fall) and the validation loss
+    (first epoch against best), MF's regression scores and CF's classification scores on their
+    validation rows; the card against the CPU (``mf_card_vs_cpu``); both
+    models saved (the reference's compressed npz, written at once by two
+    threads) and loaded back equal."""
+    import threading
+
+    from otto_tpu_torch.eval.model_metrics import classification_scores, regression_scores
+    from otto_tpu_torch.models import matrix_factorization as tmf
+
+    res, models = {}, {}
+    for name, cfg in zip(("mf", "cf"), mf_configs()):
+        cfg = cfg.replace(epochs=MF_EPOCHS)
+        fn = tmf.train_mf if name == "mf" else tmf.train_cf
+        stats = {}
+        model = fn(split.train, cfg.n_aids, cfg, device=dev, stats_out=stats)
+        val = [h["val_loss"] for h in model.history]
+        best = int(np.argmin(val))
+        tl = [h["train_loss"] for h in model.history]
+        check(all(np.isfinite(val + tl)) and tl[-1] < tl[0],
+              f"15b {name}: the training loss did not fall: {model.history}")
+        v = stats["val"]
+        if name == "mf":
+            pred = np.sum(model.session_embeddings[v[0]] * model.aid_embeddings[v[1]], axis=1)
+            scores = regression_scores(v[2], pred)
+        else:
+            scores = classification_scores(v[2], model.score_pairs(v[0], v[1]))
+        check(all(np.isfinite(x) for x in scores.values()), f"15b {name}: scores {scores}")
+        samples_per_s = stats["steps"] * cfg.batch_size / stats["train_s"]
+        worst = mf_card_vs_cpu(torch, dev, split.train, name, cfg)
+        res[name] = {"pairs_s": stats["pairs_s"], "samples": stats["samples"],
+                     "train_s": stats["train_s"], "steps": stats["steps"],
+                     "epochs": len(model.history),
+                     "ms_a_step": 1e3 * stats["train_s"] / stats["steps"],
+                     "samples_per_s": samples_per_s, "train_first_last": [tl[0], tl[-1]],
+                     "val_first": val[0],
+                     "val_best": val[best], "best_epoch": best, "scores": scores,
+                     "card_vs_cpu": worst}
+        print(f"15b train_{name}: {stats['samples']:,} samples (built on the host in "
+              f"{stats['pairs_s']:.2f} s), {stats['steps']} steps over {len(val)} epochs in "
+              f"{stats['train_s']:.2f} s: {res[name]['ms_a_step']:.2f} ms a step, "
+              f"{samples_per_s:,.0f} samples/s; training loss {tl[0]:.5f} -> {tl[-1]:.5f}, "
+              f"validation loss {val[0]:.5f} (epoch 0) -> "
+              f"{val[best]:.5f} (best, epoch {best}); {scores}; card vs CPU at "
+              f"{MF_CHECK_EPOCHS} epochs: tables within {worst:.2e} of (|x| + {MF_FLOOR})",
+              flush=True)
+        models[name] = model
+    t0 = time.perf_counter()
+    paths = {k: workdir / f"{k}.npz" for k in models}
+    savers = [threading.Thread(target=m.save, args=(paths[k],)) for k, m in models.items()]
+    for s in savers:
+        s.start()
+    for s in savers:
+        s.join()
+    save_s = time.perf_counter() - t0
+    mf_back, cf_back = tmf.MFModel.load(paths["mf"]), tmf.CFModel.load(paths["cf"])
+    check(np.array_equal(mf_back.session_embeddings, models["mf"].session_embeddings)
+          and np.array_equal(mf_back.aid_embeddings, models["mf"].aid_embeddings)
+          and np.array_equal(cf_back.embeddings, models["cf"].embeddings),
+          "15b: a saved model loaded back differs")
+    print(f"15b both models saved ({', '.join(f'{p.stat().st_size / 1e6:.0f} MB' for p in paths.values())}) "
+          f"in {save_s:.2f} s and loaded back equal", flush=True)
+    res["save_s"] = save_s
+    res["mf_model"] = models["mf"]
+    return res
+
+
+def mf_full_height(torch, dev, store) -> dict:
+    """Phase 15c: ``train_mf`` with configs/matrix_factorization.yaml for
+    one epoch at the reference's full table shape: a store of 14,571,582
+    sessions of MF_FULL_EVENTS events, aids and types drawn from phase 7's
+    events; ``train_s``, samples/s, the card's peak memory, finite
+    tables."""
+    from otto_tpu_torch.data.events import EventStore
+    from otto_tpu_torch.models import matrix_factorization as tmf
+    from otto_tpu_torch.utils.profiling import device_memory_stats
+
+    cfg = mf_configs()[0].replace(epochs=1)
+    S, L = cfg.n_sessions, MF_FULL_EVENTS
+    rng = np.random.default_rng(SEED + 16)
+    pick = rng.integers(0, store.n_events, S * L)
+    big = EventStore(np.repeat(np.arange(S, dtype=np.int32), L), store.aid[pick],
+                     np.zeros(S * L, np.int64), store.type[pick],
+                     np.arange(0, S * L + 1, L, dtype=np.int64), np.arange(S, dtype=np.int64))
+    del pick
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    t0 = time.perf_counter()
+    model = tmf.train_mf(big, cfg.n_aids, cfg, device=dev, stats_out=stats)
+    total_s = time.perf_counter() - t0
+    mem = device_memory_stats(dev)
+    shapes = (model.session_embeddings.shape, model.aid_embeddings.shape)
+    check(shapes == ((S, cfg.n_factors), (cfg.n_aids, cfg.n_factors)), f"15c shapes {shapes}")
+    finite = bool(np.isfinite(model.session_embeddings).all()
+                  and np.isfinite(model.aid_embeddings).all())
+    check(finite, "15c: non-finite tables")
+    h = model.history[0]
+    check(np.isfinite(h["val_loss"]) and np.isfinite(h["train_loss"]), f"15c loss {h}")
+    rate = stats["steps"] * cfg.batch_size / stats["train_s"]
+    print(f"15c train_mf at full height: {stats['samples']:,} samples, tables {shapes}, "
+          f"{stats['steps']} steps in {stats['train_s']:.2f} s ({total_s:.2f} s with "
+          f"mf_samples): {1e3 * stats['train_s'] / stats['steps']:.2f} ms a step, "
+          f"{rate:,.0f} samples/s; train loss {h['train_loss']:.5f}, validation "
+          f"{h['val_loss']:.5f}; the card's peak {mem.get('peak_bytes_in_use', 0) / 2**30:.2f} "
+          f"GiB of {mem.get('bytes_limit', 0) / 2**30:.1f}; tables finite: {finite}", flush=True)
+    return {"samples": stats["samples"], "train_s": stats["train_s"], "steps": stats["steps"],
+            "samples_per_s": rate, "peak_bytes": mem.get("peak_bytes_in_use"),
+            "train_loss": h["train_loss"], "val_loss": h["val_loss"], "finite": finite}
+
+
+def mf_utilities(torch, dev, split, mf_model, step15a: dict, workdir: Path) -> dict:
+    """Phase 15d: the training utilities on card tensors.  The MF state of
+    15b (its tables, fresh accumulators) under a ``TrainingGuard`` saving
+    every 2 steps: a NaN planted in the aid table before step 5 makes the
+    loss non-finite, the guard rolls back to step 4, and the restored
+    tensors (on the card) equal the checkpoint's; then ``trace`` over 3
+    steps writes a profile; then ``roofline()`` of 15a's MF step gives the
+    share 15a printed."""
+    from otto_tpu_torch.models import matrix_factorization as tmf
+    from otto_tpu_torch.utils.checkpoint import CheckpointManager
+    from otto_tpu_torch.utils.failure import TrainingGuard, nonfinite_count
+    from otto_tpu_torch.utils.profiling import trace
+    from otto_tpu_torch.utils.roofline import roofline
+
+    cfg = mf_configs()[0]
+    cols = tmf.mf_samples(split.train)
+    lookups = (("session_embeddings", 0), ("aid_embeddings", 1))
+    tables = {"session_embeddings": torch.as_tensor(mf_model.session_embeddings, device=dev),
+              "aid_embeddings": torch.as_tensor(mf_model.aid_embeddings, device=dev)}
+    state = {"tables": tables, "accs": {k: torch.zeros_like(t) for k, t in tables.items()}}
+    rng = np.random.default_rng(SEED + 17)
+
+    def batch():
+        sel = rng.integers(0, len(cols[0]), cfg.batch_size)
+        return [torch.as_tensor(c[sel], device=dev) for c in cols]
+
+    def step(st, b, i):
+        return tmf.sparse_step(st["tables"], st["accs"], lookups, cfg.loss, tmf.lr_at(cfg, i), *b)
+
+    mgr = CheckpointManager(workdir / "guard", max_to_keep=2)
+    guard = TrainingGuard(mgr, save_every=2)
+    i, planted, restored_equal = 0, 0, False
+    t0 = time.perf_counter()
+    while i < 6:
+        i += 1
+        b = batch()
+        if i == 5 and not planted:
+            state["tables"]["aid_embeddings"][b[1][:1]] = float("nan")
+            planted = int(nonfinite_count(state))
+        state, i, ok = guard.observe(i, state, step(state, b, i))
+        if not ok:
+            check(i == 4, f"15d: rolled back to step {i}, not 4")
+            saved = mgr.restore(4)
+            restored_equal = all(t.device == dev and torch.equal(t.cpu(), saved[part][k])
+                                 for part in ("tables", "accs") for k, t in state[part].items())
+    guard_s = time.perf_counter() - t0
+    check(planted == cfg.n_factors, f"15d: planted {planted} NaNs")
+    check(guard.rollbacks == 1 and guard.failures[0]["step"] == 5 and restored_equal,
+          f"15d: rollbacks {guard.rollbacks}, failures {guard.failures}, restored equal "
+          f"{restored_equal}")
+    check(int(nonfinite_count(state)) == 0, "15d: the state after the rollback is not finite")
+    print(f"15d TrainingGuard: {planted} NaNs planted before step 5, the loss non-finite, "
+          f"rolled back to step 4 on the card (restored tensors equal the checkpoint's), "
+          f"steps 5-6 replayed finite; {guard_s:.2f} s with 3 checkpoints of "
+          f"{sum(t.numel() * 4 for p in state.values() for t in p.values()) / 1e6:.0f} MB",
+          flush=True)
+
+    with trace(workdir / "trace") as prof:
+        for j in range(3):
+            step(state, batch(), 7 + j)
+        sync(torch, dev)
+    files = list((workdir / "trace").glob("*.json"))
+    check(len(files) == 1 and files[0].stat().st_size > 0, f"15d: trace files {files}")
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                    for e in events)
+    print(f"15d trace of 3 MF steps: {files[0].name}, {files[0].stat().st_size / 1e6:.1f} MB, "
+          f"{len(events)} operations, device time {device_us / 1e3:.3f} ms "
+          f"({device_us / 3e3:.3f} ms a step)", flush=True)
+
+    r = roofline(step15a["ms"] / 1e3, hbm_bytes=step15a["bytes"], device=dev)
+    check(abs(r["hbm_frac"] - step15a["share"]) <= 5e-5,
+          f"15d: roofline {r} vs 15a's share {step15a['share']}")
+    print(f"15d roofline() of 15a's MF step: {r} (15a: {step15a['share']:.4f})", flush=True)
+    return {"guard_s": guard_s, "trace_mb": files[0].stat().st_size / 1e6,
+            "trace_device_ms_a_step": device_us / 3e3, "roofline": r}
+
+
 def main() -> int:
     import torch
 
@@ -3751,7 +4115,6 @@ def main() -> int:
                             read_counters)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del phase7_store, split7
     print("phase 14 metrics: " + json.dumps({
         "card_vs_cpu": seq_a,
         "runs": {k: {f: v[f] for f in ("train_sessions", "total_s", "train_s", "steps",
@@ -3761,6 +4124,32 @@ def main() -> int:
                                        "weighted", "routes")} for k, v in seq_b.items()},
         "recall_vs_exact": seq_c["recall"], "k1": seq_c["k1"], "k3": seq_c["k3"],
         "cli": seq_d}), flush=True)
+
+    for cut in MF_CUTS:
+        print(f"phase 15 cut: {cut}", flush=True)
+    torch.cuda.empty_cache()
+    zero_counters()
+    workdir = REPO / "tmp" / "chip_smoke_mf"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        with phase("15a the sparse adagrad step at full table height, card against CPU"):
+            mf_a = mf_steps(torch, dev, phase7_store)
+        with phase("15b train_mf and train_cf with the published configs on phase 7's split"):
+            mf_b = mf_training(torch, dev, split7, workdir)
+        with phase("15c train_mf for one epoch at the reference's full table shape"):
+            mf_c = mf_full_height(torch, dev, phase7_store)
+        with phase("15d the NaN guard, the profiler and the roofline on the card"):
+            mf_d = mf_utilities(torch, dev, split7, mf_b.pop("mf_model"), mf_a[0], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del phase7_store, split7
+    mf_launches = read_counters("MF/CF path (phase 15)", ())
+    check(not any(mf_launches.values()), "phase 15 launched a hand kernel")
+    print("phase 15 launches none of K1-K5 or K4 bin: its step is torch ops", flush=True)
+    print("phase 15 metrics: " + json.dumps({
+        "steps": mf_a, **{f"train_{k}": mf_b[k] for k in ("mf", "cf")},
+        "save_s": mf_b["save_s"], "full_height": mf_c, "utilities": mf_d}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;

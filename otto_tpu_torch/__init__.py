@@ -5,13 +5,17 @@ layout and names, so each module's counterpart sits at the same path.  It
 imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
 Ported so far (the embedding-kNN, baseline, two-stage and sequence
-paths, and the file CLI):
+paths, matrix factorization and collaborative filtering, the training
+utilities, and the file CLI):
 
 - ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy),
                               JSONL ingest, parquet writers and the Kaggle
                               submission writer (native C++ at first use)
 - ``otto_tpu_torch.eval``     recall@20 and MAP@k metrics, the validation
-                              harness, the paired bootstrap of a lift
+                              harness, the paired bootstrap of a lift, the
+                              embedding trainers' model metrics (accuracy,
+                              ROC-AUC, MAE, MSE) and the reference-semantics
+                              oracle (copied)
 - ``otto_tpu_torch.features`` aid, session and interaction features (copied
                               numpy, with the native segment-stats engine)
 - ``otto_tpu_torch.ops``      fused retrieval (hand-written CUDA kernels for the
@@ -26,12 +30,19 @@ paths, and the file CLI):
                               generators, GBDT training and inference, the
                               listwise tower ranker, TF-IDF, the sequence
                               recommenders (GRU, NARM, STAMP, Caser,
-                              transformer and MoE encoders), the file ensemble
+                              transformer and MoE encoders), matrix
+                              factorization and collaborative filtering
+                              (sparse adagrad on the card), the file ensemble
 - ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
                               training (tower or GBDT rankers), resume, and
                               prediction with trained artifacts
 - ``otto_tpu_torch.pipelines`` the runners and the file CLI
                               (``python -m otto_tpu_torch.pipelines``)
+- ``otto_tpu_torch.utils``    device selection, checkpoints, the NaN guard
+                              with rollback, seeding, profiling, the H100
+                              roofline, native-library builds
+- ``otto_tpu_torch.visualization`` training curves, importance and data
+                              plots (matplotlib, imported when a plot is made)
 
 Constants are those of ``otto_tpu/__init__.py``.
 """

@@ -3,9 +3,10 @@
 Copied from ``otto_tpu/config.py`` (no jax inside): the config base,
 :class:`DataConfig`, :class:`SGNSConfig`, ``COVISIT_KINDS``,
 :class:`CovisitConfig`, :class:`RankerConfig` (the listwise tower),
-:class:`GBDTConfig` (the committed fold models' ``__config`` is one) and
-:class:`SequenceModelConfig` (the sequence recommenders).  The other model
-families' configs are copied with the modules that use them.
+:class:`GBDTConfig` (the committed fold models' ``__config`` is one),
+:class:`SequenceModelConfig` (the sequence recommenders), :class:`MFConfig`
+and :class:`CFConfig` (matrix factorization and collaborative filtering).
+``PipelineConfig`` waits for ``MeshConfig`` (parallelism).
 """
 
 from __future__ import annotations
@@ -80,6 +81,50 @@ class SGNSConfig(ConfigBase):
     steps_per_call: int = 8  # optimizer steps scanned per device dispatch
     seed: int = 42
     table_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class MFConfig(ConfigBase):
+    """Matrix factorization: session table x aid table dot product, MSE loss
+    (reference: src/matrix_factorization/torch_modules.py:23-38 +
+    models/matrix_factorization/config.yaml)."""
+
+    n_sessions: int = 14_571_582
+    n_aids: int = 1_855_604
+    n_factors: int = 32
+    dropout: float = 0.0
+    loss: str = "mse"
+    learning_rate: float = 0.05
+    batch_size: int = 262_144
+    epochs: int = 250
+    early_stopping_patience: int = 20
+    lr_decay_steps: int = 5000
+    lr_decay_rate: float = 0.5
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class CFConfig(ConfigBase):
+    """Collaborative filtering: one shared aid table, score = dot(e[x1], e[x2]),
+    BCE-with-logits loss (reference: src/matrix_factorization/torch_modules.py:4-20 +
+    models/aid_collaborative_filtering/config.yaml)."""
+
+    n_aids: int = 1_855_604
+    n_factors: int = 32
+    dropout: float = 0.0
+    loss: str = "bce"
+    learning_rate: float = 5e-4
+    batch_size: int = 262_144
+    epochs: int = 250
+    early_stopping_patience: int = 20
+    lr_decay_steps: int = 7500
+    lr_decay_rate: float = 0.5
+    # Pair-dataset sampling strategy: 'diff' (positives = next aid, negatives =
+    # in-session shuffle) or 'time' (label = 0 < dt <= hour_difference)
+    # (reference: src/matrix_factorization/torch_trainer.py:198-255).
+    sampling_strategy: str = "diff"
+    hour_difference: int = 1
+    seed: int = 42
 
 
 COVISIT_KINDS = (

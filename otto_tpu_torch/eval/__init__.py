@@ -1,1 +1,2 @@
-"""Recall@20 metrics and the validation harness (port of ``otto_tpu/eval``)."""
+"""Recall@20 metrics, the validation harness, the embedding trainers' model
+metrics and the reference-semantics oracle (port of ``otto_tpu/eval``)."""

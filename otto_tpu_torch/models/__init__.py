@@ -3,7 +3,8 @@ embedding-kNN and session-embedding recommenders, frequency statistics, the aid-
 covisitation construction and the covisitation heuristic, the candidate
 generators, GBDT training and inference, the listwise tower ranker, the
 TF-IDF recommender, the sequence recommenders (GRU, NARM, STAMP, Caser, the
-transformer with dense or mixture-of-experts FFNs) and the file ensemble."""
+transformer with dense or mixture-of-experts FFNs), matrix factorization and
+collaborative filtering, and the file ensemble."""
 
 from otto_tpu_torch.models.candidates import (
     CandidateSet,
@@ -28,6 +29,7 @@ from otto_tpu_torch.models.embeddings import (
 )
 from otto_tpu_torch.models.frequency import FrequencyStatistics, aid_frequency_predictions
 from otto_tpu_torch.models.gbdt import GBDTForest, GBDTRankerModel, load_ranker_model
+from otto_tpu_torch.models.matrix_factorization import CFModel, MFModel, train_cf, train_mf
 from otto_tpu_torch.models.ranker import RankerModel, train_ranker
 from otto_tpu_torch.models.recency import aid_weight_predictions
 from otto_tpu_torch.models.sequence import (
