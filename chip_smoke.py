@@ -2,10 +2,13 @@
 embedding-kNN path, the baselines with the covisitation heuristic, the
 two-stage prediction path, the file CLI, GBDT training, SGNS training, the
 listwise tower ranker, the TF-IDF recommender, the sequence recommenders,
-and matrix factorization and collaborative filtering with the training
-utilities.
+matrix factorization and collaborative filtering with the training
+utilities, and sharded serving over a process mesh.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16b, which
+the script starts itself.)
 
 Phases (each prints its seconds; any failure ends the run with a non-zero
 exit code):
@@ -178,7 +181,7 @@ exit code):
 14. the sequence recommenders with the seven published configs
    (``configs/sequence_*.yaml``: dim 64, hidden 128, max_len 20, batch
    2,048, 512 negatives) over the full catalog, epochs cut to 1 (and the
-   six non-default configs' training sessions to 45,000): 14a each
+   six non-default configs' training sessions to 25,000): 14a each
    config's session vectors on 512 of phase 7's sessions and one training
    step, card against CPU (vectors within 1e-5 * (|x| + 1e-3), the loss
    within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
@@ -212,7 +215,34 @@ exit code):
    one epoch at the full table shape (14,571,582 sessions of 2 events:
    ``train_s``, samples/s, the card's peak memory, finite tables); 15d
    ``TrainingGuard`` rolling back card tensors after a planted NaN, a
-   ``trace`` of 3 steps, ``roofline()`` of 15a's step.
+   ``trace`` of 3 steps, ``roofline()`` of 15a's step;
+16. sharded serving and the row-sharded tables (``otto_tpu_torch.parallel``)
+   at full width, each call's seconds printed: 16a one NCCL rank in this
+   process (mesh (1, 1) on cuda:0): ``build_covisitation(mesh=)`` on phase
+   6's data against phase 6's tables (ids equal, weights within 1e-5
+   relative); ``regular_candidates(mesh=)`` and
+   ``covisit_heuristic_predictions(mesh=)`` on phase 7's target sessions
+   and tables with phase 4's neighbor table, against the single-device
+   calls on the card (candidates and lists bit-equal, scores within 1e-5
+   relative); the bytes of the tables both serving calls place; a
+   ``ShardedRetriever`` over phase 3's 1,855,603 x 32 table, built once,
+   its ``topk`` at 4,096 queries, k 21 (K1 and K2 launched, counters
+   zeroed before and read after; ids equal to ``FusedRetriever.topk``'s,
+   and those kept from a rank's block a prefix of ``FusedRetriever.topk``'s
+   on the block alone; recall against the exact scan >= 0.99); ``sharded_lookup`` equal to indexing; the sharded MF step
+   at 15a's heights and batch and the dense SGNS step at 1,855,603 x 32, B
+   8,192, 40 negatives (touched rows within 1e-4 * (|x| + 0.01) of
+   ``sparse_step`` and ``sgns_step`` on a batch of distinct rows), their ms;
+   ``RankerModel.predict(mesh=)`` at 13a's [4,096 x 184 x 55] (bit-equality
+   reported, 13a's limits held); 16b the same calls on the same inputs
+   (files under ``tmp/chip_smoke_mesh``, removed at the end) in two gloo
+   ranks sharing cuda:0 at meshes (1, 2) and (2, 1), after the dryrun's
+   tiny shapes: K1 and K2 launched by each rank on its 927,802-row shard,
+   each rank's MF shards, serving tables and kNN retriever about half of
+   16a's bytes at (1, 2) and the whole at (2, 1), results under 16a's bars
+   (``sharded_topk``'s ids equal at (2, 1), recall at both); then two NCCL
+   ranks on the one card (``python -m otto_tpu_torch.parallel.dryrun``)
+   must be refused, and NCCL's message is printed.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -724,7 +754,7 @@ def serve(torch, dev, model, n_sessions: int, n_check: int):
     print(f"neighbor rows vs exact scan on {n_check} aids: overlap {rec:.4f} "
           f"(limit 0.99)", flush=True)
     check(rec >= 0.99, f"neighbor-table overlap {rec} < 0.99")
-    return report
+    return table
 
 
 def vote_bound(torch, w):
@@ -918,7 +948,8 @@ def covisit_build(torch, dev) -> dict:
           f"dispatch {stats['dispatch_s']} s, drain {stats['drain_s']} s", flush=True)
     print(f"tables vs artifacts/bench_e2e/covisitation: six kinds bit-equal; time_weighted "
           f"{swapped} of {live} ids swapped at near-ties", flush=True)
-    return {"build_s": build_s, "events": n_ev, "split": split, "store": store}
+    return {"build_s": build_s, "events": n_ev, "split": split, "store": store, "mats": mats,
+            "aids": fit["aids"]}
 
 
 def baselines(torch, dev, n_sessions: int) -> dict:
@@ -3085,13 +3116,14 @@ SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with e
             "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
             "OTTO week has ~220M events): run_sequence trains gru on its 180,000-session "
             "split",
-            "14b: the six other configs train on the split's first 45,000 training sessions "
-            "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s) and serve "
+            "14b: the six other configs train on the split's first 25,000 training sessions "
+            "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s; 45,000 until "
+            "phase 16 came, when the script's phases 1-15 took 955 s on one host) and serve "
             "the same 20,000 target sessions",
             "14d: the subprocess's sequence submission on phase 7's first 20,000 sessions",
             "14a: card against CPU on one step from one seeded batch of phase 7's examples "
             "and on 512 of its sessions")
-SEQ_CUT_TRAIN_SESSIONS = 45_000  # 14b: the non-default configs' training sessions
+SEQ_CUT_TRAIN_SESSIONS = 25_000  # 14b: the non-default configs' training sessions
 SEQ_SUBMISSION_SESSIONS = 20_000  # 14d: the subprocess's store
 # 14a: session vectors within SEQ_ENC_RTOL * (|x| + SEQ_ENC_FLOOR * max |x|),
 # max over the batch (cuBLAS and the CPU sum each float32 dot in another
@@ -3844,6 +3876,544 @@ def mf_utilities(torch, dev, split, mf_model, step15a: dict, workdir: Path) -> d
             "trace_device_ms_a_step": device_us / 3e3, "roofline": r}
 
 
+# ------------------------------------------------------------- phase 16
+# Sharded serving and the row-sharded tables on the card
+# (otto_tpu_torch.parallel).  16a: one NCCL rank, mesh (1, 1), in this
+# process, against the single-device calls; 16b: two ranks sharing the one
+# card under gloo (NCCL refuses two ranks on one device), meshes (1, 2) and
+# (2, 1), against 16a's results, passed with the inputs as files under
+# MESH_DIR.  Widths are the full ones: phase 6's bench data, phase 7's
+# 1,855,603-aid tables and target sessions with phase 4's neighbor table,
+# phase 3's table, 15a's MF batch and table heights, 12a's SGNS batch, 13a's
+# tower shape.
+MESH_DIR = REPO / "tmp" / "chip_smoke_mesh"
+MESH_K = K_NNS
+MESH_SGNS = {"batch": 8192, "negatives": 40, "lr": 0.05}
+MESH_TOWER = (4096, 184)  # 13a's forward shape, 55 features
+MESH_CUTS = ("16b: the covisitation build runs at mesh (2, 1) only (at (1, 2) each rank would "
+             "repeat the whole single-device build: the build shards sessions over data)",)
+MESH_RECALL = 0.99  # sharded_topk against the exact scan (phase 3's bound)
+# 16b: a rank's table bytes (the MF shards, the serving tables, the kNN
+# table's retriever) against 16a's whole tables: about half at mesh (1, 2),
+# the whole at (2, 1)
+MESH_HALF_BAND = (0.45, 0.55)
+MESH_WHOLE_BAND = (0.95, 1.05)
+MESH_TABLE_BYTES = ("mf_shard_bytes", "serving_table_bytes", "knn_table_bytes")
+# the serving entry points' default widths: regular_candidates' wide_k,
+# covisit_heuristic_predictions' narrow_k
+SERVE_WIDE_K, SERVE_NARROW_K = 20, 15
+
+
+def mesh_env() -> dict:
+    """torchrun's environment for one rank of a one-process group."""
+    from otto_tpu_torch.parallel.mesh import free_port
+
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(free_port())}
+
+
+def mesh_mf_tables(torch, dev):
+    """15a's MF heights, seeded on the card (the same values in every
+    process on this card)."""
+    mf = mf_configs()[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    D = mf.n_factors
+    tables = [torch.randn((h, D), generator=gen, device=dev).mul_(0.05)
+              for h in (mf.n_sessions, mf.n_aids)]
+    accs = [torch.rand((h, D), generator=gen, device=dev).mul_(1e-10)
+            for h in (mf.n_sessions, mf.n_aids)]
+    return tables + accs
+
+
+def mesh_sgns_tables(torch, dev, n_aids: int):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    w_in = torch.rand((n_aids, DIM), generator=gen, device=dev).sub_(0.5).div_(DIM)
+    w_out = torch.randn((n_aids, DIM), generator=gen, device=dev).mul_(0.1)
+    accs = [torch.rand((n_aids, DIM), generator=gen, device=dev).mul_(1e-3) for _ in range(2)]
+    return [w_in, w_out, *accs]
+
+
+def mesh_tower(torch):
+    """Two folds of 13a's tower (seeded) and 13a's feature rows."""
+    from otto_tpu_torch.config import RankerConfig
+    from otto_tpu_torch.features import RANKER_FEATURES
+    from otto_tpu_torch.models.ranker import FeatureNormalizer, RankerModel
+
+    cfg = RankerConfig.from_yaml(TOWER_CONFIG)
+    F = len(RANKER_FEATURES) + 1
+    S, C = MESH_TOWER
+    x = (np.random.default_rng(SEED + 13).normal(size=(S, C, F)) * 3).astype(np.float32)
+    mask = np.random.default_rng(SEED + 14).random((S, C)) < 0.9
+    folds = [{k: v.numpy() for k, v in seeded_tower(torch, F, cfg.hidden_dims, s).items()}
+             for s in (SEED, SEED + 1)]
+    return RankerModel(folds, FeatureNormalizer.fit(x[:512], mask[:512]), cfg), x, mask
+
+
+def touched_close(torch, got, want_rows, idx, lo: int) -> float:
+    """Largest |got - want| / (|want| + MF_FLOOR) over the global rows
+    ``idx`` that this rank's block (first row ``lo``) holds."""
+    own = (idx >= lo) & (idx < lo + got.shape[0])
+    if not own.any():
+        return 0.0
+    a = got[torch.as_tensor(idx[own] - lo, device=got.device)].cpu().double()
+    b = torch.as_tensor(want_rows[own]).double()
+    return float(((a - b).abs() / (b.abs() + MF_FLOOR)).max())
+
+
+def mesh_inputs(torch, dev, bench_train, bench_aids: int, phase7: dict, work: Path) -> dict:
+    """Phase 16's inputs, written under ``work`` for the 16b ranks (the
+    tables as .npy files each rank maps, reading its own rows)."""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.models.frequency import FrequencyStatistics
+
+    rng = np.random.default_rng(SEED + 16)
+    stats = FrequencyStatistics.compute(phase7["train"], n_aids=N_AIDS, device=dev)
+    n_aids = phase7["w_in"].shape[0]
+    qi = rng.choice(n_aids, 4096, replace=False)
+    mf = mf_configs()[0]
+    store = phase7["store"]
+    rows = np.random.default_rng(SEED + 15).choice(store.n_events, mf.batch_size, replace=False)
+    spread = mf.n_sessions // store.n_sessions
+    ids = rng.permutation(n_aids)[:MESH_SGNS["batch"] * (MESH_SGNS["negatives"] + 2)]
+    B, K = MESH_SGNS["batch"], MESH_SGNS["negatives"]
+    inp = {"qi": qi, "mf_si": (store.session_idx[rows] * spread).astype(np.int32),
+           "mf_ai": store.aid[rows].astype(np.int32), "mf_y": store.type[rows].astype(np.float32),
+           "sgns_c": ids[:B], "sgns_x": ids[B:2 * B],
+           "sgns_negs": ids[2 * B:].reshape(B, K), "bench_n_aids": np.int64(bench_aids),
+           **{f"stats_{t}": np.asarray(stats.top_by_type[t]) for t in EVENT_TYPES}}
+    work.mkdir(parents=True, exist_ok=True)
+    np.savez(work / "inputs.npz", **inp)
+    bench_train.save_npz(work / "bench_train.npz")
+    phase7["target"].save_npz(work / "target7.npz")
+    np.save(work / "ft.npy", phase7["ft"])
+    np.save(work / "w_in.npy", phase7["w_in"].cpu().numpy())
+    for kind, (a, _) in phase7["mats"].tables.items():
+        np.save(work / f"mats7_{kind}.npy", np.ascontiguousarray(a[:, :20]))
+    return inp
+
+
+def mesh_load(work: Path) -> dict:
+    """What a 16b rank reads: the stores, the tables as maps, the batches."""
+    from otto_tpu_torch.config import COVISIT_KINDS
+    from otto_tpu_torch.data.events import EventStore
+    from otto_tpu_torch.models.covisitation import CovisitationMatrices
+
+    inp = dict(np.load(work / "inputs.npz"))
+    tabs = {k: np.load(work / f"mats7_{k}.npy", mmap_mode="r") for k in COVISIT_KINDS}
+    n_aids = tabs[COVISIT_KINDS[0]].shape[0]
+    no_weights = np.zeros((n_aids, 0), np.float32)  # serving reads the ids alone
+    return {**inp, "bench_train": EventStore.load_npz(work / "bench_train.npz"),
+            "target7": EventStore.load_npz(work / "target7.npz"),
+            "ft": np.load(work / "ft.npy", mmap_mode="r"),
+            "w_in": np.load(work / "w_in.npy", mmap_mode="r"),
+            "mats7": CovisitationMatrices({k: (a, no_weights) for k, a in tabs.items()}, n_aids)}
+
+
+def mesh_single(torch, dev, inp: dict, phase7: dict, bench_mats) -> dict:
+    """16a's single-device results on the card, each call timed."""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.models.candidates import regular_candidates
+    from otto_tpu_torch.models.covisitation import covisit_heuristic_predictions
+    from otto_tpu_torch.models.embeddings import sgns_step
+    from otto_tpu_torch.models.matrix_factorization import sparse_step
+    from otto_tpu_torch.ops.fused_retrieval import FusedRetriever
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    ref, secs = {}, {}
+    for kind, (a, w) in bench_mats.tables.items():
+        ref[f"build_{kind}_ids"], ref[f"build_{kind}_w"] = a, w
+    top = {t: inp[f"stats_{t}"] for t in EVENT_TYPES}
+    t0 = time.perf_counter()
+    cs = regular_candidates(phase7["target"], phase7["mats"], ft_neighbors=phase7["ft"],
+                            device=dev)
+    secs["candidates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heur = covisit_heuristic_predictions(phase7["target"], phase7["mats"], top,
+                                         ft_neighbors=phase7["ft"], device=dev)
+    secs["heuristic"] = time.perf_counter() - t0
+    for t in EVENT_TYPES:
+        ref[f"cand_{t}"], ref[f"score_{t}"] = cs.candidates[t], cs.scores[t]
+        ref[f"heur_{t}"] = heur[t]
+    w_in = phase7["w_in"]
+    q = w_in[torch.as_tensor(inp["qi"], device=dev)]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    s, i = FusedRetriever(w_in, metric="euclidean", precision="compensated",
+                          device=dev).topk(q, MESH_K, exact_scores=True)
+    sync(torch, dev)
+    secs["topk"] = time.perf_counter() - t0
+    ref["topk_s"], ref["topk_i"] = s.cpu().numpy(), i.cpu().numpy()
+    ref["exact_i"] = topk_scan(q, w_in, k=MESH_K, metric="euclidean")[1].cpu().numpy()
+
+    mf = mf_configs()[0]
+    tabs = mesh_mf_tables(torch, dev)
+    batch = [torch.as_tensor(inp[k], device=dev) for k in ("mf_si", "mf_ai", "mf_y")]
+    names = ("session_embeddings", "aid_embeddings")
+    tables, accs = dict(zip(names, tabs[:2])), dict(zip(names, tabs[2:]))
+    loss = sparse_step(tables, accs, ((names[0], 0), (names[1], 1)), mf.loss,
+                       tmf_lr(mf), *batch)
+    ref["mf_loss"] = np.float32(float(loss))
+    for j, (k, col) in enumerate(((names[0], "mf_si"), (names[1], "mf_ai"))):
+        idx = np.unique(inp[col])
+        ref[f"mf_idx{j}"] = idx
+        ref[f"mf_t{j}"] = tables[k][torch.as_tensor(idx, device=dev)].cpu().numpy()
+        ref[f"mf_a{j}"] = accs[k][torch.as_tensor(idx, device=dev)].cpu().numpy()
+    del tabs, tables, accs
+
+    w = mesh_sgns_tables(torch, dev, w_in.shape[0])
+    loss = sgns_step(*w, *(torch.as_tensor(inp[k], device=dev).long()
+                           for k in ("sgns_c", "sgns_x", "sgns_negs")), MESH_SGNS["lr"])
+    ref["sgns_loss"] = np.float32(float(loss) * MESH_SGNS["batch"])
+    out_idx = np.concatenate([inp["sgns_x"], inp["sgns_negs"].reshape(-1)])
+    for j, idx in ((0, inp["sgns_c"]), (1, out_idx), (2, inp["sgns_c"]), (3, out_idx)):
+        ref[f"sgns_idx{j}"] = idx
+        ref[f"sgns_{j}"] = w[j][torch.as_tensor(idx, device=dev)].cpu().numpy()
+    del w
+    model, x, mask = mesh_tower(torch)
+    t0 = time.perf_counter()
+    ref["tower"] = model.predict(x, mask, device=dev)
+    secs["tower"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print("16a single-device calls: " + json.dumps(
+        {k: round(v, 3) for k, v in secs.items()}), flush=True)
+    return ref
+
+
+def tmf_lr(cfg) -> float:
+    from otto_tpu_torch.models import matrix_factorization as tmf
+
+    return tmf.lr_at(cfg, 0)
+
+
+def mesh_run(torch, mesh, inp: dict, ref: dict, counters, build: bool, tag: str,
+             reps: int = 5) -> dict:
+    """Every sharded call of this slice on ``mesh``, held to the
+    single-device results ``ref``: the build's ids equal and weights within
+    1e-5 relative; candidates and heuristic lists bit-equal, scores within
+    1e-5 relative; the bytes of the serving tables as the entry points
+    place them and of the kNN table's :class:`ShardedRetriever`;
+    ``ShardedRetriever.topk``'s ids equal to ``FusedRetriever.topk``'s on
+    one shard (the scores of the ids both keep, within 1e-5 of the largest,
+    on more), the ids it keeps from this rank's block a prefix of
+    ``FusedRetriever.topk``'s on the block alone, K1 and K2 launched, recall
+    against the exact scan >= 0.99; the lookup bit-equal; the MF and SGNS steps' touched rows within MF_RTOL * (|x| +
+    MF_FLOOR) of the single-card steps and their losses within MF_LOSS_RTOL;
+    the tower's scores equal (bit-equality reported).  The steps' ms are
+    the mean of ``reps`` steps after one more (one step, unwarmed, for
+    ``reps=1``).  Returns the seconds, launches and errors."""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.config import COVISIT_KINDS
+    from otto_tpu_torch.models.candidates import regular_candidates
+    from otto_tpu_torch.models.covisitation import (
+        build_covisitation,
+        covisit_heuristic_predictions,
+    )
+    from otto_tpu_torch.ops.fused_retrieval import FusedRetriever
+    from otto_tpu_torch.parallel import (
+        CANDGEN_TABLE_KINDS,
+        ServingLayout,
+        ShardedRetriever,
+        make_sharded_mf_step,
+        make_sharded_sgns_step,
+        mesh_device,
+        shard_rows,
+        sharded_lookup,
+    )
+    from otto_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    dev = mesh_device(mesh)
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(dev)
+
+    out = {"secs": {}}
+    secs = out["secs"]
+    zero, read = counters
+    if build:
+        t0 = time.perf_counter()
+        mats = build_covisitation(inp["bench_train"], int(inp["bench_n_aids"]), mesh=mesh,
+                                  device=dev)
+        secs["build"] = time.perf_counter() - t0
+        for kind in COVISIT_KINDS:
+            a, w = mats.tables[kind]
+            check(np.array_equal(a, ref[f"build_{kind}_ids"]), f"16 {tag} build {kind}: ids")
+            check(bool(np.allclose(w, ref[f"build_{kind}_w"], rtol=1e-5, atol=0)),
+                  f"16 {tag} build {kind}: weights beyond 1e-5")
+    top = {t: inp[f"stats_{t}"] for t in EVENT_TYPES}
+    t0 = time.perf_counter()
+    cs = regular_candidates(inp["target7"], inp["mats7"], ft_neighbors=inp["ft"], mesh=mesh,
+                            device=dev)
+    secs["candidates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heur = covisit_heuristic_predictions(inp["target7"], inp["mats7"], top,
+                                         ft_neighbors=inp["ft"], mesh=mesh, device=dev)
+    secs["heuristic"] = time.perf_counter() - t0
+    for t in EVENT_TYPES:
+        check(np.array_equal(cs.candidates[t], ref[f"cand_{t}"]), f"16 {tag} candidates {t}")
+        check(bool(np.allclose(cs.scores[t], ref[f"score_{t}"], rtol=1e-5, atol=0)),
+              f"16 {tag} candidate scores {t}")
+        check(np.array_equal(heur[t], ref[f"heur_{t}"]), f"16 {tag} heuristic {t}")
+    out["scores_bit_equal"] = all(np.array_equal(cs.scores[t], ref[f"score_{t}"])
+                                  for t in EVENT_TYPES)
+    del cs, heur
+
+    # the tables both serving calls place on this rank, as they place them
+    layout = ServingLayout(mesh)
+    tabs = inp["mats7"].tables
+    before = allocated()
+    placed = [layout.table(tabs[kind][0][:, :SERVE_WIDE_K]) for kind in CANDGEN_TABLE_KINDS]
+    placed += [layout.table(a[:, :SERVE_NARROW_K]) for a, _ in tabs.values()]
+    placed += [layout.table(inp["ft"])]
+    out["serving_table_bytes"] = allocated() - before
+    del placed
+
+    q = torch.as_tensor(np.asarray(inp["w_in"][inp["qi"]]), device=dev)
+    before = allocated()
+    t0 = time.perf_counter()
+    block = shard_rows(mesh, inp["w_in"])
+    retriever = ShardedRetriever(mesh, block, metric="euclidean")
+    sync(torch, dev)
+    secs["sharded_retriever_build"] = time.perf_counter() - t0
+    out["knn_table_bytes"] = allocated() - before
+    check(retriever.fused is not None, f"16 {tag} the kNN shard did not take the fused route")
+    zero()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    s, i = retriever.topk(q, MESH_K)
+    sync(torch, dev)
+    secs["sharded_topk"] = time.perf_counter() - t0
+    out["launches"] = read()
+    check(out["launches"]["fused_stage1"] > 0 and out["launches"]["peel_rows"] > 0,
+          f"16 {tag} sharded_topk did not launch K1 and K2: {out['launches']}")
+    i, s = i.cpu().numpy(), s.cpu().numpy()
+    # this rank's block searched alone by FusedRetriever.topk: the ids the
+    # merge keeps from the block are, row by row, a prefix of its list
+    lo = axis_index(mesh, "model") * block.shape[0]
+    own_i = FusedRetriever(block, metric="euclidean", precision="compensated",
+                           device=dev).topk(q, MESH_K, exact_scores=True)[1].cpu().numpy()
+    own = (i >= lo) & (i < lo + block.shape[0])
+    kept = np.take_along_axis(i, np.argsort(~own, axis=1, kind="stable"), 1) - lo
+    first = np.arange(MESH_K)[None, :] < own.sum(axis=1)[:, None]
+    out["own_block_kept"] = float(own.mean())
+    check(bool((kept[first] == own_i[first]).all()),
+          f"16 {tag} the ids kept from this rank's block differ from FusedRetriever.topk's "
+          "on the block")
+    same = i == ref["topk_i"]
+    out["topk_ids_equal_share"] = float(same.mean())
+    if axis_size(mesh, "model") == 1:  # one shard: FusedRetriever.topk's own search
+        check(bool(same.all()), f"16 {tag} sharded_topk ids differ from FusedRetriever.topk's")
+    # each shard's windows differ from the whole table's, so with two shards
+    # the approximate search may keep other items; an item both keep has
+    # the same exact score
+    out["topk_max_abs_err"] = float(np.abs(s[same] - ref["topk_s"][same]).max())
+    check(out["topk_max_abs_err"] <= 1e-5 * float(np.abs(ref["topk_s"]).max()),
+          f"16 {tag} sharded_topk scores of the same ids differ")
+    out["recall"] = overlap(i, ref["exact_i"])
+    check(out["recall"] >= MESH_RECALL, f"16 {tag} sharded_topk recall {out['recall']}")
+    out["block_rows"] = int(block.shape[0])
+    got = sharded_lookup(mesh, block, torch.as_tensor(inp["qi"], device=dev))
+    check(torch.equal(got, q), f"16 {tag} sharded_lookup differs from indexing")
+    del block, retriever, q, s, got
+
+    def timed_ms(fn):
+        return cuda_ms(torch, fn, reps, warmup=int(reps > 1))
+
+    mf = mf_configs()[0]
+    full = mesh_mf_tables(torch, dev)
+    before = allocated()
+    shards = [shard_rows(mesh, t) for t in full]
+    lo = [axis_index(mesh, "model") * t.shape[0] for t in shards[:2]]
+    out["mf_shard_bytes"] = allocated() - before
+    del full
+    torch.cuda.empty_cache()
+    step = make_sharded_mf_step(mesh, loss=mf.loss)
+    loss = step(*shards, inp["mf_si"], inp["mf_ai"], inp["mf_y"], tmf_lr(mf))[4]
+    worst = 0.0
+    for j in (0, 1):
+        worst = max(worst, touched_close(torch, shards[j], ref[f"mf_t{j}"], ref[f"mf_idx{j}"],
+                                         lo[j]),
+                    touched_close(torch, shards[2 + j], ref[f"mf_a{j}"], ref[f"mf_idx{j}"],
+                                  lo[j]))
+    out["mf_err"] = worst
+    out["mf_loss_rel"] = abs(float(loss) - float(ref["mf_loss"])) / abs(float(ref["mf_loss"]))
+    check(worst <= MF_RTOL and out["mf_loss_rel"] <= MF_LOSS_RTOL,
+          f"16 {tag} sharded MF step: {worst:.3e}, loss {out['mf_loss_rel']:.2e}")
+    cols = [torch.as_tensor(inp[k], device=dev) for k in ("mf_si", "mf_ai", "mf_y")]
+    out["mf_ms"] = timed_ms(lambda: step(*shards, *cols, tmf_lr(mf)))
+    del shards, cols
+
+    full = mesh_sgns_tables(torch, dev, inp["w_in"].shape[0])
+    shards = [shard_rows(mesh, t) for t in full]
+    del full
+    lo = axis_index(mesh, "model") * shards[0].shape[0]
+    step = make_sharded_sgns_step(mesh, n_negatives=MESH_SGNS["negatives"])
+    B = MESH_SGNS["batch"]
+    loss = step(*shards, inp["sgns_c"], inp["sgns_x"], inp["sgns_negs"], MESH_SGNS["lr"])[4]
+    out["sgns_err"] = max(touched_close(torch, shards[j], ref[f"sgns_{j}"],
+                                        ref[f"sgns_idx{j}"], lo) for j in range(4))
+    out["sgns_loss_rel"] = abs(float(loss) - float(ref["sgns_loss"])) / float(ref["sgns_loss"])
+    check(out["sgns_err"] <= MF_RTOL and out["sgns_loss_rel"] <= MF_LOSS_RTOL,
+          f"16 {tag} sharded SGNS step: {out['sgns_err']:.3e}, loss {out['sgns_loss_rel']:.2e}")
+    cols = [torch.as_tensor(inp[k], device=dev) for k in ("sgns_c", "sgns_x", "sgns_negs")]
+    out["sgns_ms"] = timed_ms(lambda: step(*shards, *cols, MESH_SGNS["lr"]))
+    del shards, cols
+    torch.cuda.empty_cache()
+
+    model, x, mask = mesh_tower(torch)
+    t0 = time.perf_counter()
+    scores = model.predict(x, mask, mesh=mesh, device=dev)
+    secs["tower"] = time.perf_counter() - t0
+    want = ref["tower"]
+    out["tower_bit_equal"] = bool(np.array_equal(scores, want))
+    d = np.abs(scores[mask] - want[mask])
+    out["tower_max_rel"] = float(d.max() / np.abs(want[mask]).max())
+    check(np.array_equal(np.isinf(scores), ~mask)
+          and (d <= TOWER_REL * (np.abs(want[mask]) + TOWER_FLOOR)).mean() >= TOWER_SHARE
+          and out["tower_max_rel"] <= TOWER_WORST, f"16 {tag} tower scores")
+    return out
+
+
+def mesh_counters():
+    """Zero and read K1's and K2's launch counters (16b's ranks)."""
+    from otto_tpu_torch.ops import fused_retrieval, row_topk
+
+    def zero():
+        fused_retrieval.fused_stage1.launches = row_topk.peel_rows.launches = 0
+
+    def read():
+        return {"fused_stage1": fused_retrieval.fused_stage1.launches,
+                "peel_rows": row_topk.peel_rows.launches}
+
+    return zero, read
+
+
+def mesh_rank_main(work: Path) -> int:
+    """A 16b rank (``python3 chip_smoke.py --mesh-rank DIR`` under
+    torchrun's environment): gloo on the shared card, the dryrun's tiny
+    shapes, then every sharded call at meshes (1, 2) and (2, 1) against
+    16a's results.  Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from otto_tpu_torch.config import MeshConfig
+    from otto_tpu_torch.parallel import dryrun, init_distributed, make_mesh, mesh_device
+
+    check(init_distributed("gloo", timeout_s=300), "16b: no rank environment")
+    inp = mesh_load(work)
+    ref = dict(np.load(work / "ref.npz"))
+    res = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = make_mesh(MeshConfig(data_parallel=shape[0], model_parallel=shape[1]),
+                         device_type="cuda")
+        tag = f"{shape[0]}x{shape[1]}"
+        res[f"dryrun_{tag}"] = dryrun.run(mesh)
+        res[tag] = mesh_run(torch, mesh, inp, ref, mesh_counters(), build=shape == (2, 1),
+                            tag=tag, reps=1)
+    res["rank"] = dist.get_rank()
+    res["device"] = str(mesh_device(mesh))
+    dist.destroy_process_group()
+    print("16b rank result: " + json.dumps(res), flush=True)
+    return 0
+
+
+def nccl_refusal() -> str:
+    """Two NCCL ranks on the one card (``python -m
+    otto_tpu_torch.parallel.dryrun``, NCCL by default): they must fail;
+    returns NCCL's message."""
+    from otto_tpu_torch.parallel.mesh import launch_local
+
+    try:
+        launch_local([sys.executable, "-m", "otto_tpu_torch.parallel.dryrun"], 2,
+                     timeout_s=60, env={"PYTHONPATH": str(REPO)}, cwd=REPO)
+    except RuntimeError as e:
+        lines = str(e).splitlines()
+        for key in ("uplicate GPU", "ncclInvalidUsage", "NCCL"):
+            hit = [ln.strip() for ln in lines if key in ln]
+            if hit:
+                return hit[0]
+        check(False, f"16b: two NCCL ranks failed without NCCL's message: {e}")
+    check(False, "16b: two NCCL ranks on one card did not fail")
+    return ""
+
+
+def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: dict,
+                  zero_counters, read_counters) -> dict:
+    """Phase 16 (16a one NCCL rank in this process, 16b two gloo ranks on
+    the same card); returns its numbers and K1/K2's launches at world 1
+    and 2."""
+    import os
+
+    import torch.distributed as dist
+
+    from otto_tpu_torch.config import MeshConfig
+    from otto_tpu_torch.parallel import init_distributed, make_mesh
+    from otto_tpu_torch.parallel.mesh import launch_local
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        inp = mesh_inputs(torch, dev, bench_train, bench_aids, phase7, MESH_DIR)
+        write_s = time.perf_counter() - t0
+        ref = mesh_single(torch, dev, inp, phase7, bench_mats)
+        t0 = time.perf_counter()
+        np.savez(MESH_DIR / "ref.npz", **ref)
+        print(f"16 inputs and 16a's single-device results written under "
+              f"{MESH_DIR.relative_to(REPO)} in {write_s + time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        env = mesh_env()
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            check(init_distributed("nccl", timeout_s=300), "16a: no process group")
+            mesh = make_mesh(MeshConfig(), device_type="cuda")
+            loaded = mesh_load(MESH_DIR)
+            loaded["w_in"] = phase7["w_in"].cpu().numpy()
+            a = mesh_run(torch, mesh, loaded, ref,
+                         (zero_counters, lambda: read_counters("sharded_topk at world 1",
+                                                               ("fused_stage1", "peel_rows"))),
+                         build=True, tag="1x1")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        a["total_s"] = time.perf_counter() - t0
+        print(f"16a mesh (1, 1), one rank on {dev}: " + json.dumps(a), flush=True)
+
+        t0 = time.perf_counter()
+        outs = launch_local([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
+                             str(MESH_DIR)], 2, timeout_s=300, env={"PYTHONPATH": str(REPO)},
+                            cwd=REPO)
+        b_s = time.perf_counter() - t0
+        ranks = [json.loads(o.split("16b rank result: ", 1)[1].splitlines()[0]) for o in outs]
+        for r in ranks:
+            share = {tag: {key: r[tag][key] / a[key] for key in MESH_TABLE_BYTES}
+                     for tag in ("1x2", "2x1")}
+            print(f"16b rank {r['rank']} on {r['device']}, its table bytes over 16a's "
+                  f"{json.dumps(share)}: " + json.dumps({k: r[k] for k in ("1x2", "2x1")}),
+                  flush=True)
+            for tag, (lo, hi) in (("1x2", MESH_HALF_BAND), ("2x1", MESH_WHOLE_BAND)):
+                for key, x in share[tag].items():
+                    check(lo <= x <= hi, f"16b rank {r['rank']} at {tag}: {key} {x:.4f} of "
+                          "16a's")
+            check(r["1x2"]["block_rows"] == -(-N_AIDS // 2), "16b: the (1, 2) shard's rows")
+        print(f"16b two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): {b_s:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        msg = nccl_refusal()
+        print(f"16b two NCCL ranks on one card refused ({time.perf_counter() - t0:.2f} s): "
+              f"{msg}", flush=True)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {"a": a, "b": ranks, "b_s": b_s, "nccl_refusal": msg}
+
+
 def main() -> int:
     import torch
 
@@ -3851,6 +4421,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
               "CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 16b
+        return mesh_rank_main(Path(sys.argv[2]))
     from otto_tpu_torch.ops import _kernels, forest, fused_retrieval, fused_sessions, hist, row_topk
 
     # each kernel's launch counter: (the wrapper, its attribute)
@@ -3915,7 +4487,7 @@ def main() -> int:
 
     zero_counters()
     with phase("4 serving path"):
-        serve(torch, dev, model, 20_000, 256)
+        knn_table = serve(torch, dev, model, 20_000, 256)
     knn = read_counters("embedding-kNN serving path", ("fused_stage1", "peel_rows", "aid_vote"))
     torch.cuda.empty_cache()
 
@@ -3930,6 +4502,7 @@ def main() -> int:
     with phase("6 covisitation build vs committed tables"):
         built = covisit_build(torch, dev)
     bench_split, bench_store = built["split"], built["store"]
+    bench_mats, bench_aids = built["mats"], built["aids"]
     del built
 
     zero_counters()
@@ -3972,7 +4545,11 @@ def main() -> int:
                                        read_counters)
     phase7_store, phase7_report = path["store"], path["covisitation_report"]
     phase7_target = path["target"]
-    del model, path
+    # phase 16's inputs: phase 3's table, phase 4's neighbor table, phase 7's
+    # tables, training and target sessions
+    phase16 = {"w_in": model.w_in, "ft": knn_table, "mats": path["mats"],
+               "train": path["train"], "target": path["target"]}
+    del model, path, knn_table
 
     workdir = REPO / "tmp" / "chip_smoke_cli"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -4006,6 +4583,7 @@ def main() -> int:
         refit_run = refit(torch, dev, bench_split, zero_counters, read_counters)
     with phase("11c the committed rankers resumed on the refit's training sessions"):
         resumed_train_report(torch, dev, bench_split)
+    bench_train = bench_split.train  # phase 16's sharded build
     del bench_split
     with phase("11a the histogram kernel vs its twin on the refit's first fold"):
         records.append(hist_vs_twin(torch, dev, refit_run["fold"]))
@@ -4143,6 +4721,7 @@ def main() -> int:
             mf_d = mf_utilities(torch, dev, split7, mf_b.pop("mf_model"), mf_a[0], workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    phase16["store"] = phase7_store
     del phase7_store, split7
     mf_launches = read_counters("MF/CF path (phase 15)", ())
     check(not any(mf_launches.values()), "phase 15 launched a hand kernel")
@@ -4151,6 +4730,25 @@ def main() -> int:
         "steps": mf_a, **{f"train_{k}": mf_b[k] for k in ("mf", "cf")},
         "save_s": mf_b["save_s"], "full_height": mf_c, "utilities": mf_d}), flush=True)
 
+    for cut in MESH_CUTS:
+        print(f"phase 16 cut: {cut}", flush=True)
+    torch.cuda.empty_cache()
+    with phase("16 sharded serving and tables: 16a one NCCL rank, 16b two gloo ranks"):
+        mesh16 = sharded_paths(torch, dev, bench_train, bench_mats, bench_aids, phase16,
+                               zero_counters, read_counters)
+    del phase16, bench_mats, bench_train
+    a16, b16 = mesh16["a"], mesh16["b"][0]
+    print("phase 16 metrics: " + json.dumps({
+        "16a": {k: a16[k] for k in ("secs", "total_s", "launches", "recall", "mf_ms", "sgns_ms",
+                                    "mf_err", "sgns_err", "tower_bit_equal", "tower_max_rel",
+                                    "scores_bit_equal", *MESH_TABLE_BYTES)},
+        "mf_ms_15a": mf_a[0]["ms"], "16b_s": mesh16["b_s"],
+        "16b": {tag: {k: b16[tag][k] for k in ("secs", "launches", "recall", "mf_ms",
+                                               "sgns_ms", "tower_bit_equal", "block_rows",
+                                               "own_block_kept", *MESH_TABLE_BYTES)}
+                for tag in ("1x2", "2x1")},
+        "nccl_refusal": mesh16["nccl_refusal"]}), flush=True)
+
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
     # the forest kernel's float-row entry on the two-stage path, its uint8
@@ -4158,8 +4756,9 @@ def main() -> int:
     # on the bench refit), plus its launches on the SGNS paths of phase 12
     # (a trained table's neighbor table and serving, the CLI's embedding_knn
     # and doc2vec runs, run_two_stage training SGNS and resuming it);
-    # launches_by_path adds the file CLI's aid_weight and two_stage runs, and
-    # its training and resumed two_stage runs
+    # and the sharded top-k at world 1 (phase 16a); launches_by_path adds the
+    # file CLI's aid_weight and two_stage runs, its training and resumed
+    # two_stage runs, and each 16b rank's sharded top-k at mesh (1, 2)
     sgns_paths = {"sgns_trained_table": planted["launches"],
                   "cli_embedding_knn_validation": cli_s1["embedding_knn validation"]["launches"],
                   "cli_doc2vec_validation": cli_s1["doc2vec validation"]["launches"],
@@ -4175,14 +4774,18 @@ def main() -> int:
              "cli_two_stage_train": cli_train_run["launches"],
              "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths,
              **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()},
-             **seq_paths}
+             **seq_paths, "sharded_topk_world1": a16["launches"]}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]] + sum(
-            c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values()))
+            c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values(),
+                                     a16["launches"]))
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
+        if rec["name"] in ("fused_stage1", "peel_rows"):  # each rank of 16b, mesh (1, 2)
+            rec["launches_by_path"]["sharded_topk_world2_per_rank"] = \
+                b16["1x2"]["launches"][rec["name"]]
     # K1 and K3 at the sequence path's shapes (phase 14c): the compensated
     # dim-64 table's contraction of 198, and the recency route's block kernel
     for rec in records:

@@ -6,7 +6,7 @@ imports ``torch`` and numpy, never ``jax`` and never ``otto_tpu``.
 
 Ported so far (the embedding-kNN, baseline, two-stage and sequence
 paths, matrix factorization and collaborative filtering, the training
-utilities, and the file CLI):
+utilities, the file CLI, and sharded serving over a process mesh):
 
 - ``otto_tpu_torch.data``     event store, labels, splits, synthetic data (copied numpy),
                               JSONL ingest, parquet writers and the Kaggle
@@ -33,6 +33,11 @@ utilities, and the file CLI):
                               transformer and MoE encoders), matrix
                               factorization and collaborative filtering
                               (sparse adagrad on the card), the file ensemble
+- ``otto_tpu_torch.parallel`` process meshes on ``torch.distributed``, the
+                              row-sharded lookup, top-k and SGNS/MF steps,
+                              sharded serving (candidates, heuristic,
+                              covisitation build, tower scoring) and
+                              ``python -m otto_tpu_torch.parallel.dryrun``
 - ``otto_tpu_torch.twostage``, ``otto_tpu_torch.streaming``: two-stage
                               training (tower or GBDT rankers), resume, and
                               prediction with trained artifacts

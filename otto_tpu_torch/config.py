@@ -5,15 +5,16 @@ Copied from ``otto_tpu/config.py`` (no jax inside): the config base,
 :class:`CovisitConfig`, :class:`RankerConfig` (the listwise tower),
 :class:`GBDTConfig` (the committed fold models' ``__config`` is one),
 :class:`SequenceModelConfig` (the sequence recommenders), :class:`MFConfig`
-and :class:`CFConfig` (matrix factorization and collaborative filtering).
-``PipelineConfig`` waits for ``MeshConfig`` (parallelism).
+and :class:`CFConfig` (matrix factorization and collaborative filtering),
+:class:`MeshConfig` (the data x model process mesh of
+:mod:`otto_tpu_torch.parallel`) and :class:`PipelineConfig`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -58,6 +59,17 @@ class DataConfig(ConfigBase):
     # First test-session id (reference: src/recbole/dataset.py:14-20).
     test_session_cutoff: int = 12_899_779
     seed: int = 42
+
+
+@dataclass(frozen=True)
+class MeshConfig(ConfigBase):
+    """Process-mesh layout (:func:`otto_tpu_torch.parallel.make_mesh`): one
+    process a device, named ``data`` and ``model`` dims."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1  # -1: infer from the world size / model_parallel
+    model_parallel: int = 1
 
 
 @dataclass(frozen=True)
@@ -257,3 +269,24 @@ class SequenceModelConfig(ConfigBase):
     n_heads: int = 2  # transformer only
     moe_experts: int = 0  # transformer only: > 0 replaces each FFN with a
     # top-1-gated mixture of experts (ops/moe.py)
+
+
+@dataclass(frozen=True)
+class PipelineConfig(ConfigBase):
+    """End-to-end two-stage pipeline configuration."""
+
+    data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    covisit: CovisitConfig = field(default_factory=CovisitConfig)
+    sgns: SGNSConfig = field(default_factory=SGNSConfig)
+    ranker: RankerConfig = field(default_factory=RankerConfig)
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        return cls(
+            data=DataConfig.from_dict(d.get("data", {})),
+            mesh=MeshConfig.from_dict(d.get("mesh", {})),
+            covisit=CovisitConfig.from_dict(d.get("covisit", {})),
+            sgns=SGNSConfig.from_dict(d.get("sgns", {})),
+            ranker=RankerConfig.from_dict(d.get("ranker", {})),
+        )

@@ -25,12 +25,14 @@ JAX package does only for the TPU is left out, with results unchanged:
 chunks are not padded to ``chunk_sessions`` rows (a fixed shape for XLA's
 compile cache) and no dispatch lookahead keeps chunks in flight (the TPU
 host link).  The length buckets stay: short sessions run as [chunk, 32]
-slices on any device.  ``mesh=`` (sharded serving) is not ported yet.
+slices on any device.  ``mesh=`` serves sharded over a process mesh
+(:mod:`otto_tpu_torch.parallel.serving`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,13 +50,12 @@ from otto_tpu_torch.ops.multiset import (
     sorted_unique_rows,
 )
 from otto_tpu_torch.ops.sessions import distinct_recent_first, recency_weighted_top_aids
+from otto_tpu_torch.parallel.serving import CANDGEN_TABLE_KINDS, ServingLayout
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
 
 RECENCY_CANDGEN_COEFF = (1.0, 6.0, 1.0)
-CANDGEN_TABLE_KINDS = ("time_weighted", "click_weighted", "cart_weighted", "click_cart",
-                       "cart_order")
 
 
 @dataclass
@@ -163,7 +164,7 @@ def _session_lists(aids, types, lengths, uniq_cap: int, vote_cap: int):
 
 
 def _regular_chunk(aids, types, lengths, tables_tuple, ft_table, uniq_cap: int, wide_k: int,
-                   k_covisit: int, vote_cap: int = 32):
+                   k_covisit: int, vote_cap: int = 32, gather=gather_neighbors):
     """One chunk of the regular generator: returns per-type (candidates,
     scores) of width uniq_cap + k_covisit regardless of the chunk's packed
     width L (narrow chunks pad their history section with -1 columns).
@@ -171,7 +172,8 @@ def _regular_chunk(aids, types, lengths, tables_tuple, ft_table, uniq_cap: int, 
     ``vote_cap`` bounds the per-session source lists feeding the vote gathers
     (sessions with more than vote_cap distinct source aids are rare and lose
     only their least-recent vote sources).  ``ft_table`` (the kNN neighbor
-    table) may be None."""
+    table) may be None.  ``gather(table, queries)`` reads the neighbor rows
+    (the row-sharded tables' collective gather on a mesh)."""
     t_time, t_clickw, t_cartw, t_clickcart, t_cartorder = tables_tuple
     S, L = aids.shape
     list_cap = min(uniq_cap, L)  # a session of <= L events has <= L distinct aids
@@ -179,13 +181,13 @@ def _regular_chunk(aids, types, lengths, tables_tuple, ft_table, uniq_cap: int, 
         aids, types, lengths, list_cap, vote_cap)
     vote_src = uniq_recent[:, : min(vote_cap, list_cap)]
 
-    g_time = gather_neighbors(t_time[:, :wide_k], vote_src)
-    g_clickw = gather_neighbors(t_clickw[:, :wide_k], clickcart)
-    g_cartw = gather_neighbors(t_cartw[:, :wide_k], clickcart)
-    g_clickcart = gather_neighbors(t_clickcart[:, :wide_k], clickcart)
-    g_cartorder = gather_neighbors(t_cartorder[:, :wide_k], clickcart)
+    g_time = gather(t_time[:, :wide_k], vote_src)
+    g_clickw = gather(t_clickw[:, :wide_k], clickcart)
+    g_cartw = gather(t_cartw[:, :wide_k], clickcart)
+    g_clickcart = gather(t_clickcart[:, :wide_k], clickcart)
+    g_cartorder = gather(t_cartorder[:, :wide_k], clickcart)
     if ft_table is not None:
-        ft_list = gather_neighbors(ft_table, last_aid)
+        ft_list = gather(ft_table, last_aid)
     else:
         ft_list = torch.full((S, 0), -1, dtype=torch.int32, device=aids.device)
 
@@ -209,11 +211,6 @@ def _regular_chunk(aids, types, lengths, tables_tuple, ft_table, uniq_cap: int, 
         filt, filt_scores = _vote_block(lists[etype], uniq_recent, k_covisit)
         out[etype] = (torch.cat([uniq_hist, filt], 1), torch.cat([hist_scores, filt_scores], 1))
     return out
-
-
-def _device_tables(matrices: CovisitationMatrices, wide_k: int, dev: torch.device):
-    return tuple(torch.as_tensor(np.ascontiguousarray(matrices.tables[k][0][:, :wide_k]),
-                                 device=dev) for k in CANDGEN_TABLE_KINDS)
 
 
 def _bucketed(store: EventStore, max_len: int, chunk_sessions: int, fn, width_out: int,
@@ -264,21 +261,25 @@ def regular_candidates(
     vote_cap: int = 32,
     mesh=None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None,
 ) -> CandidateSet:
     """The production candidate generator, on ``device``: per type
     ``[S, uniq_cap + k_covisit]`` candidates and scores (and labels when
-    ``labels`` is given).  ``mesh`` (sharded serving) raises (ROADMAP M15)."""
-    if mesh is not None:
-        raise NotImplementedError("regular_candidates: sharded serving (mesh=) is not ported "
-                                  "yet (ROADMAP M15)")
-    dev = resolve_device(device)
-    tt = _device_tables(matrices, wide_k, dev)
-    ft = torch.as_tensor(ft_neighbors, device=dev) if ft_neighbors is not None else None
+    ``labels`` is given).
 
-    def fn(a, t, lens):
-        return _regular_chunk(a, t, lens, tt, ft, uniq_cap, wide_k, k_covisit, vote_cap)
-
+    With ``mesh`` (a :func:`otto_tpu_torch.parallel.make_mesh` mesh; every
+    rank calls with the same arguments and ``device`` its own or None),
+    sessions split over the mesh's ``data`` axis and the covisitation and
+    kNN tables row-wise over ``model`` (:mod:`otto_tpu_torch.parallel.
+    serving`); every rank returns the single-device result."""
+    layout = ServingLayout(mesh, device)
+    tt = tuple(layout.table(matrices.tables[k][0][:, :wide_k]) for k in CANDGEN_TABLE_KINDS)
+    ft = layout.table(ft_neighbors) if ft_neighbors is not None else None
+    fn = layout.over_data(partial(_regular_chunk, tables_tuple=tt, ft_table=ft,
+                                  uniq_cap=uniq_cap, wide_k=wide_k, k_covisit=k_covisit,
+                                  vote_cap=vote_cap, gather=layout.gather))
+    dev = layout.device
+    chunk_sessions = layout.chunk(chunk_sessions)
     cands, scores = _bucketed(store, max_len, chunk_sessions, fn, uniq_cap + k_covisit, dev)
     return _candidate_set(store, cands, scores, labels, dev)
 
@@ -328,8 +329,9 @@ def covisit_candidates(
 ) -> CandidateSet:
     """Covisitation-votes-only candidates (no history, no embeddings), on
     ``device``."""
-    dev = resolve_device(device)
-    tt = _device_tables(matrices, wide_k, dev)
+    layout = ServingLayout(None, device)
+    dev = layout.device
+    tt = tuple(layout.table(matrices.tables[k][0][:, :wide_k]) for k in CANDGEN_TABLE_KINDS)
 
     def fn(a, t, lens):
         res = _regular_chunk(a, t, lens, tt, None, uniq_cap, wide_k, k_covisit)

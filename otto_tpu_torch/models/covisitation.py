@@ -48,6 +48,7 @@ from otto_tpu_torch.ops.multiset import (
     sorted_unique_rows,
 )
 from otto_tpu_torch.ops.sessions import distinct_recent_first, recency_weights
+from otto_tpu_torch.parallel.serving import ServingLayout
 from otto_tpu_torch.utils.runtime import resolve_device
 
 log = get_logger(__name__)
@@ -106,7 +107,7 @@ def build_covisitation(
     stats_out: dict | None = None,
     progress_cb=None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None,
 ) -> CovisitationMatrices:
     """Build all seven matrices in one pass over the event data.
 
@@ -124,13 +125,26 @@ def build_covisitation(
     ``progress_cb(events_done, acc)`` fires after every drained chunk.
     ``stats_out`` receives ``dispatch_s`` (host prep and enqueue),
     ``drain_s`` (waiting for the device, the copy to the host and the merge)
-    and the accumulator's ``compaction_log``.  ``mesh`` (a sharded build)
-    is not ported yet and raises.
+    and the accumulator's ``compaction_log``.
+
+    With ``mesh`` (every rank calls with the same arguments and ``device``
+    its own or None), each chunk's sessions split over the mesh's ``data``
+    axis: a rank runs the pair stream and the row reduce on its part
+    (:func:`otto_tpu_torch.ops.covisit.make_sharded_pair_reduce`), the live
+    rows are gathered over ``data``, and every rank merges them as extra
+    chunks, so every rank returns the tables.
     """
+    sharded = None
     if mesh is not None:
-        raise NotImplementedError("build_covisitation: the sharded build (mesh=) is not "
-                                  "ported yet (ROADMAP M15)")
-    dev = resolve_device(device)
+        from otto_tpu_torch.ops.covisit import make_sharded_pair_reduce
+        from otto_tpu_torch.parallel.mesh import axis_size, rank_device
+
+        dev = rank_device(mesh, device)
+        dsize = axis_size(mesh, "data")
+        chunk_sessions = -(-chunk_sessions // dsize) * dsize
+        sharded = make_sharded_pair_reduce(mesh, n_aids)
+    else:
+        dev = resolve_device(device)
     T = config.session_tail
     if store.n_events == 0:
         return _empty_matrices(n_aids, config)
@@ -157,9 +171,13 @@ def build_covisitation(
     def dispatch(idx: np.ndarray, t: int):
         """Enqueue one chunk's device work (sessions ``idx`` at width ``t``)."""
         sel = torch.as_tensor(idx, device=dev)
-        keys, weights = pair_stream(
-            aids_d[sel, :t], types_d[sel, :t], rel_ts_d[sel, :t], mask_d[sel, :t], n_aids,
-            float(t1 - t0), type_mult, config.window_seconds, LONG_WINDOW)
+        args = (aids_d[sel, :t], types_d[sel, :t], rel_ts_d[sel, :t], mask_d[sel, :t])
+        if sharded is not None:  # the live rows of every data rank, gathered
+            parts = sharded(*args, plens[idx], float(t1 - t0), type_mult,
+                            config.window_seconds, LONG_WINDOW)
+            return int(plens[idx].sum()), parts
+        keys, weights = pair_stream(*args, n_aids, float(t1 - t0), type_mult,
+                                    config.window_seconds, LONG_WINDOW)
         sk, totals, live = sort_reduce_rows(keys.reshape(len(idx), t * t),
                                             weights.reshape(len(idx), t * t, -1))
         # a session of packed length l emits at most l*(l-1) ordered pairs,
@@ -172,9 +190,14 @@ def build_covisitation(
 
     def drain(item):
         nonlocal events_done
-        ev, (keys_c, totals_c, n_live) = item
-        n = int(n_live)
-        acc.add(keys_c[:n].cpu().numpy(), totals_c[:n].cpu().numpy())
+        ev, handle = item
+        if sharded is not None:
+            for keys_p, totals_p in handle:
+                acc.add(keys_p.cpu().numpy(), totals_p.cpu().numpy())
+        else:
+            keys_c, totals_c, n_live = handle
+            n = int(n_live)
+            acc.add(keys_c[:n].cpu().numpy(), totals_c[:n].cpu().numpy())
         events_done += ev
 
     t_dispatch = t_drain = 0.0
@@ -281,15 +304,15 @@ def _vote_cascade(vals, uniq_recent, stats_row, k: int):
     return concat_unique_cascade(uniq_recent[:, :k], filtered, stats_row, k)
 
 
-def _ft_list(tables, last_aid, n_rows: int, device):
+def _ft_list(tables, last_aid, n_rows: int, device, gather=gather_neighbors):
     fts = tables.get("fasttext")
     if fts is None:
         return torch.full((n_rows, 0), -1, dtype=torch.int32, device=device)
-    return gather_neighbors(fts, last_aid)
+    return gather(fts, last_aid)
 
 
 def _covisit_route(aids, types, lengths, tables, stats_top, uniq_cap: int, narrow_k: int,
-                   k: int):
+                   k: int, gather=gather_neighbors):
     """Batched covisitation-vote route for one chunk of sessions.
 
     List concatenation order matches the reference exactly (it sets the
@@ -297,15 +320,17 @@ def _covisit_route(aids, types, lengths, tables, stats_top, uniq_cap: int, narro
     fasttext for clicks; time + cart_w + cart_order + fasttext for carts and
     orders (inference.py:215-236).  The fasttext neighbor list arrives via
     ``tables['fasttext']`` when an embedding model is attached.
+    ``gather(table, queries)`` reads the neighbor rows (the row-sharded
+    tables' collective gather on a mesh).
     """
     _, last_aid, uniq_recent, _, clickcart, _ = _heur_lists(aids, types, lengths, uniq_cap)
 
-    g_time = gather_neighbors(tables["time_weighted"][:, :narrow_k], uniq_recent)
-    g_clickw = gather_neighbors(tables["click_weighted"][:, :narrow_k], clickcart)
-    g_cartw = gather_neighbors(tables["cart_weighted"][:, :narrow_k], clickcart)
-    g_clickcart = gather_neighbors(tables["click_cart"][:, :narrow_k], clickcart)
-    g_cartorder = gather_neighbors(tables["cart_order"][:, :narrow_k], clickcart)
-    ft_list = _ft_list(tables, last_aid, aids.shape[0], aids.device)
+    g_time = gather(tables["time_weighted"][:, :narrow_k], uniq_recent)
+    g_clickw = gather(tables["click_weighted"][:, :narrow_k], clickcart)
+    g_cartw = gather(tables["cart_weighted"][:, :narrow_k], clickcart)
+    g_clickcart = gather(tables["click_cart"][:, :narrow_k], clickcart)
+    g_cartorder = gather(tables["cart_order"][:, :narrow_k], clickcart)
+    ft_list = _ft_list(tables, last_aid, aids.shape[0], aids.device, gather)
 
     lists = {
         "clicks": torch.cat([g_time, g_clickw, g_cartw, g_clickcart, g_cartorder, ft_list], 1),
@@ -316,17 +341,18 @@ def _covisit_route(aids, types, lengths, tables, stats_top, uniq_cap: int, narro
             for etype in EVENT_TYPES}
 
 
-def _recency_route(aids, types, lengths, tables, uniq_cap: int, narrow_k: int, k: int):
+def _recency_route(aids, types, lengths, tables, uniq_cap: int, narrow_k: int, k: int,
+                   gather=gather_neighbors):
     """Batched typed-recency route (inference.py:143-199): per-type log-recency
     weights x coefficients {1,9,6}, +bonus votes from fastText neighbors of the
     last aid and one covisitation table per type."""
     mask, last_aid, _, click_uniq, clickcart, cartorder = _heur_lists(
         aids, types, lengths, uniq_cap)
-    ft_list = _ft_list(tables, last_aid, aids.shape[0], aids.device)
+    ft_list = _ft_list(tables, last_aid, aids.shape[0], aids.device, gather)
     bonus_lists = {
-        "clicks": gather_neighbors(tables["time_weighted"][:, :narrow_k], click_uniq),
-        "carts": gather_neighbors(tables["cart_weighted"][:, :narrow_k], clickcart),
-        "orders": gather_neighbors(tables["cart_order"][:, :narrow_k], cartorder),
+        "clicks": gather(tables["time_weighted"][:, :narrow_k], click_uniq),
+        "carts": gather(tables["cart_weighted"][:, :narrow_k], clickcart),
+        "orders": gather(tables["cart_order"][:, :narrow_k], cartorder),
     }
     lo = {"clicks": 0.1, "carts": 0.5, "orders": 0.5}
     return {etype: _recency_scored_top(aids, types, lengths, mask, ft_list, bonus_lists[etype],
@@ -368,7 +394,7 @@ def covisit_heuristic_predictions(
     recency_host_f64: bool = False,
     covisit_host: bool = False,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None,
 ) -> dict[str, np.ndarray]:
     """Full heuristic recommender over all sessions of ``store``.
 
@@ -383,12 +409,17 @@ def covisit_heuristic_predictions(
     ft_neighbors: optional [n_aids, NN] nearest-neighbor table from the
     embedding model (replaces the reference's Annoy index; neighbors must
     already exclude the query aid itself).
-    ``mesh`` (sharded serving) is not ported yet and raises.
+
+    With ``mesh`` (every rank calls with the same arguments and ``device``
+    its own or None), sessions split over the mesh's ``data`` axis and the
+    narrow tables and the kNN table row-wise over ``model``
+    (:class:`otto_tpu_torch.parallel.serving.ServingLayout`);
+    a host route runs each rank's ``data`` part of its sessions.  Every
+    rank returns the single-device result.
     """
-    if mesh is not None:
-        raise NotImplementedError("covisit_heuristic_predictions: sharded serving (mesh=) is "
-                                  "not ported yet (ROADMAP M15)")
-    dev = resolve_device(device)
+    layout = ServingLayout(mesh, device)
+    dev = layout.device
+    chunk_sessions = layout.chunk(chunk_sessions)
     counts = session_unique_counts(store)
     packed = store.pack(max_len=max_len, keep="last")
     S = store.n_sessions
@@ -401,9 +432,9 @@ def covisit_heuristic_predictions(
 
     device_routes = (len(cov_idx) and not covisit_host) or (len(rec_idx) and not recency_host_f64)
     if device_routes:
-        tables = {kind: torch.as_tensor(t[0], device=dev) for kind, t in matrices.tables.items()}
+        tables = {kind: layout.table(t[0][:, :narrow_k]) for kind, t in matrices.tables.items()}
         if ft_neighbors is not None:
-            tables["fasttext"] = torch.as_tensor(ft_neighbors, device=dev)
+            tables["fasttext"] = layout.table(ft_neighbors)
         stats_dev = {etype: torch.tensor(stats_top[etype][:k], device=dev)
                      for etype in EVENT_TYPES}
         aids_d = torch.as_tensor(packed.aids, device=dev)
@@ -432,30 +463,36 @@ def covisit_heuristic_predictions(
                 for etype in EVENT_TYPES:
                     preds[etype][sel] = res[etype].cpu().numpy()
 
+    def cov_fn(a, t, lens, cap):
+        return _covisit_route(a, t, lens, tables, stats_dev, cap, narrow_k, k,
+                              gather=layout.gather)
+
+    def rec_fn(a, t, lens, cap):
+        return _recency_route(a, t, lens, tables, cap, narrow_k, k, gather=layout.gather)
+
     if len(cov_idx):
         if covisit_host:
             from otto_tpu_torch.models.heuristic_host import covisit_route_host
 
             narrow5 = {kind: np.asarray(matrices.tables[kind][0][:, :narrow_k])
                        for kind in matrices.tables}
-            host_cov = covisit_route_host(store, cov_idx, narrow5,
-                                          {t: np.asarray(stats_top[t]) for t in EVENT_TYPES},
-                                          ft_neighbors, k=k)
+            host_cov = layout.host_rows(cov_idx, lambda idx: covisit_route_host(
+                store, idx, narrow5, {t: np.asarray(stats_top[t]) for t in EVENT_TYPES},
+                ft_neighbors, k=k), k)
             for etype in EVENT_TYPES:
                 preds[etype][cov_idx] = host_cov[etype]
         else:
-            run_route(lambda a, t, lens, cap: _covisit_route(
-                a, t, lens, tables, stats_dev, cap, narrow_k, k), cov_idx)
+            run_route(layout.over_data(cov_fn), cov_idx)
     if len(rec_idx):
         if recency_host_f64:
             from otto_tpu_torch.models.heuristic_host import recency_route_host_f64
 
             narrow_np = {kind: np.asarray(matrices.tables[kind][0][:, :narrow_k])
                          for kind in ("time_weighted", "cart_weighted", "cart_order")}
-            host_preds = recency_route_host_f64(store, rec_idx, narrow_np, ft_neighbors, k=k)
+            host_preds = layout.host_rows(rec_idx, lambda idx: recency_route_host_f64(
+                store, idx, narrow_np, ft_neighbors, k=k), k)
             for etype in EVENT_TYPES:
                 preds[etype][rec_idx] = host_preds[etype]
         else:
-            run_route(lambda a, t, lens, cap: _recency_route(
-                a, t, lens, tables, cap, narrow_k, k), rec_idx)
+            run_route(layout.over_data(rec_fn), rec_idx)
     return preds

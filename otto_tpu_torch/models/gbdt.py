@@ -412,7 +412,7 @@ def fit_gbdt(
     """
     if mesh is not None:
         raise NotImplementedError("fit_gbdt: data-parallel growth over a mesh is not ported "
-                                  "yet (ROADMAP M15)")
+                                  "yet (ROADMAP M15b, data-parallel training)")
     dev = resolve_device(device)
     S, C, F = binned.shape
     N = S * C
@@ -552,11 +552,13 @@ class GBDTRankerModel:
         """The model's uint8 bins [S * C, F] of a [S, C, F] feature tensor."""
         return bin_features(features, self.edges).reshape(-1, features.shape[-1])
 
-    def predict(self, features: np.ndarray, mask: np.ndarray, *,
+    def predict(self, features: np.ndarray, mask: np.ndarray, mesh=None, *,
                 device: str | torch.device) -> np.ndarray:
         """Fold-averaged scores [S, C] (lgb_trainer.py:248-263 semantics) of
         a float32 [S, C, F] feature tensor, -inf where ``mask`` is False; the
-        rows cross to ``device`` once and are binned and routed there."""
+        rows cross to ``device`` once and are binned and routed there.
+        ``mesh`` is accepted and unused, as in the JAX package: each caller
+        scores every row."""
         S, C, F = features.shape
         x = torch.as_tensor(np.ascontiguousarray(features).reshape(S * C, F),
                             device=resolve_device(device))
@@ -670,10 +672,10 @@ def train_gbdt_ranker(
     :func:`fit_gbdt` a fold, early-stopped on its held-out sessions, which
     it then scores (the OOF scores, through the forest kernel's uint8
     entry).  ``eval_recall(session_indices, scores)`` gives the fold
-    recalls and ``oof_recall``.  ``mesh`` raises (ROADMAP M15)."""
+    recalls and ``oof_recall``.  ``mesh`` raises (ROADMAP M15b)."""
     if mesh is not None:
         raise NotImplementedError("train_gbdt_ranker: data-parallel training over a mesh is "
-                                  "not ported yet (ROADMAP M15)")
+                                  "not ported yet (ROADMAP M15b, data-parallel training)")
     if data.features.dtype != np.float32:
         raise TypeError(f"train_gbdt_ranker: features must be float32, got "
                         f"{data.features.dtype}")

@@ -301,19 +301,32 @@ class RankerModel:
         return self._towers[str(dev)]
 
     def predict(self, features: np.ndarray, mask: np.ndarray, mesh=None, *,
-                device: str | torch.device) -> np.ndarray:
+                device: str | torch.device | None) -> np.ndarray:
         """Fold-averaged scores [S, C] (lgb_trainer.py:248-263 semantics) of
         a float32 [S, C, F] feature tensor, -inf where ``mask`` is False: the
         rows cross to ``device`` once and :meth:`predict_rows` scores them.
-        ``mesh`` (data-parallel serving) raises (ROADMAP M15)."""
-        if mesh is not None:
-            raise NotImplementedError("RankerModel.predict: data-parallel serving over a mesh "
-                                      "is not ported yet (ROADMAP M15)")
+
+        With ``mesh`` (every rank calls with the same arguments and
+        ``device`` its own or None), each rank scores its slice of the
+        sessions over the mesh's ``data`` axis and the slices are gathered:
+        every rank returns all the scores."""
         S, C, F = features.shape
-        x = torch.as_tensor(np.ascontiguousarray(features, np.float32).reshape(S * C, F),
-                            device=resolve_device(device))
-        scores = self.predict_rows(x).cpu().numpy().reshape(S, C)
-        return np.where(mask, scores, -np.inf)
+        feats = np.ascontiguousarray(features, np.float32)
+        if mesh is None:
+            x = torch.as_tensor(feats.reshape(S * C, F), device=resolve_device(device))
+            scores = self.predict_rows(x).cpu().numpy().reshape(S, C)
+            return np.where(mask, scores, -np.inf)
+        from otto_tpu_torch.parallel.mesh import data_slice, gather_batch, rank_device
+
+        dev = rank_device(mesh, device)
+        sl, _ = data_slice(mesh, S)
+        part = feats[sl]
+        if len(part) < sl.stop - sl.start:  # the last slices pad with zero rows
+            part = np.concatenate([part, np.zeros((sl.stop - sl.start - len(part), C, F),
+                                                  np.float32)])
+        x = torch.as_tensor(part.reshape(-1, F), device=dev)
+        scores = gather_batch(mesh, self.predict_rows(x).reshape(-1, C), S)
+        return np.where(mask, scores.cpu().numpy(), -np.inf)
 
     @torch.no_grad()
     def predict_rows(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:

@@ -137,6 +137,46 @@ def compact_live(keys: torch.Tensor, totals: torch.Tensor, live: torch.Tensor, c
     return keys_c[:cap], totals_c[:cap], live.sum()
 
 
+def make_sharded_pair_reduce(mesh, n_aids: int, data_axis: str = "data"):
+    """Multi-device chunk processing (``make_sharded_pair_reduce`` of the
+    JAX package): a chunk's sessions split over the mesh's ``data`` axis;
+    each rank runs :func:`pair_stream`, :func:`sort_reduce_rows` and
+    :func:`compact_live` on its contiguous part.
+
+    Returns ``fn(aids, types, rel_ts, mask, lens, t_span, type_mult,
+    window_short, window_long)`` over the whole chunk (the same on every
+    rank; ``lens`` the host's packed lengths, which bound the live rows),
+    giving every data rank's live (keys, totals) in rank order, gathered
+    sizes first because they vary: the host merge takes them as extra
+    chunks.
+    """
+    from otto_tpu_torch.parallel.mesh import all_gather_rows, axis_index, axis_size
+
+    def fn(aids, types, rel_ts, mask, lens, t_span, type_mult, window_short, window_long):
+        S, T = aids.shape
+        part = np.array_split(np.arange(S), axis_size(mesh, data_axis))[
+            axis_index(mesh, data_axis)]
+        lo, hi = (int(part[0]), int(part[-1]) + 1) if len(part) else (0, 0)
+        if hi > lo:
+            keys, weights = pair_stream(aids[lo:hi], types[lo:hi], rel_ts[lo:hi], mask[lo:hi],
+                                        n_aids, t_span, type_mult, window_short, window_long)
+            sk, totals, live = sort_reduce_rows(keys.reshape(hi - lo, T * T),
+                                                weights.reshape(hi - lo, T * T, -1))
+            ln = np.asarray(lens[lo:hi], np.int64)
+            cap = max(int(np.sum(ln * np.maximum(ln - 1, 0))), 1)
+            keys_c, totals_c, n_live = compact_live(sk, totals, live, cap)
+            n = int(n_live)
+            keys_c, totals_c = keys_c[:n], totals_c[:n]
+        else:
+            keys_c = torch.zeros(0, dtype=torch.int64, device=aids.device)
+            totals_c = torch.zeros((0, len(COVISIT_KINDS)), dtype=torch.float32,
+                                   device=aids.device)
+        return list(zip(all_gather_rows(mesh, keys_c, data_axis),
+                        all_gather_rows(mesh, totals_c, data_axis)))
+
+    return fn
+
+
 def topk_per_source(
     aid_x: np.ndarray, aid_y: np.ndarray, weights: np.ndarray, n_aids: int, k: int
 ) -> tuple[np.ndarray, np.ndarray]:

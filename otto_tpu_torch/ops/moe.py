@@ -5,7 +5,7 @@ Port of ``otto_tpu/ops/moe.py`` in its single-device form
 (``model_axis=None``): every expert is local, as the transformer uses it
 when ``SequenceModelConfig.moe_experts > 0``.  Expert parallelism (the
 expert dimension sharded over a mesh axis, one ``psum``) is not ported
-(ROADMAP M15).
+(ROADMAP M15c).
 
 Over-capacity tokens pass through with zero expert contribution (the
 standard capacity-factor drop); masked (padding) tokens never win a
@@ -47,7 +47,8 @@ def moe_apply(p: dict, x: torch.Tensor, *, capacity: int, model_axis: str | None
     nothing."""
     if model_axis is not None:
         raise NotImplementedError("moe_apply: expert parallelism over a mesh axis is not "
-                                  "ported yet (ROADMAP M15); pass model_axis=None")
+                                  "ported yet (ROADMAP M15c, model and expert parallelism); "
+                                  "pass model_axis=None")
     T, _ = x.shape
     capacity = min(capacity, T)
     gate = torch.softmax(x @ p["wg"], dim=1)  # [T, E]

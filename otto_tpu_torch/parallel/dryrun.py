@@ -1,0 +1,133 @@
+"""Run the sharded tables and sharded serving once, at tiny shapes, over
+every rank of a process group: the port's part of the JAX package's
+``dryrun_multichip`` (``__graft_entry__.py``: the sharded SGNS and MF
+steps, the distributed top-k and lookup, the sharded candidate chunk and
+heuristic routes).
+
+    torchrun --nproc-per-node N -m otto_tpu_torch.parallel.dryrun [--backend gloo]
+
+or ``python -m otto_tpu_torch.parallel.dryrun`` with the rank's environment
+set (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``).  The mesh is ``(N/2) x 2`` for an even N > 1, else
+``N x 1``.  NCCL is the default backend and needs a card a rank; ranks that
+share a card, or CPU ranks, pass ``--backend gloo``.  Each rank prints one
+line ``dryrun rank R/N ok`` and exits 0, or raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+
+def run(mesh, seed: int = 0) -> dict:
+    """Every sharded function of this slice once on ``mesh``; returns their
+    shapes and losses (the same on every rank)."""
+    from otto_tpu_torch.parallel.mesh import axis_size, mesh_device, shard_rows
+    from otto_tpu_torch.parallel.serving import (
+        make_sharded_heuristic_routes,
+        make_sharded_regular_chunk,
+        pad_table_rows,
+    )
+    from otto_tpu_torch.parallel.sharded_embedding import (
+        make_sharded_mf_step,
+        make_sharded_sgns_step,
+        sharded_lookup,
+        sharded_topk,
+    )
+
+    dp, mp = axis_size(mesh, "data"), axis_size(mesh, "model")
+    n = dp * mp
+    dev = mesh_device(mesh)
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    # row-sharded SGNS step
+    N, D = 16 * n, 8
+    w_in = shard_rows(mesh, rng.uniform(-0.1, 0.1, (N, D)).astype(np.float32))
+    w_out, acc_in, acc_out = (shard_rows(mesh, np.zeros((N, D), np.float32)) for _ in range(3))
+    B = 4 * dp
+    c = rng.integers(0, N, B)
+    x = rng.integers(0, N, B)
+    negs = rng.integers(0, N, (B, 4))
+    *_, loss = make_sharded_sgns_step(mesh, n_negatives=4)(w_in, w_out, acc_in, acc_out, c, x,
+                                                            negs, 0.05)
+    out["sgns_loss"] = float(loss)
+
+    # row-sharded matrix factorization
+    Ns, Na = 12 * n, 8 * n
+    ses = shard_rows(mesh, rng.uniform(-0.05, 0.05, (Ns, D)).astype(np.float32))
+    aid = shard_rows(mesh, rng.uniform(-0.05, 0.05, (Na, D)).astype(np.float32))
+    acc_s = shard_rows(mesh, np.zeros((Ns, D), np.float32))
+    acc_a = shard_rows(mesh, np.zeros((Na, D), np.float32))
+    *_, mf_loss = make_sharded_mf_step(mesh, loss="mse")(
+        ses, aid, acc_s, acc_a, rng.integers(0, Ns, B), rng.integers(0, Na, B),
+        rng.normal(size=B).astype(np.float32), 0.05)
+    out["mf_loss"] = float(mf_loss)
+
+    # distributed top-k and lookup
+    q = rng.normal(size=(8, D)).astype(np.float32)
+    s, i = sharded_topk(mesh, q, w_in, k=5, metric="euclidean")
+    out["topk_shape"] = tuple(i.shape)
+    out["lookup_shape"] = tuple(sharded_lookup(mesh, w_in, torch.arange(8, device=dev)).shape)
+
+    # sharded serving: the candidate chunk and the heuristic routes
+    n_aids, wide_k, L = 64, 4, 8
+    S = 2 * dp
+    tables = [shard_rows(mesh, pad_table_rows(
+        rng.integers(-1, n_aids, (n_aids, wide_k)).astype(np.int32), mp)) for _ in range(5)]
+    ft = shard_rows(mesh, pad_table_rows(rng.integers(0, n_aids, (n_aids, 4)).astype(np.int32),
+                                         mp))
+    aids = torch.as_tensor(rng.integers(0, n_aids, (S, L)).astype(np.int32), device=dev)
+    types = torch.as_tensor(rng.integers(0, 3, (S, L)).astype(np.int8), device=dev)
+    lens = torch.as_tensor(rng.integers(1, L + 1, S).astype(np.int32), device=dev)
+    cand = make_sharded_regular_chunk(mesh, uniq_cap=8, wide_k=wide_k, k_covisit=16,
+                                      with_ft=True, vote_cap=8)(aids, types, lens, *tables, ft)
+    out["candidates_shape"] = tuple(cand["clicks"][0].shape)
+    cov_fn, rec_fn = make_sharded_heuristic_routes(mesh, uniq_cap=8, narrow_k=wide_k, k=8,
+                                                   with_ft=True)
+    stats = torch.arange(8, dtype=torch.int32, device=dev)
+    heur = cov_fn(aids, types, lens, *tables, ft, stats, stats, stats)
+    rec = rec_fn(aids, types, lens, tables[0], tables[2], tables[4], ft)
+    out["heuristic_shape"] = tuple(heur["orders"].shape)
+    out["recency_shape"] = tuple(rec["clicks"].shape)
+
+    if not (np.isfinite(out["sgns_loss"]) and np.isfinite(out["mf_loss"])):
+        raise RuntimeError(f"dryrun: a loss is not finite: {out}")
+    want = {"topk_shape": (8, 5), "lookup_shape": (8, D), "candidates_shape": (S, 24),
+            "heuristic_shape": (S, 8), "recency_shape": (S, 8)}
+    for key, shape in want.items():
+        if out[key] != shape:
+            raise RuntimeError(f"dryrun: {key} {out[key]}, expected {shape}")
+    return out
+
+
+def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from otto_tpu_torch.config import MeshConfig
+    from otto_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
+    args = ap.parse_args(argv)
+    if not init_distributed(args.backend):
+        print("dryrun: RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT are not set; run it "
+              "under torchrun", file=sys.stderr)
+        return 2
+    try:
+        world = dist.get_world_size()
+        mp = 2 if world % 2 == 0 and world > 1 else 1
+        mesh = make_mesh(MeshConfig(data_parallel=world // mp, model_parallel=mp))
+        out = run(mesh)
+        print(f"dryrun rank {dist.get_rank()}/{world} ok {out}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -121,5 +121,5 @@ def test_embedding_candidates_and_label_dict_equal(setup):
 
 def test_sharded_serving_is_not_ported(setup):
     _, tsp, _, tm, _, _ = setup
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tc.regular_candidates(tsp.val_input, tm, mesh=object(), device="cpu")

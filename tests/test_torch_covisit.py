@@ -163,7 +163,7 @@ def test_build_edge_cases():
         np.zeros(0, np.int64))
     mats = tcov.build_covisitation(empty, 50, device="cpu")
     assert all((a == -1).all() and a.shape == (50, 50) for a, _ in mats.tables.values())
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcov.build_covisitation(empty, 50, mesh=object(), device="cpu")
 
 

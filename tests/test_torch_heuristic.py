@@ -192,7 +192,7 @@ def test_heuristic_zero_length_rows_and_mesh():
     mask, last = tcov._derive_mask_last(aids, torch.tensor([2, 1, 0]))
     assert mask.tolist() == [[True, True, False], [True, False, False], [False] * 3]
     assert last[:, 0].tolist() == [6, 7, 0]
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcov.covisit_heuristic_predictions(None, None, {}, mesh=object(), device="cpu")
 
 

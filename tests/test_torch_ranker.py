@@ -349,5 +349,5 @@ def test_npz_loads_both_ways(tmp_path):
     x = torch.from_numpy(feats.reshape(-1, F))
     np.testing.assert_array_equal(tm.predict_rows(x).numpy().reshape(mask.shape)[mask],
                                   got[mask])
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.predict(feats, mask, mesh=object(), device="cpu")
