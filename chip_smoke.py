@@ -3,12 +3,13 @@ embedding-kNN path, the baselines with the covisitation heuristic, the
 two-stage prediction path, the file CLI, GBDT training, SGNS training, the
 listwise tower ranker, the TF-IDF recommender, the sequence recommenders,
 matrix factorization and collaborative filtering with the training
-utilities, and sharded serving over a process mesh.
+utilities, sharded serving over a process mesh, and data-parallel
+training (the GBDT, the tower, the sequence models, ZeRO-1).
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16b, which
-the script starts itself.)
+(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phases 16b and
+17b, which the script starts itself.)
 
 Phases (each prints its seconds; any failure ends the run with a non-zero
 exit code):
@@ -131,7 +132,7 @@ exit code):
    5-tree lambdarank fit (``configs/gbdt_lambdarank.yaml``, trees cut) and
    ``_lambdarank_gh`` on its scores, card within 1e-5 relative of the CPU;
    11d the CLI's ``two_stage validation --config <20 trees, 3 folds>`` on
-   phase 6's store cut to 40,000 sessions into an empty directory (three
+   phase 6's store cut to 24,000 sessions into an empty directory (three
    rankers saved, the histogram and binning kernels launched), the same
    command resuming (neither launched; lists equal to ``predict_two_stage``
    with the saved artifacts), and ``two_stage_streamed validation
@@ -181,7 +182,7 @@ exit code):
 14. the sequence recommenders with the seven published configs
    (``configs/sequence_*.yaml``: dim 64, hidden 128, max_len 20, batch
    2,048, 512 negatives) over the full catalog, epochs cut to 1 (and the
-   six non-default configs' training sessions to 25,000): 14a each
+   six non-default configs' training sessions to 15,000): 14a each
    config's session vectors on 512 of phase 7's sessions and one training
    step, card against CPU (vectors within 1e-5 * (|x| + 1e-3), the loss
    within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
@@ -242,7 +243,20 @@ exit code):
    16a's bytes at (1, 2) and the whole at (2, 1), results under 16a's bars
    (``sharded_topk``'s ids equal at (2, 1), recall at both); then two NCCL
    ranks on the one card (``python -m otto_tpu_torch.parallel.dryrun``)
-   must be refused, and NCCL's message is printed.
+   must be refused, and NCCL's message is printed;
+17. data-parallel training (``otto_tpu_torch.parallel.data_parallel``,
+   ``fit_gbdt(mesh=)``) at full width: 17a in 16a's NCCL rank (mesh (1, 1)):
+   ``fit_gbdt(mesh=)`` on 11a's first clicks fold ([1,857,664 x 55], 256
+   bins, the refit's config, 30 trees) bit-equal to ``fit_gbdt`` (7 K5
+   launches a tree on both routes, both timed), ``make_dp_ranker_step`` at
+   13a's [4,096 x 184 x 55] bit-equal to ``train_step``,
+   ``make_dp_sequence_step`` with ``configs/sequence_gru.yaml`` over the full
+   catalog bit-equal to ``train_step``, the ZeRO-1 step bit-equal to the dp
+   step over 3 Adam steps; 17b in 16b's two gloo ranks (mesh (2, 1)): the
+   fold's 20-tree fit bit-equal to 17a's single-device one (7 K5 launches a
+   tree a rank, the bytes each level all-reduces printed), the tower and
+   sequence steps within 13a's and 14a's bars of the single-device steps,
+   ZeRO-1 within 1e-5 of the dp step with about half its Adam state a rank.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -2248,10 +2262,16 @@ def fits_card_vs_cpu(torch, dev, fold: dict, tree_sessions: int = 2_000) -> None
           f"largest difference {worst:.2e} of the largest |value|", flush=True)
 
 
+# 11d's store: phase 6's first sessions (40,000 until phase 17 came, when
+# the script took 1,070.58 s of phases on a slower host: cut so that its
+# command time stays well under the 1,200 s limit)
+CLI_TRAIN_SESSIONS = 24_000
+
+
 def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
     """Phase 11d: ``two_stage validation --ranker gbdt --config <20 trees, 3
-    folds, min_data_in_leaf 200, bce>`` on phase 6's store cut to 40,000
-    sessions into an empty ``--artifact-dir``: three rankers written, the
+    folds, min_data_in_leaf 200, bce>`` on phase 6's store cut to
+    CLI_TRAIN_SESSIONS sessions into an empty ``--artifact-dir``: three rankers written, the
     histogram kernel launched.  The same command again resumes: no
     histogram launch, and its lists equal ``predict_two_stage`` with the
     saved artifacts on the same split (the training run's own lists rank
@@ -2265,8 +2285,8 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
     from otto_tpu_torch import pipelines, twostage
     from otto_tpu_torch.data.splits import split_by_fraction
 
-    store = head_sessions(bench_store, 40_000)
-    events, adir, cfg = (workdir / "bench_40k.parquet", workdir / "trained",
+    store = head_sessions(bench_store, CLI_TRAIN_SESSIONS)
+    events, adir, cfg = (workdir / "bench_head.parquet", workdir / "trained",
                          workdir / "gbdt_20.yaml")
     store.to_parquet(events)
     cfg.write_text("n_trees: 20\nn_folds: 3\nmin_data_in_leaf: 200\nloss: bce\n")
@@ -3116,14 +3136,16 @@ SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with e
             "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
             "OTTO week has ~220M events): run_sequence trains gru on its 180,000-session "
             "split",
-            "14b: the six other configs train on the split's first 25,000 training sessions "
+            "14b: the six other configs train on the split's first 15,000 training sessions "
             "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s; 45,000 until "
-            "phase 16 came, when the script's phases 1-15 took 955 s on one host) and serve "
+            "phase 16 came, when the script's phases 1-15 took 955 s on one host; 25,000 "
+            "until phase 17 came, when the script took 1,070.58 s of phases on one host) and "
+            "serve "
             "the same 20,000 target sessions",
             "14d: the subprocess's sequence submission on phase 7's first 20,000 sessions",
             "14a: card against CPU on one step from one seeded batch of phase 7's examples "
             "and on 512 of its sessions")
-SEQ_CUT_TRAIN_SESSIONS = 25_000  # 14b: the non-default configs' training sessions
+SEQ_CUT_TRAIN_SESSIONS = 15_000  # 14b: the non-default configs' training sessions
 SEQ_SUBMISSION_SESSIONS = 20_000  # 14d: the subprocess's store
 # 14a: session vectors within SEQ_ENC_RTOL * (|x| + SEQ_ENC_FLOOR * max |x|),
 # max over the batch (cuBLAS and the CPU sum each float32 dot in another
@@ -4289,10 +4311,10 @@ def mesh_counters():
 
 
 def mesh_rank_main(work: Path) -> int:
-    """A 16b rank (``python3 chip_smoke.py --mesh-rank DIR`` under
+    """A 16b and 17b rank (``python3 chip_smoke.py --mesh-rank DIR`` under
     torchrun's environment): gloo on the shared card, the dryrun's tiny
     shapes, then every sharded call at meshes (1, 2) and (2, 1) against
-    16a's results.  Prints one JSON line."""
+    16a's results, then phase 17b at (2, 1).  Prints one JSON line."""
     import torch
     import torch.distributed as dist
 
@@ -4310,6 +4332,10 @@ def mesh_rank_main(work: Path) -> int:
         res[f"dryrun_{tag}"] = dryrun.run(mesh)
         res[tag] = mesh_run(torch, mesh, inp, ref, mesh_counters(), build=shape == (2, 1),
                             tag=tag, reps=1)
+    del inp, ref
+    t0 = time.perf_counter()
+    res["dp"] = dp_rank(torch, mesh, work)  # phase 17b at mesh (2, 1)
+    res["dp"]["s"] = time.perf_counter() - t0
     res["rank"] = dist.get_rank()
     res["device"] = str(mesh_device(mesh))
     dist.destroy_process_group()
@@ -4338,10 +4364,10 @@ def nccl_refusal() -> str:
 
 
 def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: dict,
-                  zero_counters, read_counters) -> dict:
-    """Phase 16 (16a one NCCL rank in this process, 16b two gloo ranks on
-    the same card); returns its numbers and K1/K2's launches at world 1
-    and 2."""
+                  dp_fold: dict, zero_counters, read_counters) -> dict:
+    """Phases 16 and 17 (16a and 17a one NCCL rank in this process, 16b and
+    17b two gloo ranks on the same card); returns their numbers and K1/K2's
+    launches at world 1 and 2."""
     import os
 
     import torch.distributed as dist
@@ -4375,6 +4401,12 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
                          (zero_counters, lambda: read_counters("sharded_topk at world 1",
                                                                ("fused_stage1", "peel_rows"))),
                          build=True, tag="1x1")
+            a["total_s"] = time.perf_counter() - t0
+            print(f"16a mesh (1, 1), one rank on {dev}: " + json.dumps(a), flush=True)
+            t0 = time.perf_counter()
+            dp_a = dp_world1(torch, dev, mesh, dp_fold, MESH_DIR, (zero_counters, read_counters))
+            dp_a["s"] = time.perf_counter() - t0
+            print(f"17a data-parallel training, one NCCL rank: {dp_a['s']:.2f} s", flush=True)
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -4383,8 +4415,6 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        a["total_s"] = time.perf_counter() - t0
-        print(f"16a mesh (1, 1), one rank on {dev}: " + json.dumps(a), flush=True)
 
         t0 = time.perf_counter()
         outs = launch_local([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
@@ -4403,15 +4433,325 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
                     check(lo <= x <= hi, f"16b rank {r['rank']} at {tag}: {key} {x:.4f} of "
                           "16a's")
             check(r["1x2"]["block_rows"] == -(-N_AIDS // 2), "16b: the (1, 2) shard's rows")
-        print(f"16b two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): {b_s:.2f} s",
-              flush=True)
+            print(f"17b rank {r['rank']} at mesh (2, 1): fit_gbdt(mesh=) on the fold, "
+                  f"{DP_TREES['17b']} trees, bit-equal to 17a's single-device forest, "
+                  f"{r['dp']['fit_launches']} K5 launches, {r['dp']['fit_s']:.3f} s; bytes "
+                  f"all-reduced a level {r['dp']['level_bytes']}, a tree "
+                  f"{r['dp']['tree_bytes']:.0f}: " + json.dumps(r["dp"]), flush=True)
+        print(f"16b and 17b, two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): "
+              f"{b_s:.2f} s (17b {max(r['dp']['s'] for r in ranks):.2f} s of it)", flush=True)
         t0 = time.perf_counter()
         msg = nccl_refusal()
         print(f"16b two NCCL ranks on one card refused ({time.perf_counter() - t0:.2f} s): "
               f"{msg}", flush=True)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
-    return {"a": a, "b": ranks, "b_s": b_s, "nccl_refusal": msg}
+    return {"a": a, "b": ranks, "b_s": b_s, "nccl_refusal": msg, "dp_a": dp_a}
+
+
+# ------------------------------------------------------------- phase 17
+# Data-parallel training on the card (otto_tpu_torch/parallel/
+# data_parallel.py, fit_gbdt(mesh=)).  17a: one NCCL rank in this process
+# (16a's group, mesh (1, 1)), each data-parallel call against its
+# single-device call, bit for bit; 17b: 16b's two gloo ranks sharing the card
+# at mesh (2, 1).  Widths are the full ones: 11a's first clicks fold of the
+# refit ([1,857,664 x 55] rows, 256 bins, the refit's GBDTConfig, depth 7),
+# 13a's tower at [4,096 x 184 x 55] (configs/ranker.yaml), and
+# configs/sequence_gru.yaml over the 1,855,603-aid catalog.
+DP_TREES = {"17a": 30, "17b": 20}
+DP_ZERO_STEPS = 3
+DP_SEQ_CONFIG = REPO / "configs" / "sequence_gru.yaml"
+DP_CUTS = ("17: the refit's 150 trees cut to 30 (17a) and 20 (17b); one tower and one "
+           "sequence step, and 3 Adam steps of the ZeRO-1 sequence step against the dp step",)
+DP_ZERO_ATOL = 1e-5  # 17b: ZeRO-1 against the dp step (tests/test_torch_data_parallel.py)
+DP_STATE_BAND = (0.49, 0.51)  # 17b: a rank's ZeRO Adam state over the dp step's
+
+
+def dp_forest(forest) -> dict:
+    return {k: np.asarray(getattr(forest, k)) for k in
+            ("feat", "thr", "leaf", "base", "best_iteration", "gain_importance",
+             "split_importance")}
+
+
+def dp_forest_diff(a: dict, b: dict) -> list[str]:
+    """The fields in which two forests differ, bit for bit."""
+    return [k for k in a if np.asarray(a[k]).shape != np.asarray(b[k]).shape
+            or np.asarray(a[k]).tobytes() != np.asarray(b[k]).tobytes()]
+
+
+def dp_fit(torch, dev, fold_args, val, trees: int, mesh=None) -> dict:
+    """One fit of the fold with ``trees`` trees, on one device or over
+    ``mesh``: its forest, seconds and K5 launches (the counter zeroed
+    before, read after)."""
+    from otto_tpu_torch.config import GBDTConfig
+    from otto_tpu_torch.models import gbdt
+    from otto_tpu_torch.ops import hist
+
+    cfg = GBDTConfig(**{**vars(fold_args[4]), "n_trees": trees})
+    hist.node_histograms.launches = 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    forest = gbdt.fit_gbdt(*fold_args[:4], cfg, val=val, mesh=mesh,
+                           device=None if mesh is not None else dev)
+    sync(torch, dev)
+    return {"forest": dp_forest(forest), "s": time.perf_counter() - t0,
+            "launches": hist.node_histograms.launches}
+
+
+def dp_tower_inputs(torch):
+    """13a's tower (seeded) and a lambdarank batch at [4,096 x 184 x 55]."""
+    from otto_tpu_torch.config import RankerConfig
+    from otto_tpu_torch.features import RANKER_FEATURES
+
+    cfg = RankerConfig.from_yaml(TOWER_CONFIG)
+    F = len(RANKER_FEATURES) + 1
+    B, C = MESH_TOWER
+    rng = np.random.default_rng(SEED + 17)
+    x = (rng.normal(size=(B, C, F)) * 3).astype(np.float32)
+    y = (rng.random((B, C)) < 0.1).astype(np.int8)
+    m = rng.random((B, C)) < 0.9
+    return cfg, seeded_tower(torch, F, cfg.hidden_dims, SEED), (x, y, m)
+
+
+def dp_seq_inputs(torch, n_batches: int):
+    """configs/sequence_gru.yaml over the full catalog: its seeded
+    parameters (on the CPU) and ``n_batches`` batches of its shape (left-
+    aligned prefixes padded with the PAD id, uniform negatives)."""
+    from otto_tpu_torch.models import sequence as sq
+
+    cfg = sq.SequenceModelConfig.from_yaml(DP_SEQ_CONFIG).replace(n_aids=N_AIDS)
+    rng = np.random.default_rng(SEED + 18)
+    B, L = cfg.batch_size, cfg.max_len
+    batches = []
+    for _ in range(n_batches):
+        mask = np.arange(L)[None, :] < rng.integers(1, L + 1, B)[:, None]
+        seq = np.where(mask, rng.integers(0, N_AIDS, (B, L)), N_AIDS).astype(np.int32)
+        batches.append((seq, mask, rng.integers(0, N_AIDS, B).astype(np.int32),
+                        rng.integers(0, N_AIDS, (B, cfg.n_negatives)).astype(np.int32)))
+    return cfg, sq._config_params(cfg, torch.Generator().manual_seed(cfg.seed)), batches
+
+
+def dp_steps(torch, dev, mesh, tag: str) -> dict:
+    """The tower, sequence and ZeRO-1 steps of phase 17 on ``mesh`` (a rank
+    of 17a or 17b) against the single-device steps on the same card, which
+    this rank runs itself on the whole batch: ``train_step``, and at dp > 1
+    for the tower the same objective as the dp step (the mean of the
+    blocks' losses).  At one rank (17a) every result must be bit-equal; at
+    two (17b) the tower's loss within 13a's bfloat16 bar, the sequence step
+    within 14a's limits, ZeRO-1 within DP_ZERO_ATOL of the dp step over
+    DP_ZERO_STEPS Adam steps and its Adam state about half the dp step's.
+    Returns the numbers."""
+    from functools import partial
+
+    from otto_tpu_torch.models import ranker
+    from otto_tpu_torch.models import sequence as sq
+    from otto_tpu_torch.parallel import (
+        make_dp_ranker_step,
+        make_dp_sequence_step,
+        make_zero_sequence_step,
+        zero_init,
+    )
+    from otto_tpu_torch.parallel.data_parallel import optimizer_state_numel
+    from otto_tpu_torch.parallel.mesh import axis_size
+    from otto_tpu_torch.utils.runtime import full_f32_matmul
+
+    one = tag == "17a"
+    dp = axis_size(mesh, "data")
+    out = {}
+    cfg, params, batch = dp_tower_inputs(torch)
+    xb = [torch.as_tensor(a, device=dev) for a in batch]
+    lr = ranker.learning_rate(cfg, 0)
+
+    def blocks_step(tower, opt):
+        """The dp step's objective on one device: the mean of the ``data``
+        blocks' losses (JAX's pmean of the shards' losses; LambdaRank
+        normalises by each block's pair count, so at dp > 1 it differs from
+        the whole batch's loss)."""
+        per = xb[0].shape[0] // dp
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.zero_grad(set_to_none=True)
+        with full_f32_matmul():
+            loss = sum(ranker.LOSSES[cfg.loss](tower(xb[0][i * per:(i + 1) * per]),
+                                               xb[1][i * per:(i + 1) * per],
+                                               xb[2][i * per:(i + 1) * per])
+                       for i in range(dp)) / dp
+            loss.backward()
+        opt.step()
+        return loss.detach()
+
+    towers, losses, secs = [], [], []
+    for route in ("single", "dp"):
+        tower = ranker.Tower(params).to(dev)
+        opt = ranker.make_optimizer(tower, cfg)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        if route == "single" and one:
+            loss = ranker.train_step(tower, opt, *xb, lr, loss=cfg.loss)
+        elif route == "single":
+            loss = blocks_step(tower, opt)
+        else:
+            loss = make_dp_ranker_step(mesh, opt, loss_name=cfg.loss)(tower, *xb, lr=lr)
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        towers.append(ranker.tower_params_to_numpy(tower))
+        losses.append(float(loss))
+    same = all(towers[0][k].tobytes() == towers[1][k].tobytes() for k in towers[0])
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    out["tower"] = {"bit_equal": same and losses[0] == losses[1], "loss_rel": rel,
+                    "param_max_diff": max(float(np.abs(towers[0][k] - towers[1][k]).max())
+                                          for k in towers[0]),
+                    "single_s": secs[0], "dp_s": secs[1]}
+    check(out["tower"]["bit_equal"] if one else rel <= STEP_LOSS_RTOL["bfloat16"],
+          f"{tag} dp tower step against train_step: {out['tower']}")
+    del xb, towers
+    torch.cuda.empty_cache()
+
+    scfg, base, batches = dp_seq_inputs(torch, 1 + DP_ZERO_STEPS)
+    kw = dict(loss=scfg.loss, bpr_reg=scfg.bpr_reg)
+    dbatches = [[torch.as_tensor(a, device=dev) for a in b] for b in batches]
+
+    def fresh():
+        return sq._tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True), base)
+
+    runs = []
+    for route in ("single", "dp"):
+        p = fresh()
+        opt = sq.make_optimizer(p, scfg)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        if route == "single":
+            loss = sq.train_step(p, opt, *dbatches[0], **kw)
+        else:
+            loss = make_dp_sequence_step(mesh, opt, **kw)(p, *dbatches[0])
+        sync(torch, dev)
+        runs.append((p, float(loss), time.perf_counter() - t0))
+        del opt
+    (p1, l1, s1), (p2, l2, s2) = runs
+    leaves1, leaves2 = sq.tree_leaves(p1), sq.tree_leaves(p2)
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(leaves1, leaves2))
+    out["sequence"] = {"bit_equal": same, "loss_rel": abs(l2 - l1) / abs(l1), "single_s": s1,
+                       "dp_s": s2, "params": sum(t.numel() for t in leaves1)}
+    if one:
+        check(same, f"17a dp sequence step differs from train_step: {out['sequence']}")
+    else:
+        check(out["sequence"]["loss_rel"] <= SEQ_LOSS_RTOL,
+              f"17b dp sequence step's loss: {out['sequence']}")
+        ref = sq._tree_map(lambda t: t.detach().cpu(), p1)
+        for r, t in zip(sq.tree_leaves(ref), leaves1):
+            r.grad = t.grad.cpu()
+        out["sequence"]["sign_decided"] = seq_step_matches(torch, ref, p2, scfg.learning_rate)
+        del ref
+    del runs, p1, p2, leaves1, leaves2
+    torch.cuda.empty_cache()
+
+    pd, pz = fresh(), fresh()
+    adam = partial(torch.optim.Adam, lr=scfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                   fused=True)  # sequence.make_optimizer's
+    dopt = adam(sq.tree_leaves(pd))
+    state = zero_init(mesh, adam, pz)
+    dstep = make_dp_sequence_step(mesh, dopt, **kw)
+    zstep = make_zero_sequence_step(mesh, **kw)
+    dl, zl, zsecs = [], [], 0.0
+    for b in dbatches[1:]:
+        dl.append(float(dstep(pd, *b)))
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        zl.append(float(zstep(pz, state, *b)))
+        sync(torch, dev)
+        zsecs += time.perf_counter() - t0
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for a, b in zip(sq.tree_leaves(pd), sq.tree_leaves(pz)))
+    ratio = optimizer_state_numel(state.optimizer) / optimizer_state_numel(dopt)
+    out["zero"] = {"max_abs_diff": diff, "bit_equal": diff == 0.0 and dl == zl,
+                   "loss_diff": max(abs(a - b) for a, b in zip(dl, zl)),
+                   "state_over_dp": ratio, "ms_a_step": 1e3 * zsecs / DP_ZERO_STEPS}
+    if one:
+        check(out["zero"]["bit_equal"], f"17a ZeRO-1 differs from the dp step: {out['zero']}")
+    else:
+        check(diff <= DP_ZERO_ATOL and out["zero"]["loss_diff"] <= DP_ZERO_ATOL
+              and DP_STATE_BAND[0] <= ratio <= DP_STATE_BAND[1],
+              f"17b ZeRO-1 against the dp step: {out['zero']}")
+    del pd, pz, dopt, state, dbatches, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_world1(torch, dev, mesh, fold: dict, work: Path, counters) -> dict:
+    """Phase 17a in 16a's NCCL group (mesh (1, 1)): ``fit_gbdt(mesh=)`` of
+    the fold at DP_TREES["17a"] trees bit-equal to ``fit_gbdt`` without a
+    mesh (features, thresholds, leaves, best iteration, importances), K5
+    launched 7 times a tree on both routes, both timed; the single-device
+    fit at DP_TREES["17b"] trees, 17b's reference, written under ``work``
+    with the fold; then :func:`dp_steps`."""
+    zero, read = counters
+    args, val = fold["args"], fold["val"]
+    depth = args[4].max_depth
+    zero()
+    runs = {"single": dp_fit(torch, dev, args, val, DP_TREES["17a"]),
+            "mesh": dp_fit(torch, dev, args, val, DP_TREES["17a"], mesh=mesh)}
+    launches = read("data-parallel fit at world 1 (17a, both routes)", ("node_histograms",))
+    for route, r in runs.items():
+        check(r["launches"] == depth * DP_TREES["17a"], f"17a {route} fit: {r['launches']} K5 "
+              f"launches for {DP_TREES['17a']} trees")
+    diff = dp_forest_diff(runs["mesh"]["forest"], runs["single"]["forest"])
+    check(not diff, f"17a fit_gbdt(mesh=) differs from fit_gbdt in {diff}")
+    ref = dp_fit(torch, dev, args, val, DP_TREES["17b"])["forest"]
+    rows, labels, mask, weight = args[:4]
+    vb, vl, vm = val
+    np.savez(work / "dp_fold.npz", binned=rows.cpu().numpy(), labels=labels, mask=mask,
+             weight=weight, vb=vb.cpu().numpy(), vl=vl, vm=vm)
+    np.savez(work / "dp_ref.npz", **ref)
+    S, C, F = rows.shape
+    print(f"17a fit_gbdt over mesh (1, 1) on the first clicks fold [{S} sessions x {C} = "
+          f"{S * C} rows x {F}], {DP_TREES['17a']} trees: bit-equal to fit_gbdt (best "
+          f"iteration {int(runs['single']['forest']['best_iteration'])}); {depth} K5 "
+          f"launches a tree on both routes; single {runs['single']['s']:.3f} s, mesh "
+          f"{runs['mesh']['s']:.3f} s", flush=True)
+    steps = dp_steps(torch, dev, mesh, "17a")
+    print("17a data-parallel steps at mesh (1, 1), bit-equal to the single-device steps: "
+          + json.dumps(steps), flush=True)
+    return {"fit_single_s": runs["single"]["s"], "fit_mesh_s": runs["mesh"]["s"],
+            "fit_launches": runs["mesh"]["launches"], "launches": launches, **steps}
+
+
+def dp_rank(torch, mesh, work: Path) -> dict:
+    """Phase 17b in one of 16b's ranks (mesh (2, 1), gloo on the shared
+    card): ``fit_gbdt(mesh=)`` of the fold at DP_TREES["17b"] trees
+    bit-equal to 17a's single-device forest, K5 launched 7 times a tree, the
+    bytes each level all-reduces; then :func:`dp_steps`."""
+    from otto_tpu_torch.parallel import mesh as mesh_mod
+    from otto_tpu_torch.parallel import mesh_device
+
+    dev = mesh_device(mesh)
+    z = dict(np.load(work / "dp_fold.npz"))
+    ref = dict(np.load(work / "dp_ref.npz"))
+    cfg = refit_config()
+    args = (z["binned"], z["labels"], z["mask"], z["weight"], cfg)
+    sizes = []
+
+    def count(real):
+        def reduce(m, x, axis):
+            sizes.append(x.numel() * x.element_size())
+            return real(m, x, axis)
+        return reduce
+
+    with wrapped(mesh_mod, "all_reduce_sum", count):
+        fit = dp_fit(torch, dev, args, (torch.as_tensor(z["vb"], device=dev), z["vl"], z["vm"]),
+                     DP_TREES["17b"], mesh=mesh)
+    del z
+    diff = dp_forest_diff(fit["forest"], ref)
+    check(not diff, f"17b fit_gbdt(mesh=) differs from 17a's single-device forest in {diff}")
+    check(fit["launches"] == cfg.max_depth * DP_TREES["17b"],
+          f"17b: {fit['launches']} K5 launches for {DP_TREES['17b']} trees")
+    check(len(sizes) == fit["launches"], f"17b: {len(sizes)} all-reduces for "
+          f"{fit['launches']} levels")
+    out = {"fit_s": fit["s"], "fit_launches": fit["launches"],
+           "level_bytes": sizes[:cfg.max_depth], "tree_bytes": sum(sizes) / DP_TREES["17b"],
+           "device": str(dev)}
+    torch.cuda.empty_cache()
+    out.update(dp_steps(torch, dev, mesh, "17b"))
+    return out
 
 
 def main() -> int:
@@ -4591,7 +4931,7 @@ def main() -> int:
         records.append(bin_rows_vs_twin(torch, dev, refit_run.pop("typed")))
     with phase("11b one tree and short fits, card against the CPU twin"):
         fits_card_vs_cpu(torch, dev, refit_run["fold"])
-    del refit_run["fold"]
+    dp_fold = refit_run.pop("fold")  # phase 17's fold
     workdir = REPO / "tmp" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -4732,12 +5072,16 @@ def main() -> int:
 
     for cut in MESH_CUTS:
         print(f"phase 16 cut: {cut}", flush=True)
+    for cut in DP_CUTS:
+        print(f"phase 17 cut: {cut}", flush=True)
     torch.cuda.empty_cache()
-    with phase("16 sharded serving and tables: 16a one NCCL rank, 16b two gloo ranks"):
+    with phase("16-17 sharded serving and tables, data-parallel training: 16a and 17a one "
+               "NCCL rank, 16b and 17b two gloo ranks"):
         mesh16 = sharded_paths(torch, dev, bench_train, bench_mats, bench_aids, phase16,
-                               zero_counters, read_counters)
-    del phase16, bench_mats, bench_train
+                               dp_fold, zero_counters, read_counters)
+    del phase16, bench_mats, bench_train, dp_fold
     a16, b16 = mesh16["a"], mesh16["b"][0]
+    dp_a = mesh16["dp_a"]
     print("phase 16 metrics: " + json.dumps({
         "16a": {k: a16[k] for k in ("secs", "total_s", "launches", "recall", "mf_ms", "sgns_ms",
                                     "mf_err", "sgns_err", "tower_bit_equal", "tower_max_rel",
@@ -4748,6 +5092,9 @@ def main() -> int:
                                                "own_block_kept", *MESH_TABLE_BYTES)}
                 for tag in ("1x2", "2x1")},
         "nccl_refusal": mesh16["nccl_refusal"]}), flush=True)
+    print("phase 17 metrics: " + json.dumps({
+        "17a": {k: v for k, v in dp_a.items() if k != "launches"},
+        "17b": {f"rank{r['rank']}": r["dp"] for r in mesh16["b"]}}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
@@ -4756,9 +5103,10 @@ def main() -> int:
     # on the bench refit), plus its launches on the SGNS paths of phase 12
     # (a trained table's neighbor table and serving, the CLI's embedding_knn
     # and doc2vec runs, run_two_stage training SGNS and resuming it);
-    # and the sharded top-k at world 1 (phase 16a); launches_by_path adds the
-    # file CLI's aid_weight and two_stage runs, its training and resumed
-    # two_stage runs, and each 16b rank's sharded top-k at mesh (1, 2)
+    # the sharded top-k at world 1 (phase 16a) and the data-parallel fit at
+    # world 1 (phase 17a); launches_by_path adds the file CLI's aid_weight
+    # and two_stage runs, its training and resumed two_stage runs, each 16b
+    # rank's sharded top-k at mesh (1, 2) and each 17b rank's fit at (2, 1)
     sgns_paths = {"sgns_trained_table": planted["launches"],
                   "cli_embedding_knn_validation": cli_s1["embedding_knn validation"]["launches"],
                   "cli_doc2vec_validation": cli_s1["doc2vec validation"]["launches"],
@@ -4774,18 +5122,21 @@ def main() -> int:
              "cli_two_stage_train": cli_train_run["launches"],
              "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths,
              **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()},
-             **seq_paths, "sharded_topk_world1": a16["launches"]}
+             **seq_paths, "sharded_topk_world1": a16["launches"],
+             "dp_fit_world1": dp_a["launches"]}
     home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]] + sum(
             c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values(),
-                                     a16["launches"]))
+                                     a16["launches"], dp_a["launches"]))
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
         if rec["name"] in ("fused_stage1", "peel_rows"):  # each rank of 16b, mesh (1, 2)
             rec["launches_by_path"]["sharded_topk_world2_per_rank"] = \
                 b16["1x2"]["launches"][rec["name"]]
+        if rec["name"] == "node_histograms":  # each rank of 17b's fit, mesh (2, 1)
+            rec["launches_by_path"]["dp_fit_world2_per_rank"] = b16["dp"]["fit_launches"]
     # K1 and K3 at the sequence path's shapes (phase 14c): the compensated
     # dim-64 table's contraction of 198, and the recency route's block kernel
     for rec in records:

@@ -1,9 +1,11 @@
 // Histogram kernel for Hopper (sm_90a): node x feature x bin sums of
-// (grad, hess, weight), the heart of the GBDT fit.  Plain C entry point,
-// loaded with ctypes by otto_tpu_torch/ops/_kernels.py.  It selects the
-// tensors' device, launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() so that a refused launch
-// is reported to the wrapper.
+// (grad, hess, weight), the heart of the GBDT fit.  Plain C entry points
+// (the int64 sums, then their finish, so that a data-parallel fit can add
+// its ranks' sums in between), loaded with ctypes by
+// otto_tpu_torch/ops/_kernels.py.  Each selects the tensors' device,
+// launches on the caller's stream, does not synchronise, allocates nothing,
+// and returns cudaGetLastError() so that a refused launch is reported to the
+// wrapper.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,18 +27,22 @@ namespace {
 // it: no sort, no gather of the rows.  A bin of n_bins or more adds nothing.
 //
 // Deterministic: the sums are integer.  Each column c gets a power-of-two
-// scale 2^s_c, the largest with n_rows * max_r |v_rc| * 2^s_c <= 2^61 over all
-// n_rows rows of vals (those of every key and of none), so that every value
-// rounds to an int64 q = rn(v * 2^s_c) and the sum of n_rows of them stays
-// below 2^62 in magnitude.  Integer additions commute, so the order of the
+// scale 2^s_c, the largest with scale_rows * vmax_c * 2^s_c <= 2^61, where
+// vmax_c is max_r |v_rc| over all rows of vals (those of every key and of
+// none) and scale_rows their count, so that every value rounds to an int64 q =
+// rn(v * 2^s_c) and the sum of scale_rows of them stays below 2^62 in
+// magnitude.  A data-parallel fit passes the whole fit's row count and vmax
+// (a max over the ranks), so every rank quantises as one device would, and
+// sums its int64 accumulators with the other ranks' (exact, in any order)
+// before the finish: the same bits as one launch over all the rows.  Integer additions commute, so the order of the
 // atomics does not matter, and the launch gives the same bits every time (as
 // XGBoost's GPU `hist` does with its quantised gradients).  The result is
 // float32(sum q) * 2^-s_c: the sum of the quantised values, rounded once.  A
 // value loses at most 2^-(s_c + 1) to the quantisation, a cell at most
 // N 2^-(s_c + 1) <= N max|v| 2^-61; where every value is a multiple of 2^-s_c
 // (dyadic values) the result is the exact sum, rounded once to float32.  The
-// GBDT passes the same vals, n_rows and max |v| at every level of a tree, so
-// the scale is the tree's.
+// GBDT passes the same vals, scale_rows and max |v| at every level of a tree,
+// so the scale is the tree's.
 //
 // What bounds it: bytes on paper (a listed row's 4-byte id, 12 bytes of vals
 // and F bytes of bins, against 3 adds a feature), but in practice the 64-bit
@@ -89,10 +95,10 @@ constexpr int HIST_BATCH = 16;   // rows a warp stages at a time: two lanes a ro
 constexpr int HIST_MAX_KEYS = 2048;
 constexpr int HIST_MAX_BINS = 256;
 
-// the largest s with n_rows * vmax * 2^s <= 2^61 (0 when vmax is 0 or not
-// finite)
-__device__ __forceinline__ int hist_scale_exp(long long n_rows, float vmax) {
-  const double b = (double)n_rows * (double)vmax;
+// the largest s with scale_rows * vmax * 2^s <= 2^61 (0 when vmax is 0 or
+// not finite)
+__device__ __forceinline__ int hist_scale_exp(long long scale_rows, float vmax) {
+  const double b = (double)scale_rows * (double)vmax;
   if (!(b > 0.0) || isinf(b)) return 0;
   int e;
   frexp(b, &e);  // b < 2^e
@@ -117,16 +123,16 @@ __device__ __forceinline__ void add64(uint32_t* cell, unsigned long long v) {
 }
 
 // rows uint8 [n_rows, row_bytes] (row_bytes a multiple of 32, 16-byte aligned);
-// vals f32 [n_rows, 3]; vmax f32 [3], max |vals| of each column over all
-// n_rows; order int32, the row list; start int64 [n_keys], each key's first
+// vals f32 [n_rows, 3]; vmax f32 [3] and scale_rows, which set the scale (see
+// above); order int32, the row list; start int64 [n_keys], each key's first
 // position in it; pre int64 [n_keys + 1], the prefix sums of the keys' row
 // counts (pre[0] = 0); acc int64 [n_keys, n_feat, n_bins, 3], zeroed.
 __global__ void __launch_bounds__(HIST_THREADS, 1)
     hist_rows_kernel(const uint8_t* __restrict__ rows, const float* __restrict__ vals,
                      const float* __restrict__ vmax, const int* __restrict__ order,
                      const long long* __restrict__ start, const long long* __restrict__ pre,
-                     unsigned long long* __restrict__ acc, long long n_rows, int row_bytes,
-                     int n_feat, int n_keys, int n_bins) {
+                     unsigned long long* __restrict__ acc, long long scale_rows,
+                     int row_bytes, int n_feat, int n_keys, int n_bins) {
   extern __shared__ __align__(16) unsigned long long smem[];
   const int fw = hist_feat_words(n_bins);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -135,9 +141,9 @@ __global__ void __launch_bounds__(HIST_THREADS, 1)
                     warp * HIST_BATCH * HIST_FG;                                // [16][32]
   uint32_t* hist_s = reinterpret_cast<uint32_t*>(smem + HIST_WARPS * HIST_BATCH * 3) +
                      HIST_WARPS * HIST_BATCH * HIST_FG / 4;                     // [32][fw]
-  const int s0 = hist_scale_exp(n_rows, vmax[0]);
-  const int s1 = hist_scale_exp(n_rows, vmax[1]);
-  const int s2 = hist_scale_exp(n_rows, vmax[2]);
+  const int s0 = hist_scale_exp(scale_rows, vmax[0]);
+  const int s1 = hist_scale_exp(scale_rows, vmax[1]);
+  const int s2 = hist_scale_exp(scale_rows, vmax[2]);
   const int n_groups = row_bytes / HIST_FG;
   const long long total = pre[n_keys];  // listed rows of all keys
   if (total == 0) return;
@@ -240,10 +246,10 @@ __global__ void __launch_bounds__(HIST_THREADS, 1)
 // out f32 = float32(acc) * 2^-s_c, cell by cell
 __global__ void hist_finish_kernel(const long long* __restrict__ acc,
                                    const float* __restrict__ vmax, float* __restrict__ out,
-                                   long long n_cells, long long n_rows) {
-  const int s0 = hist_scale_exp(n_rows, vmax[0]);
-  const int s1 = hist_scale_exp(n_rows, vmax[1]);
-  const int s2 = hist_scale_exp(n_rows, vmax[2]);
+                                   long long n_cells, long long scale_rows) {
+  const int s0 = hist_scale_exp(scale_rows, vmax[0]);
+  const int s1 = hist_scale_exp(scale_rows, vmax[1]);
+  const int s2 = hist_scale_exp(scale_rows, vmax[2]);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_cells;
        i += (long long)gridDim.x * blockDim.x) {
     const int c = (int)(i % 3);
@@ -251,23 +257,25 @@ __global__ void hist_finish_kernel(const long long* __restrict__ acc,
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+int sms_of[MAX_DEVICES] = {};
+
 }  // namespace
 
 extern "C" {
 
-// rows uint8 [n_rows, row_bytes] (row_bytes a multiple of 32 and >= n_feat,
-// 16-byte aligned, the features first and zeros after); vals f32 [n_rows, 3];
-// vmax f32 [3]; order int32 (the row list); start int64 [n_keys]; pre int64
-// [n_keys + 1]; acc int64 [n_keys, n_feat, n_bins, 3] scratch (zeroed here);
-// out f32 of that shape.  All device memory.
-int build_histogram_rows(const void* rows, const void* vals, const void* vmax,
-                         const void* order, const void* start, const void* pre, void* acc,
-                         void* out, long long n_rows, int row_bytes, int n_feat, int n_keys,
-                         int n_bins, int device, void* stream) {
-  constexpr int MAX_DEVICES = 64;
-  static int sms_of[MAX_DEVICES] = {};
-  if (device < 0 || device >= MAX_DEVICES || n_rows < 1 || n_feat < 1 || n_keys < 1 ||
-      n_keys > HIST_MAX_KEYS || n_bins < 1 || n_bins > HIST_MAX_BINS ||
+// The int64 sums alone: rows uint8 [n_rows, row_bytes] (row_bytes a multiple
+// of 32 and >= n_feat, 16-byte aligned, the features first and zeros after);
+// vals f32 [n_rows, 3]; vmax f32 [3]; order int32 (the row list); start int64
+// [n_keys]; pre int64 [n_keys + 1]; acc int64 [n_keys, n_feat, n_bins, 3]
+// (zeroed here); scale_rows >= 1 with vmax sets the fixed-point scale
+// (n_rows for one launch over all the rows).  All device memory.
+int hist_accumulate(const void* rows, const void* vals, const void* vmax, const void* order,
+                    const void* start, const void* pre, void* acc, long long n_rows,
+                    int row_bytes, int n_feat, int n_keys, int n_bins, long long scale_rows,
+                    int device, void* stream) {
+  if (device < 0 || device >= MAX_DEVICES || n_rows < 0 || scale_rows < 1 || n_feat < 1 ||
+      n_keys < 1 || n_keys > HIST_MAX_KEYS || n_bins < 1 || n_bins > HIST_MAX_BINS ||
       row_bytes % HIST_FG || row_bytes < n_feat || row_bytes - n_feat >= HIST_FG ||
       reinterpret_cast<uintptr_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
@@ -289,13 +297,24 @@ int build_histogram_rows(const void* rows, const void* vals, const void* vmax,
       static_cast<const uint8_t*>(rows), static_cast<const float*>(vals),
       static_cast<const float*>(vmax), static_cast<const int*>(order),
       static_cast<const long long*>(start), static_cast<const long long*>(pre),
-      static_cast<unsigned long long*>(acc), n_rows, row_bytes, n_feat, n_keys, n_bins);
-  e = cudaGetLastError();
+      static_cast<unsigned long long*>(acc), scale_rows, row_bytes, n_feat, n_keys, n_bins);
+  return (int)cudaGetLastError();
+}
+
+// The finish: acc int64 [n_cells] (n_cells a multiple of 3) -> out f32 of
+// that shape, with the scale of vmax and scale_rows that the sums took.
+int hist_finish(const void* acc, const void* vmax, void* out, long long n_cells,
+                long long scale_rows, int device, void* stream) {
+  if (device < 0 || device >= MAX_DEVICES || n_cells < 0 || n_cells % 3 || scale_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (n_cells == 0) return (int)cudaSuccess;
   const long long fin_blocks = (n_cells + 255) / 256;
-  hist_finish_kernel<<<(unsigned)(fin_blocks < 4096 ? fin_blocks : 4096), 256, 0, s>>>(
-      static_cast<const long long*>(acc), static_cast<const float*>(vmax),
-      static_cast<float*>(out), n_cells, n_rows);
+  hist_finish_kernel<<<(unsigned)(fin_blocks < 4096 ? fin_blocks : 4096), 256, 0,
+                       (cudaStream_t)stream>>>(static_cast<const long long*>(acc),
+                                               static_cast<const float*>(vmax),
+                                               static_cast<float*>(out), n_cells, scale_rows);
   return (int)cudaGetLastError();
 }
 

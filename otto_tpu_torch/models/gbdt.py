@@ -12,7 +12,9 @@ Port of ``otto_tpu/models/gbdt.py``:
   split search, routing and leaves in plain torch;
 - the objectives :func:`_lambdarank_gh` (:354) and :func:`_bce_gh` (:412);
 - :func:`fit_gbdt` (:452-703) and :func:`train_gbdt_ranker` (:824-880), the
-  reference's fold protocol with MAP@20 early stopping;
+  reference's fold protocol with MAP@20 early stopping, on one device or
+  data-parallel over a mesh (``mesh=``: K5's fixed-point sums all-reduced
+  once a level, the same forest bit for bit);
 - :class:`GBDTForest` with ``predict_binned`` (:422-449);
 - :class:`GBDTRankerModel`: ``predict``, ``predict_binned_folds``,
   ``feature_importance``, ``save`` and ``load`` (:708-821), and
@@ -199,7 +201,8 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                weight: torch.Tensor, bag: torch.Tensor, feat_mask: torch.Tensor,
                reg_lambda, min_split_gain, min_data_in_leaf, min_child_weight, learning_rate,
                *, depth: int, n_bins: int, hist_impl: str = "matmul",
-               rows: torch.Tensor | None = None):
+               rows: torch.Tensor | None = None, mesh=None, data_axis: str = "data",
+               n_rows: int | None = None):
     """Grow one depth-``depth`` tree level-wise on the rows' device
     (``_grow_tree_impl``, :163-311).
 
@@ -228,6 +231,18 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     last level's histogram at the chosen split (left: the cumulative sums at
     the threshold; right: the node's total less those), which equal the
     reference's scatter of the rows' gradients where the sums are exact.
+
+    With ``mesh`` (``_grow_tree_impl(axis_name=)``: :219-228, :264-265) the
+    row inputs are this rank's block of the ``data`` axis and the tree grows
+    data-parallel: K5's scale is set by ``n_rows``, the whole fit's unpadded
+    row count, and by each column's largest |val| over the ranks (a MAX over
+    ``data``, once a tree), and each level's int64 accumulators are summed
+    over ``data`` before the finish (an exact, order-free sum: the level's
+    histogram has the bits of one device's over all rows, and so have the
+    split search, which runs on every rank, and the leaves, which come from
+    the last level's histogram: the reference's ``psum`` of the leaf sums,
+    :301-303, has nothing to port).  Each rank routes its own rows and keeps
+    its own row list; the leaf ids returned are its block's.
     """
     if hist_impl not in HIST_IMPLS:
         raise ValueError(f"_grow_tree: hist_impl {hist_impl!r} is not one of {HIST_IMPLS}")
@@ -243,6 +258,13 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     w = weight * bag
     vals = torch.stack([g, h, w], dim=1).contiguous()
     vmax = vals.abs().amax(dim=0) if N else torch.zeros(3, device=dev)
+    hist_kw = {}
+    if mesh is not None:
+        from otto_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_sum
+
+        vmax = all_reduce_max(mesh, vmax, data_axis)
+        hist_kw = dict(scale_rows=N if n_rows is None else n_rows,
+                       reduce=lambda acc: all_reduce_sum(mesh, acc, data_axis))
     order, seg = _row_list(vals)
     node = torch.zeros(N, dtype=torch.int64, device=dev)
     fmask = feat_mask.to(device=dev, dtype=torch.bool)[None, :, None]
@@ -251,11 +273,12 @@ def _grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     for level in range(depth):
         n_nodes = 1 << level
         if level == 0:
-            hist = node_histograms(rows, F, vals, vmax, order, seg[:1], seg - seg[0], n_bins)
+            hist = node_histograms(rows, F, vals, vmax, order, seg[:1], seg - seg[0], n_bins,
+                                   **hist_kw)
         else:  # the left children, node 2p of the level keyed by its parent p
             start = seg[0:-1:2]
             pre = torch.cat([seg.new_zeros(1), torch.cumsum(seg[1::2] - start, dim=0)])
-            left = node_histograms(rows, F, vals, vmax, order, start, pre, n_bins)
+            left = node_histograms(rows, F, vals, vmax, order, start, pre, n_bins, **hist_kw)
             hist = torch.stack([left, parent_hist - left], dim=1).reshape(n_nodes, F, n_bins, 3)
         parent_hist = hist
         cg = torch.cumsum(hist[..., 0], dim=-1)
@@ -385,7 +408,8 @@ def fit_gbdt(
     val: tuple | None = None,
     seed_offset: int = 0,
     mesh=None,
-    device: str | torch.device,
+    data_axis: str = "data",
+    device: str | torch.device | None,
 ) -> GBDTForest:
     """Boost one forest over listwise candidate groups on ``device``
     (:452-703).
@@ -407,28 +431,59 @@ def fit_gbdt(
     reference draws it, so the feature masks equal its own; bagging from a
     ``torch.Generator`` on the CPU with that seed (the reference draws
     through ``jax.random``, which the port cannot match), uploaded, so the
-    card and the CPU draw the same bags.  ``mesh`` (data-parallel growth)
-    is not ported and raises.
+    card and the CPU draw the same bags.
+
+    With ``mesh`` (:461-500; every rank calls with the same arguments and
+    ``device`` its own or None) the fit is data-parallel over the mesh's
+    ``data`` axis: the sessions pad to a multiple of its size with sessions
+    of weight 0, each rank keeps its block of them on its device and computes
+    their gradients, each bag is drawn over all the fit's rows as above and
+    sliced, and every tree grows through :func:`_grow_tree` with K5's sums
+    all-reduced once a level at the whole fit's fixed-point scale.  Every rank
+    scores the whole validation set and measures the metric every
+    ``eval_every`` trees (the reference's mesh path has no segments); the
+    ranks' metrics are checked equal.  Every rank returns the forest that one
+    device grows, bit for bit on the card.
     """
     if mesh is not None:
-        raise NotImplementedError("fit_gbdt: data-parallel growth over a mesh is not ported "
-                                  "yet (ROADMAP M15b, data-parallel training)")
-    dev = resolve_device(device)
+        from otto_tpu_torch.parallel.mesh import axis_size, data_slice, rank_device
+
+        dev = rank_device(mesh, device)
+    else:
+        if device is None:
+            raise ValueError("fit_gbdt: device is None without a mesh")
+        dev = resolve_device(device)
     S, C, F = binned.shape
-    N = S * C
-    flat = _on(binned, dev).reshape(N, F)
+    N = S * C  # the fit's rows: with a mesh, K5's scale is theirs
+    lo, hi, per = 0, S, S  # this rank's sessions [lo, hi), padded to per
+    if mesh is not None:
+        block, padded = data_slice(mesh, S, data_axis)
+        lo, hi = min(block.start, S), min(block.stop, S)
+        per = padded // axis_size(mesh, data_axis)
+    labels_all, weight_all = labels, train_weight
+    flat = _on(binned[lo:hi], dev)
+    labels = np.asarray(labels)[lo:hi]
+    train_weight = np.asarray(train_weight, np.float32)[lo:hi]
+    if hi - lo < per:  # sessions of weight 0
+        pad = per - (hi - lo)
+        flat = torch.cat([flat, flat.new_zeros((pad, C, F))])
+        labels = np.concatenate([labels, np.zeros((pad, C), labels.dtype)])
+        train_weight = np.concatenate([train_weight, np.zeros((pad, C), np.float32)])
+    S = per
+    n_local = S * C
+    flat = flat.reshape(n_local, F)
     rows = pad_rows(flat)
     lab_d = torch.as_tensor(labels, device=dev)
-    w_d = torch.as_tensor(np.asarray(train_weight, np.float32), device=dev)
-    w_flat = w_d.reshape(N)
+    w_d = torch.as_tensor(train_weight, device=dev)
+    w_flat = w_d.reshape(n_local)
     keep_mask = w_d > 0  # pairs/pointwise terms use only kept rows
     depth, n_bins = config.max_depth, config.n_bins
     rng = np.random.default_rng(config.seed + seed_offset)
     bag_gen = torch.Generator(device="cpu").manual_seed(config.seed + seed_offset)
 
     if config.loss == "bce":
-        pos = float((labels * train_weight).sum())
-        tot = float(train_weight.sum())
+        pos = float((labels_all * weight_all).sum())
+        tot = float(np.sum(weight_all))
         p0 = min(max(pos / max(tot, 1.0), 1e-6), 1 - 1e-6)
         base = float(np.log(p0 / (1 - p0)))  # boost_from_average
     else:
@@ -448,23 +503,31 @@ def fit_gbdt(
     best_metric, best_iter, since_best = -np.inf, 0, 0
     chunk = min(config.chunk_sessions, max(S, 1))
     # the early-stopping metric's cadence: every eval_every trees (and the
-    # last), or at the end of each segment of trees_per_call trees
-    per = config.trees_per_call if config.trees_per_call > 1 else config.eval_every
+    # last), or at the end of each segment of trees_per_call trees (not on a
+    # mesh, as in the reference)
+    per = (config.trees_per_call if config.trees_per_call > 1 and mesh is None
+           else config.eval_every)
     scalars = (config.reg_lambda, config.min_split_gain, config.min_data_in_leaf,
                config.min_child_weight, config.learning_rate)
+    grow_kw = dict(depth=depth, n_bins=n_bins, hist_impl=config.hist_impl, rows=rows)
+    if mesh is not None:
+        grow_kw.update(mesh=mesh, data_axis=data_axis, n_rows=N)
     for t in range(config.n_trees):
         if config.loss == "lambdarank":
             g, h = _lambdarank_gh(pred, lab_d, keep_mask, k=config.lambdarank_k, chunk=chunk,
                                   norm=config.lambdarank_norm)
         else:
             g, h = _bce_gh(pred, lab_d, keep_mask)
-        g = g.reshape(N) * w_flat
-        h = h.reshape(N) * w_flat
+        g = g.reshape(n_local) * w_flat
+        h = h.reshape(n_local) * w_flat
         if config.subsample < 1.0:
-            bag = (torch.rand(N, generator=bag_gen) < config.subsample).to(
+            # drawn over all the fit's rows, so every rank's bag is a slice of one
+            bag = (torch.rand(N, generator=bag_gen) < config.subsample)[lo * C:hi * C].to(
                 device=dev, dtype=torch.float32)
+            if bag.shape[0] < n_local:  # the padding sessions
+                bag = torch.cat([bag, bag.new_zeros(n_local - bag.shape[0])])
         else:
-            bag = torch.ones(N, dtype=torch.float32, device=dev)
+            bag = torch.ones(n_local, dtype=torch.float32, device=dev)
         if config.colsample < 1.0:
             n_take = max(int(round(config.colsample * F)), 1)
             cols = rng.choice(F, size=n_take, replace=False)
@@ -474,8 +537,7 @@ def fit_gbdt(
             fm = np.ones(F, bool)
 
         feat, thr, leaf, gains, leaf_idx = _grow_tree(
-            flat, g, h, w_flat, bag, torch.as_tensor(fm, device=dev), *scalars,
-            depth=depth, n_bins=n_bins, hist_impl=config.hist_impl, rows=rows)
+            flat, g, h, w_flat, bag, torch.as_tensor(fm, device=dev), *scalars, **grow_kw)
         pred = pred + leaf[leaf_idx].reshape(S, C)
         feat_h, gains_h = feat.cpu().numpy(), gains.cpu().numpy()
         is_split = gains_h > 0
@@ -491,6 +553,8 @@ def fit_gbdt(
             if (t + 1) % per == 0 or t == config.n_trees - 1:
                 vs = torch.where(vm_d, val_pred.reshape(Sv, Cv), float("-inf"))
                 metric = float(map_at_k(vs, vl_d, vm_d, k=20))
+                if mesh is not None:
+                    _same_on_ranks(mesh, data_axis, metric, t)
                 if metric > best_metric + 1e-9:
                     best_metric, best_iter, since_best = metric, t + 1, 0
                 else:
@@ -510,6 +574,18 @@ def fit_gbdt(
         split_importance=split_imp,
         best_iteration=n_keep,
     )
+
+
+def _same_on_ranks(mesh, data_axis: str, metric: float, t: int) -> None:
+    """Raise unless every rank of ``data`` measured ``metric`` (their trees,
+    and so their early stopping, must not diverge)."""
+    from otto_tpu_torch.parallel.mesh import all_gather, mesh_device
+
+    got = torch.cat(all_gather(mesh, torch.tensor([metric], dtype=torch.float64,
+                                                  device=mesh_device(mesh)), data_axis))
+    if bool((got != metric).any()):
+        raise RuntimeError(f"fit_gbdt: the ranks' validation metrics differ after tree {t + 1}: "
+                           f"{got.tolist()}")
 
 
 @dataclass
@@ -654,7 +730,8 @@ def train_gbdt_ranker(
     eval_recall=None,
     mesh=None,
     *,
-    device: str | torch.device,
+    data_axis: str = "data",
+    device: str | torch.device | None,
 ) -> tuple[GBDTRankerModel, np.ndarray]:
     """K-fold GBDT training with the reference's protocol on ``device``
     (:824-880); returns the model and the OOF scores [S, C] (-inf where the
@@ -672,14 +749,22 @@ def train_gbdt_ranker(
     :func:`fit_gbdt` a fold, early-stopped on its held-out sessions, which
     it then scores (the OOF scores, through the forest kernel's uint8
     entry).  ``eval_recall(session_indices, scores)`` gives the fold
-    recalls and ``oof_recall``.  ``mesh`` raises (ROADMAP M15b)."""
-    if mesh is not None:
-        raise NotImplementedError("train_gbdt_ranker: data-parallel training over a mesh is "
-                                  "not ported yet (ROADMAP M15b, data-parallel training)")
+    recalls and ``oof_recall``.  With ``mesh`` (every rank calls with the same
+    data and ``device`` its own or None) every rank fits the edges and bins
+    all the rows, each fold's :func:`fit_gbdt` runs data-parallel over the
+    mesh's ``data`` axis, and every rank scores the held-out sessions and
+    returns the same model and OOF scores, those of one device."""
     if data.features.dtype != np.float32:
         raise TypeError(f"train_gbdt_ranker: features must be float32, got "
                         f"{data.features.dtype}")
-    dev = resolve_device(device)
+    if mesh is not None:
+        from otto_tpu_torch.parallel.mesh import rank_device
+
+        dev = rank_device(mesh, device)
+    else:
+        if device is None:
+            raise ValueError("train_gbdt_ranker: device is None without a mesh")
+        dev = resolve_device(device)
     rng = np.random.default_rng(config.seed)
     S, C, F = data.features.shape
     x = torch.as_tensor(np.ascontiguousarray(data.features).reshape(S * C, F), device=dev)
@@ -708,7 +793,7 @@ def train_gbdt_ranker(
             sessions(train_sessions), data.labels[train_sessions], data.mask[train_sessions],
             keep.astype(np.float32), config,
             val=(vb, data.labels[val_sessions], data.mask[val_sessions]),
-            seed_offset=fold, device=dev,
+            seed_offset=fold, mesh=mesh, data_axis=data_axis, device=dev,
         )
         forests.append(fit)
         oof[val_sessions] = fit.predict_binned(vb.reshape(-1, F), device=dev).reshape(

@@ -102,7 +102,8 @@ ENTRY_POINTS = {
     "predict_forest_binned": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
     "predict_forest_rows": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
     "bin_rows": [_p, _p, _p, _ll, _i, _i, _p],
-    "build_histogram_rows": [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _i, _p],
+    "hist_accumulate": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _ll, _i, _p],
+    "hist_finish": [_p, _p, _p, _ll, _ll, _i, _p],
 }
 
 
@@ -204,16 +205,22 @@ def launch_bin_rows(x: torch.Tensor, edges: torch.Tensor, out: torch.Tensor) -> 
 def launch_build_histogram(rows: torch.Tensor, n_feat: int, vals: torch.Tensor,
                            vmax: torch.Tensor, order: torch.Tensor, start: torch.Tensor,
                            pre: torch.Tensor, acc: torch.Tensor, out: torch.Tensor,
-                           n_bins: int) -> None:
+                           n_bins: int, scale_rows: int, reduce=None) -> None:
     """rows uint8 [N, P] (P the features rounded up to 32, zero pads, 16-byte
-    aligned), vals f32 [N, 3], vmax f32 [3] (each column's largest |val| over
-    all N rows), order int32 (the row list), start int64 [n_keys] and pre int64
-    [n_keys + 1] (key k's rows are order[start[k] + j], j < pre[k + 1] -
-    pre[k]); acc int64 [n_keys, n_feat, n_bins, 3] scratch -> out f32 of that
-    shape (``csrc/hist_kernels.cu``)."""
-    err = lib().build_histogram_rows(rows.data_ptr(), vals.data_ptr(), vmax.data_ptr(),
-                                     order.data_ptr(), start.data_ptr(), pre.data_ptr(),
-                                     acc.data_ptr(), out.data_ptr(), rows.shape[0],
-                                     rows.shape[1], n_feat, start.shape[0], n_bins,
-                                     rows.device.index, _stream(rows))
-    _check(err, "build_histogram_rows")
+    aligned), vals f32 [N, 3], vmax f32 [3] and ``scale_rows`` (>= 1), which
+    set the fixed-point scale, order int32 (the row list), start int64
+    [n_keys] and pre int64 [n_keys + 1] (key k's rows are order[start[k] + j],
+    j < pre[k + 1] - pre[k]); acc int64 [n_keys, n_feat, n_bins, 3] -> out f32
+    of that shape (``csrc/hist_kernels.cu``: ``hist_accumulate``, then
+    ``reduce(acc)`` if given, then ``hist_finish``)."""
+    dev, stream = rows.device.index, _stream(rows)
+    err = lib().hist_accumulate(rows.data_ptr(), vals.data_ptr(), vmax.data_ptr(),
+                                order.data_ptr(), start.data_ptr(), pre.data_ptr(),
+                                acc.data_ptr(), rows.shape[0], rows.shape[1], n_feat,
+                                start.shape[0], n_bins, scale_rows, dev, stream)
+    _check(err, "hist_accumulate")
+    if reduce is not None:
+        reduce(acc)
+    err = lib().hist_finish(acc.data_ptr(), vmax.data_ptr(), out.data_ptr(), acc.numel(),
+                            scale_rows, dev, _stream(rows))
+    _check(err, "hist_finish")

@@ -44,11 +44,13 @@ _TWIN_ENTRIES = 1 << 22
 
 
 def _build_histogram_reference(binned: torch.Tensor, key: torch.Tensor, vals: torch.Tensor,
-                               n_keys: int, n_bins: int) -> torch.Tensor:
+                               n_keys: int, n_bins: int, reduce=None) -> torch.Tensor:
     """Plain-torch twin: ``index_add_`` of each (row, feature)'s vals at the
     flat key ``(key F + f) n_bins + b`` in float64, rounded once to float32,
     over the rows whose key is in the grid; a bin past it goes to a spare
-    slot past the end.  Rows go in blocks so the index tensors stay small."""
+    slot past the end.  Rows go in blocks so the index tensors stay small.
+    ``reduce`` (if given) is applied in place to the float64 sums [n_keys
+    * F * n_bins + 1, 3] before the rounding."""
     N, F = binned.shape
     size = n_keys * F * n_bins
     out = torch.zeros((size + 1, 3), dtype=torch.float64, device=binned.device)
@@ -61,6 +63,8 @@ def _build_histogram_reference(binned: torch.Tensor, key: torch.Tensor, vals: to
         b = binned[rows].long()
         flat = torch.where(b < n_bins, (k[:, None] * F + feat) * n_bins + b, size).reshape(-1)
         out.index_add_(0, flat, vals[rows].double()[:, None, :].expand(-1, F, 3).reshape(-1, 3))
+    if reduce is not None:
+        reduce(out)
     return out[:size].to(torch.float32).reshape(n_keys, F, n_bins, 3)
 
 
@@ -74,15 +78,20 @@ def _scale_exp(n_rows: int, vmax: float) -> int:
 
 
 def _fixed_point_histogram(binned: torch.Tensor, key: torch.Tensor, vals: torch.Tensor,
-                           n_keys: int, n_bins: int) -> torch.Tensor:
+                           n_keys: int, n_bins: int, scale_rows: int | None = None,
+                           vmax=None, reduce=None) -> torch.Tensor:
     """The kernel's arithmetic in plain torch (a test helper): each val
-    rounded to an int64 ``rn(v 2^s_c)`` with the kernel's scale over all N rows
-    of ``vals``, summed exactly with ``index_add_``, then ``float32(sum)
-    2^-s_c``.  Bit-equal to the kernel on any vals."""
+    rounded to an int64 ``rn(v 2^s_c)`` with the kernel's scale (over all N
+    rows of ``vals``, or ``scale_rows`` rows of largest magnitudes ``vmax``),
+    summed exactly with ``index_add_`` (``reduce``, if given, applied in place
+    to the int64 sums), then ``float32(sum) 2^-s_c``.  Bit-equal to the kernel
+    on any vals."""
     N, F = binned.shape
     size = n_keys * F * n_bins
-    vmax = vals.abs().amax(dim=0).tolist() if N else [0.0] * 3
-    exps = [_scale_exp(N, v) for v in vmax]
+    if vmax is None:
+        vmax = vals.abs().amax(dim=0) if N else torch.zeros(3)
+    exps = [_scale_exp(N if scale_rows is None else scale_rows, v)
+            for v in torch.as_tensor(vmax).tolist()]
     q = torch.stack([torch.round(vals[:, c].double() * 2.0 ** exps[c]) for c in range(3)],
                     dim=1).to(torch.int64)
     k = key.long()
@@ -91,6 +100,8 @@ def _fixed_point_histogram(binned: torch.Tensor, key: torch.Tensor, vals: torch.
     flat = torch.where(ok[:, None] & (binned.long() < n_bins), flat, size).reshape(-1)
     acc = torch.zeros((size + 1, 3), dtype=torch.int64, device=binned.device)
     acc.index_add_(0, flat, q[:, None, :].expand(-1, F, 3).reshape(-1, 3))
+    if reduce is not None:
+        reduce(acc)
     scale = torch.tensor([2.0 ** -e for e in exps], dtype=torch.float64, device=binned.device)
     out = (acc[:size].to(torch.float32).double() * scale).to(torch.float32)
     return out.reshape(n_keys, F, n_bins, 3)
@@ -123,16 +134,27 @@ def list_keys(order: torch.Tensor, start: torch.Tensor, pre: torch.Tensor,
 
 def node_histograms(rows: torch.Tensor, n_feat: int, vals: torch.Tensor, vmax: torch.Tensor,
                     order: torch.Tensor, start: torch.Tensor, pre: torch.Tensor,
-                    n_bins: int) -> torch.Tensor:
+                    n_bins: int, *, scale_rows: int | None = None,
+                    reduce=None) -> torch.Tensor:
     """Histogram float32 [n_keys, n_feat, n_bins, 3] of the listed rows,
     key by key, all tensors on one device.
 
     rows uint8 [N, P] (:func:`pad_rows`: the first ``n_feat`` columns are the
     bins); vals float32 [N, 3] (finite); vmax float32 [3], each column's
-    largest |val| over all N rows (it sets the kernel's scale, so that every
-    level of a tree shares it); order int32, the row list; start int64
-    [n_keys] and pre int64 [n_keys + 1]: key k's rows are ``order[start[k] +
-    j]`` for ``j < pre[k + 1] - pre[k]``, and ``pre[0]`` is 0.
+    largest |val| over all N rows, and ``scale_rows`` (default N): together
+    they set the kernel's scale, so that every level of a tree shares it;
+    order int32, the row list; start int64 [n_keys] and pre int64 [n_keys +
+    1]: key k's rows are ``order[start[k] + j]`` for ``j < pre[k + 1] -
+    pre[k]``, and ``pre[0]`` is 0.
+
+    ``reduce`` is called once, in place, on the unrounded sums between the
+    sums and the rounding to float32: the kernel's int64 fixed-point
+    accumulators on the card, the twin's float64 sums on the CPU.  A
+    data-parallel level passes an all-reduce over its ranks there, with the
+    whole fit's ``scale_rows`` and ``vmax``: each rank then quantises as one
+    device would, the integer sum is exact in any order, and the result has
+    the bits of one launch over every rank's rows (the twin's float64 sums
+    agree with its one-process sums to float64 rounding).
 
     On CUDA tensors this launches the histogram kernel (n_keys <= 2,048,
     n_bins <= 256; anything else raises); on CPU tensors it gives each row its
@@ -159,20 +181,23 @@ def node_histograms(rows: torch.Tensor, n_feat: int, vals: torch.Tensor, vmax: t
     if not (1 <= n_keys <= MAX_KEYS and 1 <= n_bins <= MAX_BINS):
         raise ValueError(f"node_histograms: n_keys {n_keys} (<= {MAX_KEYS}), n_bins {n_bins} "
                          f"(<= {MAX_BINS})")
+    scale_rows = N if scale_rows is None else int(scale_rows)
+    if scale_rows < N:
+        raise ValueError(f"node_histograms: scale_rows {scale_rows} is below the {N} rows")
     if rows.device.type == "cpu":
         key = list_keys(order, start, pre, N)
-        return _build_histogram_reference(rows[:, :n_feat], key, vals, n_keys, n_bins)
+        return _build_histogram_reference(rows[:, :n_feat], key, vals, n_keys, n_bins, reduce)
     if rows.device.type != "cuda":
         raise ValueError(f"node_histograms: no kernel for device {rows.device}")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError("node_histograms: the kernel takes contiguous, 16-byte aligned rows")
     out = torch.empty((n_keys, n_feat, n_bins, 3), dtype=torch.float32, device=rows.device)
-    if N == 0:
+    if N == 0 and reduce is None:
         return out.zero_()
     acc = torch.empty((n_keys, n_feat, n_bins, 3), dtype=torch.int64, device=rows.device)
     _kernels.launch_build_histogram(rows, n_feat, vals.contiguous(), vmax.contiguous(),
                                     order.contiguous(), start.contiguous(), pre.contiguous(),
-                                    acc, out, n_bins)
+                                    acc, out, n_bins, max(scale_rows, 1), reduce)
     node_histograms.launches += 1
     return out
 

@@ -1,11 +1,22 @@
 """Parallelism over ``torch.distributed``: one process a device, a named
-``data x model`` mesh, and the sharded tables and serving paths.
+``data x model`` mesh, the sharded tables and serving paths, and
+data-parallel training.
 
 Port of ``otto_tpu/parallel`` in part: the mesh helpers, the row-sharded
-embedding functions and sharded serving.  Data-parallel training, and model
-and expert parallelism, are not ported yet (ROADMAP M15b, M15c).
+embedding functions, sharded serving, and data-parallel training (the GBDT,
+the tower and the sequence models, ZeRO-1).  Model and expert parallelism are
+not ported yet (ROADMAP M15c).
 """
 
+from otto_tpu_torch.parallel.data_parallel import (
+    ZeroState,
+    make_dp_gbdt_grow,
+    make_dp_ranker_step,
+    make_dp_sequence_step,
+    make_zero_sequence_step,
+    make_zero_step,
+    zero_init,
+)
 from otto_tpu_torch.parallel.mesh import (
     batch_sharded,
     host_shard_sessions,
@@ -38,4 +49,6 @@ __all__ = [
     "sharded_lookup", "ShardedRetriever", "sharded_topk", "make_sharded_sgns_step",
     "make_sharded_mf_step", "CANDGEN_TABLE_KINDS", "pad_table_rows", "ServingLayout",
     "make_sharded_regular_chunk", "make_sharded_heuristic_routes",
+    "make_dp_ranker_step", "make_dp_gbdt_grow", "make_dp_sequence_step", "zero_init",
+    "make_zero_step", "make_zero_sequence_step", "ZeroState",
 ]

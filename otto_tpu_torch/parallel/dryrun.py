@@ -1,17 +1,20 @@
-"""Run the sharded tables and sharded serving once, at tiny shapes, over
-every rank of a process group: the port's part of the JAX package's
-``dryrun_multichip`` (``__graft_entry__.py``: the sharded SGNS and MF
-steps, the distributed top-k and lookup, the sharded candidate chunk and
-heuristic routes).
+"""Run the sharded tables, sharded serving and data-parallel training
+once, at tiny shapes, over every rank of a process group: the port's part of
+the JAX package's ``dryrun_multichip`` (``__graft_entry__.py``: the sharded
+SGNS and MF steps, the distributed top-k and lookup, the sharded candidate
+chunk and heuristic routes, the data-parallel ranker, GBDT growth, sequence
+and ZeRO-1 steps).
 
-    torchrun --nproc-per-node N -m otto_tpu_torch.parallel.dryrun [--backend gloo]
+    torchrun --nproc-per-node N -m otto_tpu_torch.parallel.dryrun \
+        [--backend gloo] [--device cpu]
 
 or ``python -m otto_tpu_torch.parallel.dryrun`` with the rank's environment
 set (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``).  The mesh is ``(N/2) x 2`` for an even N > 1, else
 ``N x 1``.  NCCL is the default backend and needs a card a rank; ranks that
-share a card, or CPU ranks, pass ``--backend gloo``.  Each rank prints one
-line ``dryrun rank R/N ok`` and exits 0, or raises.
+share a card, or CPU ranks, pass ``--backend gloo``.  The mesh is on the
+cards unless ``--device cpu`` asks for CPU ranks (gloo only).  Each rank
+prints one line ``dryrun rank R/N ok`` and exits 0, or raises.
 """
 
 from __future__ import annotations
@@ -95,13 +98,75 @@ def run(mesh, seed: int = 0) -> dict:
     out["heuristic_shape"] = tuple(heur["orders"].shape)
     out["recency_shape"] = tuple(rec["clicks"].shape)
 
-    if not (np.isfinite(out["sgns_loss"]) and np.isfinite(out["mf_loss"])):
+    out.update(_data_parallel(mesh, rng))
+    losses = ("sgns_loss", "mf_loss", "ranker_loss", "sequence_loss", "zero_loss")
+    if not all(np.isfinite(out[k]) for k in losses):
         raise RuntimeError(f"dryrun: a loss is not finite: {out}")
     want = {"topk_shape": (8, 5), "lookup_shape": (8, D), "candidates_shape": (S, 24),
-            "heuristic_shape": (S, 8), "recency_shape": (S, 8)}
+            "heuristic_shape": (S, 8), "recency_shape": (S, 8), "gbdt_leaf_shape": (8,)}
     for key, shape in want.items():
         if out[key] != shape:
             raise RuntimeError(f"dryrun: {key} {out[key]}, expected {shape}")
+    return out
+
+
+def _data_parallel(mesh, rng) -> dict:
+    """The data-parallel steps of ``dryrun_multichip`` (:113-155, :196-205)
+    at its shapes: the tower step (lambdarank, AdamW), a depth-3 GBDT tree,
+    a transformer sequence step and its ZeRO-1 twin (Adam)."""
+    from functools import partial
+
+    from otto_tpu_torch.config import RankerConfig, SequenceModelConfig
+    from otto_tpu_torch.models.ranker import Tower, init_tower, make_optimizer
+    from otto_tpu_torch.models.sequence import _tree_map, init_params
+    from otto_tpu_torch.models.sequence import make_optimizer as seq_optimizer
+    from otto_tpu_torch.parallel.data_parallel import (
+        make_dp_gbdt_grow,
+        make_dp_ranker_step,
+        make_dp_sequence_step,
+        make_zero_sequence_step,
+        zero_init,
+    )
+    from otto_tpu_torch.parallel.mesh import axis_size, mesh_device
+
+    dp, dev = axis_size(mesh, "data"), mesh_device(mesh)
+    n = dp * axis_size(mesh, "model")
+    out = {}
+    B, C, F = 2 * dp, 16, 12
+    tower = Tower(init_tower(F, (32, 16), torch.Generator().manual_seed(1))).to(dev)
+    opt = make_optimizer(tower, RankerConfig(learning_rate=1e-3))
+    step = make_dp_ranker_step(mesh, opt, loss_name="lambdarank")
+    out["ranker_loss"] = float(step(tower, rng.normal(size=(B, C, F)).astype(np.float32),
+                                    (rng.random((B, C)) < 0.2).astype(np.int8),
+                                    np.ones((B, C), bool), seed=2))
+
+    Ng, Fg, n_bins = 16 * n, 6, 16
+    scalars = (0.01, 0.0, 1.0, 0.0, 0.1)
+    ones = np.ones(Ng, np.float32)
+    _, _, leaf, _, ids = make_dp_gbdt_grow(mesh, depth=3, n_bins=n_bins)(
+        rng.integers(0, n_bins, (Ng, Fg)).astype(np.uint8), rng.normal(size=Ng).astype(np.float32),
+        rng.uniform(0.1, 1.0, Ng).astype(np.float32), ones, ones, np.ones(Fg, bool), *scalars)
+    out["gbdt_leaf_shape"] = tuple(leaf.shape)
+    if not bool(torch.isfinite(leaf).all()) or ids.shape[0] != Ng:
+        raise RuntimeError(f"dryrun: the dp tree's leaves {leaf} or leaf ids {ids.shape}")
+
+    cfg = SequenceModelConfig(architecture="transformer", dim=16, hidden=8, max_len=6,
+                              n_layers=1, n_heads=2, learning_rate=1e-3)
+    Bq = 2 * dp
+    batch = (rng.integers(0, 64, (Bq, 6)).astype(np.int32), np.ones((Bq, 6), bool),
+             rng.integers(0, 64, Bq).astype(np.int32),
+             rng.integers(0, 64, (Bq, 4)).astype(np.int32))
+
+    def params(seed):
+        p = init_params(torch.Generator().manual_seed(seed), 64, 16, 8,
+                        architecture="transformer", max_len=6, n_layers=1, n_heads=2)
+        return _tree_map(lambda t: t.to(dev).requires_grad_(), p)
+
+    sp = params(3)
+    out["sequence_loss"] = float(make_dp_sequence_step(mesh, seq_optimizer(sp, cfg))(sp, *batch))
+    zp = params(8)
+    state = zero_init(mesh, partial(torch.optim.Adam, lr=1e-3), zp)
+    out["zero_loss"] = float(make_zero_sequence_step(mesh)(zp, state, *batch))
     return out
 
 
@@ -113,6 +178,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the mesh's devices: the cards (default; raises without one), or "
+                         "the CPU, taken only when asked for")
     args = ap.parse_args(argv)
     if not init_distributed(args.backend):
         print("dryrun: RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT are not set; run it "
@@ -121,7 +189,8 @@ def main(argv=None) -> int:
     try:
         world = dist.get_world_size()
         mp = 2 if world % 2 == 0 and world > 1 else 1
-        mesh = make_mesh(MeshConfig(data_parallel=world // mp, model_parallel=mp))
+        mesh = make_mesh(MeshConfig(data_parallel=world // mp, model_parallel=mp),
+                         device_type=args.device)
         out = run(mesh)
         print(f"dryrun rank {dist.get_rank()}/{world} ok {out}", flush=True)
     finally:

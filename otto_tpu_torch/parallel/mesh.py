@@ -5,9 +5,11 @@ Port of ``otto_tpu/parallel/mesh.py``.  JAX runs one controller over a
 ``torch.distributed.device_mesh.DeviceMesh`` over the initialized process
 group, its dims named ``(data, model)``; a function that JAX runs through
 ``shard_map`` runs in every rank on that rank's block, and its collectives
-run on ``mesh.get_group(axis)``.  Only ``all_reduce``, ``all_gather`` (the
-list form) and ``broadcast`` are used: ``gloo`` runs them on CPU and CUDA
-tensors and NCCL on CUDA tensors, so the same code runs under both.
+run on ``mesh.get_group(axis)``.  The collectives used are ``all_reduce``
+(SUM on float and int64 tensors, MAX), ``all_gather`` (the list form and
+``all_gather_into_tensor``), ``reduce_scatter_tensor`` and ``broadcast``:
+``gloo`` runs each of them on CPU and CUDA tensors (CUDA ones staged through
+host memory) and NCCL on CUDA tensors, so the same code runs under both.
 
 Rank ``r`` of a ``dp x mp`` mesh sits at ``(r // mp, r % mp)``, the layout
 of ``np.asarray(devices).reshape(dp, mp)`` in the JAX package.  A rank's
@@ -66,34 +68,47 @@ def _world_size() -> int:
     return dist.get_world_size()
 
 
-def _default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+def _checked_device_type(device_type: str) -> str:
+    """``device_type`` ("cuda", the default of the mesh builders, or "cpu"),
+    raising for "cuda" without a card: a CPU mesh is taken only when asked
+    for."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"make_mesh: device_type {device_type!r} is neither 'cuda' nor 'cpu'")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: a CUDA mesh was asked for but "
+                           "torch.cuda.is_available() is False; pass device_type='cpu' "
+                           "for CPU ranks")
+    return device_type
 
 
-def make_mesh(config: MeshConfig = MeshConfig(), device_type: str | None = None) -> DeviceMesh:
+def make_mesh(config: MeshConfig = MeshConfig(), device_type: str = "cuda") -> DeviceMesh:
     """A ``data x model`` mesh over every rank of the process group;
-    ``data_parallel=-1`` takes the world size over ``model_parallel``."""
+    ``data_parallel=-1`` takes the world size over ``model_parallel``.  A
+    CUDA mesh without a card raises; CPU ranks pass ``device_type="cpu"``."""
+    device_type = _checked_device_type(device_type)
     n = _world_size()
     mp = max(config.model_parallel, 1)
     dp = config.data_parallel if config.data_parallel > 0 else n // mp
     if dp * mp != n:
         raise ValueError(f"mesh {dp}x{mp} does not match {n} devices")
-    return DeviceMesh(device_type or _default_device_type(), torch.arange(n).reshape(dp, mp),
+    return DeviceMesh(device_type, torch.arange(n).reshape(dp, mp),
                       mesh_dim_names=(config.data_axis, config.model_axis))
 
 
 def make_mesh3d(data_parallel: int, pipeline_parallel: int, tensor_parallel: int,
-                device_type: str | None = None,
+                device_type: str = "cuda",
                 axes: tuple[str, str, str] = ("data", "pipe", "model")) -> DeviceMesh:
     """A ``data x pipe x model`` mesh over the first ranks of the group
-    (tensor parallelism innermost: neighbouring ranks)."""
+    (tensor parallelism innermost: neighbouring ranks); CUDA unless
+    ``device_type="cpu"``, as :func:`make_mesh`."""
+    device_type = _checked_device_type(device_type)
     n = data_parallel * pipeline_parallel * tensor_parallel
     have = _world_size()
     if n > have:
         raise ValueError(f"mesh {data_parallel}x{pipeline_parallel}x{tensor_parallel} "
                          f"needs {n} devices, have {have}")
     ranks = torch.arange(n).reshape(data_parallel, pipeline_parallel, tensor_parallel)
-    return DeviceMesh(device_type or _default_device_type(), ranks, mesh_dim_names=axes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=axes)
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
@@ -189,6 +204,53 @@ def all_reduce_sum(mesh: DeviceMesh, x: torch.Tensor, axis: str) -> torch.Tensor
     return x
 
 
+def all_reduce_max(mesh: DeviceMesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``pmax``: the elementwise largest ``x`` over ``axis``, in place."""
+    if axis_size(mesh, axis) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
+    return x
+
+
+def all_reduce_mean(mesh: DeviceMesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``pmean``: ``x`` summed over ``axis``, then divided by its size, in
+    place (a float tensor; at size 1 ``x`` is returned untouched)."""
+    n = axis_size(mesh, axis)
+    if n > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+        x.div_(n)
+    return x
+
+
+def reduce_scatter_mean(mesh: DeviceMesh, flat: torch.Tensor, axis: str) -> torch.Tensor:
+    """``psum_scatter / n``: of a flat tensor of ``n * per`` entries (``n``
+    the size of ``axis``), this rank's ``per`` entries of the sum over
+    ``axis``, divided by ``n``.  One ``reduce_scatter_tensor``: each rank
+    sends and receives (n - 1) / n of ``flat``'s bytes in a ring, half of an
+    all-reduce."""
+    n = axis_size(mesh, axis)
+    if flat.ndim != 1 or flat.shape[0] % n:
+        raise ValueError(f"reduce_scatter_mean: a flat tensor of a multiple of {n} entries "
+                         f"expected, got {tuple(flat.shape)}")
+    if n == 1:
+        return flat.clone()
+    out = flat.new_empty(flat.shape[0] // n)
+    dist.reduce_scatter_tensor(out, flat.contiguous(), op=dist.ReduceOp.SUM,
+                               group=mesh.get_group(axis))
+    return out.div_(n)
+
+
+def all_gather_flat(mesh: DeviceMesh, shard: torch.Tensor, axis: str) -> torch.Tensor:
+    """Every rank's flat ``shard`` (equal sizes) along ``axis``, joined in
+    axis order into one flat tensor (``all_gather(tiled=True)``; one
+    ``all_gather_into_tensor``)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return shard.reshape(-1).clone()
+    out = shard.new_empty(n * shard.numel())
+    dist.all_gather_into_tensor(out, shard.reshape(-1).contiguous(), group=mesh.get_group(axis))
+    return out
+
+
 def all_gather(mesh: DeviceMesh, x: torch.Tensor, axis: str) -> list[torch.Tensor]:
     """Every rank's ``x`` along ``axis`` (equal shapes), in axis order."""
     if axis_size(mesh, axis) == 1:
@@ -219,6 +281,31 @@ def data_slice(mesh: DeviceMesh, n: int, axis: str = "data") -> tuple[slice, int
     per = -(-n // parts)
     lo = axis_index(mesh, axis) * per
     return slice(lo, lo + per), per * parts
+
+
+def data_block(mesh: DeviceMesh, a, axis: str = "data") -> torch.Tensor:
+    """This rank's block of a batch split over ``axis``, on the rank's
+    device.  ``a`` is a ``DTensor`` sharded over ``axis`` (what
+    ``BatchLoader(mesh=)`` yields: its local block is taken as it is), or the
+    whole batch (numpy or a tensor, the same on every rank), whose rows must
+    divide by the axis size (as under ``shard_map``: anything else raises)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(a, DTensor):
+        if a.device_mesh != mesh or a.placements != tuple(batch_sharded(mesh, axis)):
+            raise ValueError(f"data_block: a DTensor sharded over {axis!r} of this mesh "
+                             f"expected, got placements {a.placements}")
+        return a.to_local()
+    n, parts = a.shape[0], axis_size(mesh, axis)
+    if n % parts:
+        raise ValueError(f"data_block: a batch of {n} rows does not split over the {parts} "
+                         f"ranks of {axis!r}")
+    sl, _ = data_slice(mesh, n, axis)
+    block = a[sl]
+    dev = mesh_device(mesh)
+    if isinstance(block, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+    return block.to(dev)
 
 
 def pad_rows_to(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -295,7 +295,8 @@ def test_fit_gbdt_with_bagging_judged_statistically(task, monkeypatch, loss):
 
 def test_fit_gbdt_reproducible_and_segmented_cadence(task):
     """Two fits give the same forest; ``trees_per_call`` measures the metric
-    once a segment (the reference's cadence), and ``mesh`` raises."""
+    once a segment (the reference's cadence), and a ``mesh`` that is not a
+    ``DeviceMesh`` raises (data-parallel fits: tests/test_torch_data_parallel.py)."""
     _, binned, labels, mask = task
     _, cfg = _cfg(loss="bce", subsample=0.9, colsample=0.9)
     tr, va = slice(0, S_TRAIN), slice(S_TRAIN, S)
@@ -308,7 +309,7 @@ def test_fit_gbdt_reproducible_and_segmented_cadence(task):
     seg = tg.fit_gbdt(*args, GBDTConfig(**{**vars(cfg), "trees_per_call": 6}), val=val,
                       device="cpu")
     assert seg.best_iteration in (6, 12, 18, 20)
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tg.fit_gbdt(*args, cfg, mesh=object(), device="cpu")
 
 
@@ -348,5 +349,5 @@ def test_train_gbdt_ranker_equal_to_jax(task, monkeypatch, tmp_path):
     assert loaded.prior_alpha == 0.25 and loaded.feature_names == names
     want = tm.predict(X, mask, device="cpu")
     np.testing.assert_array_equal(loaded.predict(X, mask), want)
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tg.train_gbdt_ranker(tdata, tcfg, mesh=object(), device="cpu")

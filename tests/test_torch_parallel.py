@@ -541,7 +541,7 @@ def test_dryrun_module_on_two_gloo_ranks(tmp_path):
     from otto_tpu_torch.parallel.mesh import launch_local
 
     outs = launch_local([sys.executable, "-m", "otto_tpu_torch.parallel.dryrun", "--backend",
-                         "gloo"], 2, timeout_s=120,
+                         "gloo", "--device", "cpu"], 2, timeout_s=120,
                         env={"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}, cwd=REPO)
     assert [o.split(" ok ")[0] for o in outs] == ["dryrun rank 0/2", "dryrun rank 1/2"]
     assert outs[0].split(" ok ")[1] == outs[1].split(" ok ")[1]
@@ -550,13 +550,10 @@ def test_dryrun_module_on_two_gloo_ranks(tmp_path):
 def test_mesh_still_raises_in_later_slices():
     import torch
 
-    from otto_tpu_torch.models import gbdt
     from otto_tpu_torch.ops.moe import moe_apply
 
-    with pytest.raises(NotImplementedError, match="M15b"):
-        gbdt.fit_gbdt(None, None, None, None, None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M15b"):
-        gbdt.train_gbdt_ranker(None, None, mesh=object(), device="cpu")
+    # fit_gbdt(mesh=) and train_gbdt_ranker(mesh=) run since M15b
+    # (tests/test_torch_data_parallel.py)
     with pytest.raises(NotImplementedError, match="M15c"):
         moe_apply({}, torch.zeros((2, 2)), capacity=1, model_axis="model")
 

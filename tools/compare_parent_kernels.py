@@ -29,8 +29,8 @@ this tree, this tree, parent.
   ``predict_forest_rows`` (the float rows, binned in the kernel) timed in
   the same turns;
 - K5 when the parent has the earlier ``build_histogram_f32`` entry (rows
-  sorted by key) and this tree ``build_histogram_rows`` (a row list kept by
-  node): the launches of one depth-7 tree of a bce fit at the refit's first
+  sorted by key) and this tree ``hist_accumulate`` and ``hist_finish`` (a
+  row list kept by node, the int64 sums, then their finish): the launches of one depth-7 tree of a bce fit at the refit's first
   clicks fold's shape, [1,857,664 x 55] at 256 bins, on synthetic
   session-like rows (184 candidates a session sharing 12 session-level
   features, 8 count-like features of 3 bins, a quarter of the values
@@ -152,11 +152,14 @@ def k5_turns(torch, dev, libs, stream, res: dict) -> None:
                 stream()) == 0, "launches")
 
         def tree():
-            agree(libs["tree"].build_histogram_rows(
+            lib = libs["tree"]
+            agree(lib.hist_accumulate(
                 rows.data_ptr(), vals.data_ptr(), vmax.data_ptr(), order.data_ptr(),
-                starts.data_ptr(), pre.data_ptr(), acc["tree"].data_ptr(),
-                o["tree"].data_ptr(), n, rows.shape[1], n_feat, n_keys, n_bins, 0,
-                stream()) == 0, "launches")
+                starts.data_ptr(), pre.data_ptr(), acc["tree"].data_ptr(), n, rows.shape[1],
+                n_feat, n_keys, n_bins, n, 0, stream()) == 0
+                and lib.hist_finish(acc["tree"].data_ptr(), vmax.data_ptr(),
+                                    o["tree"].data_ptr(), acc["tree"].numel(), n, 0,
+                                    stream()) == 0, "launches")
 
         parent()
         tree()
@@ -343,7 +346,7 @@ def main() -> int:
 
     # K5: the parent's sorted-rows entry against this tree's row lists
     if hasattr(libs["parent"], "build_histogram_f32") and hasattr(libs["tree"],
-                                                                  "build_histogram_rows") \
+                                                                  "hist_accumulate") \
             and "k5" in names:
         k5_turns(torch, dev, libs, stream, res)
     print(json.dumps(res), flush=True)
