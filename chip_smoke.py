@@ -3,13 +3,14 @@ embedding-kNN path, the baselines with the covisitation heuristic, the
 two-stage prediction path, the file CLI, GBDT training, SGNS training, the
 listwise tower ranker, the TF-IDF recommender, the sequence recommenders,
 matrix factorization and collaborative filtering with the training
-utilities, sharded serving over a process mesh, and data-parallel
-training (the GBDT, the tower, the sequence models, ZeRO-1).
+utilities, sharded serving over a process mesh, data-parallel training
+(the GBDT, the tower, the sequence models, ZeRO-1), and model and expert
+parallelism (tensor, sequence, pipeline, 3-D, expert-parallel MoE).
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phases 16b and
-17b, which the script starts itself.)
+(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phases 16b, 17b
+and 18b, which the script starts itself.)
 
 Phases (each prints its seconds; any failure ends the run with a non-zero
 exit code):
@@ -132,7 +133,7 @@ exit code):
    5-tree lambdarank fit (``configs/gbdt_lambdarank.yaml``, trees cut) and
    ``_lambdarank_gh`` on its scores, card within 1e-5 relative of the CPU;
    11d the CLI's ``two_stage validation --config <20 trees, 3 folds>`` on
-   phase 6's store cut to 24,000 sessions into an empty directory (three
+   phase 6's store cut to 20,000 sessions into an empty directory (three
    rankers saved, the histogram and binning kernels launched), the same
    command resuming (neither launched; lists equal to ``predict_two_stage``
    with the saved artifacts), and ``two_stage_streamed validation
@@ -182,7 +183,7 @@ exit code):
 14. the sequence recommenders with the seven published configs
    (``configs/sequence_*.yaml``: dim 64, hidden 128, max_len 20, batch
    2,048, 512 negatives) over the full catalog, epochs cut to 1 (and the
-   six non-default configs' training sessions to 15,000): 14a each
+   six non-default configs' training sessions to 10,000): 14a each
    config's session vectors on 512 of phase 7's sessions and one training
    step, card against CPU (vectors within 1e-5 * (|x| + 1e-3), the loss
    within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
@@ -198,7 +199,7 @@ exit code):
    (recall >= 0.99); 14d ``sequence validation`` through the CLI on phase
    7's store as ``.jsonl`` (report and lists equal to 14b's gru run: the
    card's training is bit-reproducible), ``sequence submission`` in a
-   process of its own on 20,000 sessions, and a saved model loaded back
+   process of its own on 10,000 sessions, and a saved model loaded back
    (lists equal);
 15. matrix factorization and collaborative filtering with the published
    configs (``configs/matrix_factorization.yaml``,
@@ -256,7 +257,19 @@ exit code):
    fold's 20-tree fit bit-equal to 17a's single-device one (7 K5 launches a
    tree a rank, the bytes each level all-reduces printed), the tower and
    sequence steps within 13a's and 14a's bars of the single-device steps,
-   ZeRO-1 within 1e-5 of the dp step with about half its Adam state a rank.
+   ZeRO-1 within 1e-5 of the dp step with about half its Adam state a rank;
+18. model and expert parallelism (``otto_tpu_torch.parallel.model_parallel``,
+   ``expert_parallel``) over the full catalog: the tensor-, tensor+sequence-
+   and pipeline-parallel (2 microbatches) steps and the 3-D step at
+   ``configs/sequence_transformer.yaml``'s widths, the tensor-parallel step
+   with expert-parallel MoE FFNs at ``configs/sequence_moe.yaml``'s, and the
+   expert-parallel pooled recommender (the same table, 4 experts), one step
+   each after a warm-up step, each against the single-device step on the
+   same card and inputs within 14a's bars: 18a in 16a's NCCL rank (meshes
+   (1, 1) and (1, 1, 1), bit-equality printed), 18b in 16b's two gloo ranks
+   (mesh (1, 2), the 3-D step at (1, 2, 1) and (1, 1, 2)); each step's ms,
+   the bytes it handed to collectives and the Adam state a rank holds; no
+   hand kernel launched (``tools/run_phase18.py`` runs the phase alone).
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -606,6 +619,12 @@ def _host_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
 
 
 def sync(torch, dev) -> None:
@@ -2264,8 +2283,9 @@ def fits_card_vs_cpu(torch, dev, fold: dict, tree_sessions: int = 2_000) -> None
 
 # 11d's store: phase 6's first sessions (40,000 until phase 17 came, when
 # the script took 1,070.58 s of phases on a slower host: cut so that its
-# command time stays well under the 1,200 s limit)
-CLI_TRAIN_SESSIONS = 24_000
+# command time stays well under the 1,200 s limit; 24,000 until phase 18
+# came; at least the streamed run's 20,000)
+CLI_TRAIN_SESSIONS = 20_000
 
 
 def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
@@ -3136,17 +3156,16 @@ SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with e
             "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
             "OTTO week has ~220M events): run_sequence trains gru on its 180,000-session "
             "split",
-            "14b: the six other configs train on the split's first 15,000 training sessions "
+            "14b: the six other configs train on the split's first 10,000 training sessions "
             "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s; 45,000 until "
             "phase 16 came, when the script's phases 1-15 took 955 s on one host; 25,000 "
-            "until phase 17 came, when the script took 1,070.58 s of phases on one host) and "
-            "serve "
-            "the same 20,000 target sessions",
-            "14d: the subprocess's sequence submission on phase 7's first 20,000 sessions",
+            "until phase 17 came, when the script took 1,070.58 s of phases on one host; "
+            "15,000 until phase 18 came) and serve the same 20,000 target sessions",
+            "14d: the subprocess's sequence submission on phase 7's first 10,000 sessions",
             "14a: card against CPU on one step from one seeded batch of phase 7's examples "
             "and on 512 of its sessions")
-SEQ_CUT_TRAIN_SESSIONS = 15_000  # 14b: the non-default configs' training sessions
-SEQ_SUBMISSION_SESSIONS = 20_000  # 14d: the subprocess's store
+SEQ_CUT_TRAIN_SESSIONS = 10_000  # 14b: the non-default configs' training sessions
+SEQ_SUBMISSION_SESSIONS = 10_000  # 14d: the subprocess's store (20,000 until phase 18)
 # 14a: session vectors within SEQ_ENC_RTOL * (|x| + SEQ_ENC_FLOOR * max |x|),
 # max over the batch (cuBLAS and the CPU sum each float32 dot in another
 # order, and the GRU carries the difference through 20 steps: some 1e-7 of
@@ -3188,23 +3207,25 @@ def seq_step_bound(params) -> tuple[float, str]:
     return bound(7 * 4 * n, 0.0, F32_OPS_PER_S)
 
 
-def seq_step_matches(torch, cpu, card, lr: float) -> int:
+def seq_step_matches(torch, cpu, card, lr: float, what: str = "14a") -> int:
     """Phase 14a's hold of the card's updated parameters on the CPU's
-    (SEQ_STEP_*, SEQ_TINY_GRAD); ``cpu`` carries its gradients.  Returns the
-    count of entries whose sign a rounding-level gradient decided."""
+    (SEQ_STEP_*, SEQ_TINY_GRAD); ``cpu`` carries its gradients (the
+    reference: on the CPU in 14a, on the card in 17b and 18, where the
+    compare runs on the card).  Returns the count of entries whose sign a
+    rounding-level gradient decided."""
     from otto_tpu_torch.models import sequence as sq
 
     flipped, total = 0, 0
     for c, g in zip(sq.tree_leaves(cpu), sq.tree_leaves(card)):
-        d = (g.detach().cpu() - c.detach()).abs()
+        d = (g.detach().to(c.device) - c.detach()).abs()
         off = d > SEQ_STEP_RTOL * (c.detach().abs() + SEQ_STEP_FLOOR)
         tiny = c.grad.abs() <= SEQ_TINY_GRAD * c.grad.abs().max()
-        check(not bool((off & ~tiny).any()), f"14a: an updated parameter of shape "
+        check(not bool((off & ~tiny).any()), f"{what}: an updated parameter of shape "
               f"{tuple(c.shape)} differs beyond {SEQ_STEP_RTOL} * (|x| + {SEQ_STEP_FLOOR})")
-        check(bool((d[off] <= 2 * lr).all()), "14a: a sign-decided entry moved beyond 2 lr")
+        check(bool((d[off] <= 2 * lr).all()), f"{what}: a sign-decided entry moved beyond 2 lr")
         flipped += int(off.sum())
         total += c.numel()
-    check(flipped <= 1e-5 * total, f"14a: {flipped} of {total} entries sign-decided")
+    check(flipped <= 1e-5 * total, f"{what}: {flipped} of {total} entries sign-decided")
     return flipped
 
 
@@ -4311,15 +4332,22 @@ def mesh_counters():
 
 
 def mesh_rank_main(work: Path) -> int:
-    """A 16b and 17b rank (``python3 chip_smoke.py --mesh-rank DIR`` under
-    torchrun's environment): gloo on the shared card, the dryrun's tiny
-    shapes, then every sharded call at meshes (1, 2) and (2, 1) against
-    16a's results, then phase 17b at (2, 1).  Prints one JSON line."""
+    """A 16b, 17b and 18b rank (``python3 chip_smoke.py --mesh-rank DIR``
+    under torchrun's environment): gloo on the shared card, the dryrun's
+    tiny shapes, then every sharded call at meshes (1, 2) and (2, 1) against
+    16a's results, then phase 17b at (2, 1), then phase 18b at (1, 2) and
+    the 3-D meshes (1, 2, 1) and (1, 1, 2).  Prints one JSON line."""
     import torch
     import torch.distributed as dist
 
     from otto_tpu_torch.config import MeshConfig
-    from otto_tpu_torch.parallel import dryrun, init_distributed, make_mesh, mesh_device
+    from otto_tpu_torch.parallel import (
+        dryrun,
+        init_distributed,
+        make_mesh,
+        make_mesh3d,
+        mesh_device,
+    )
 
     check(init_distributed("gloo", timeout_s=300), "16b: no rank environment")
     inp = mesh_load(work)
@@ -4336,6 +4364,16 @@ def mesh_rank_main(work: Path) -> int:
     t0 = time.perf_counter()
     res["dp"] = dp_rank(torch, mesh, work)  # phase 17b at mesh (2, 1)
     res["dp"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zero, read = mesh_counters()
+    zero()
+    res["mp"] = mp_steps(  # phase 18b at mesh (1, 2), (1, 2, 1) and (1, 1, 2)
+        torch, mesh_device(mesh), make_mesh(MeshConfig(data_parallel=1, model_parallel=2),
+                                            device_type="cuda"),
+        [make_mesh3d(1, 2, 1, device_type="cuda"), make_mesh3d(1, 1, 2, device_type="cuda")],
+        "18b", read)
+    res["mp"]["s"] = time.perf_counter() - t0
     res["rank"] = dist.get_rank()
     res["device"] = str(mesh_device(mesh))
     dist.destroy_process_group()
@@ -4373,7 +4411,7 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
     import torch.distributed as dist
 
     from otto_tpu_torch.config import MeshConfig
-    from otto_tpu_torch.parallel import init_distributed, make_mesh
+    from otto_tpu_torch.parallel import init_distributed, make_mesh, make_mesh3d
     from otto_tpu_torch.parallel.mesh import launch_local
 
     shutil.rmtree(MESH_DIR, ignore_errors=True)
@@ -4407,6 +4445,17 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
             dp_a = dp_world1(torch, dev, mesh, dp_fold, MESH_DIR, (zero_counters, read_counters))
             dp_a["s"] = time.perf_counter() - t0
             print(f"17a data-parallel training, one NCCL rank: {dp_a['s']:.2f} s", flush=True)
+            del dp_fold
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            zero_counters()
+            mp_a = mp_steps(torch, dev, mesh, [make_mesh3d(1, 1, 1, device_type="cuda")], "18a",
+                            lambda: read_counters("model-parallel steps (phase 18a)", ()))
+            check(not any(mp_a["launches"].values()), "phase 18a launched a hand kernel")
+            mp_a["s"] = time.perf_counter() - t0
+            print(f"18a model and expert parallelism, one NCCL rank, meshes (1, 1) and "
+                  f"(1, 1, 1), {mp_a['s']:.2f} s; each step against the single-device step "
+                  f"({card_line()}): " + json.dumps(mp_a), flush=True)
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -4418,7 +4467,7 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
 
         t0 = time.perf_counter()
         outs = launch_local([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
-                             str(MESH_DIR)], 2, timeout_s=300, env={"PYTHONPATH": str(REPO)},
+                             str(MESH_DIR)], 2, timeout_s=480, env={"PYTHONPATH": str(REPO)},
                             cwd=REPO)
         b_s = time.perf_counter() - t0
         ranks = [json.loads(o.split("16b rank result: ", 1)[1].splitlines()[0]) for o in outs]
@@ -4438,15 +4487,22 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
                   f"{r['dp']['fit_launches']} K5 launches, {r['dp']['fit_s']:.3f} s; bytes "
                   f"all-reduced a level {r['dp']['level_bytes']}, a tree "
                   f"{r['dp']['tree_bytes']:.0f}: " + json.dumps(r["dp"]), flush=True)
-        print(f"16b and 17b, two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): "
-              f"{b_s:.2f} s (17b {max(r['dp']['s'] for r in ranks):.2f} s of it)", flush=True)
+        for r in ranks:
+            check(not any(r["mp"]["launches"].values()), f"18b rank {r['rank']} launched K1 "
+                  f"or K2: {r['mp']['launches']}")
+            print(f"18b rank {r['rank']} at mesh (1, 2) and the 3-D meshes (1, 2, 1) and "
+                  f"(1, 1, 2), {r['mp']['s']:.2f} s; each step within 14a's bars of the "
+                  f"single-device step ({card_line()}): " + json.dumps(r["mp"]), flush=True)
+        print(f"16b, 17b and 18b, two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): "
+              f"{b_s:.2f} s (17b {max(r['dp']['s'] for r in ranks):.2f} s, 18b "
+              f"{max(r['mp']['s'] for r in ranks):.2f} s of it)", flush=True)
         t0 = time.perf_counter()
         msg = nccl_refusal()
         print(f"16b two NCCL ranks on one card refused ({time.perf_counter() - t0:.2f} s): "
               f"{msg}", flush=True)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
-    return {"a": a, "b": ranks, "b_s": b_s, "nccl_refusal": msg, "dp_a": dp_a}
+    return {"a": a, "b": ranks, "b_s": b_s, "nccl_refusal": msg, "dp_a": dp_a, "mp_a": mp_a}
 
 
 # ------------------------------------------------------------- phase 17
@@ -4751,6 +4807,182 @@ def dp_rank(torch, mesh, work: Path) -> dict:
            "device": str(dev)}
     torch.cuda.empty_cache()
     out.update(dp_steps(torch, dev, mesh, "17b"))
+    return out
+
+
+# ------------------------------------------------------------- phase 18
+# Model and expert parallelism on the card (otto_tpu_torch/parallel/
+# {collectives,model_parallel,expert_parallel}.py): the tensor-, sequence-
+# and pipeline-parallel steps and the 3-D step at configs/
+# sequence_transformer.yaml's widths, the tensor-parallel step with
+# expert-parallel MoE FFNs at configs/sequence_moe.yaml's, and the
+# expert-parallel pooled-session recommender on the same table with 4
+# experts; all over the full 1,855,603-aid catalog (a 1,855,604 x 64 float32
+# table).  18a: 16a's NCCL rank, mesh (1, 1) and (1, 1, 1); 18b: 16b's two
+# gloo ranks on the one card, mesh (1, 2) and the 3-D step at (1, 2, 1) and
+# (1, 1, 2).  Each family's step against the single-device step on the same
+# card and inputs, within 14a's bars; at 18a whether it is bit-equal.
+MP_CONFIGS = {"dense": REPO / "configs" / "sequence_transformer.yaml",
+              "moe": REPO / "configs" / "sequence_moe.yaml"}
+MP_EP_EXPERTS = 4  # the ep recommender: configs/sequence_moe.yaml's experts, hidden 4 x dim
+MP_N_MICRO = 2
+MP_CUTS = ("18: one step of each family after one warm-up step (the configs train 3 epochs); "
+           "the single-device reference the same",
+           "paid for elsewhere: 11d's store 24,000 -> 20,000 sessions, 14b's six configs "
+           "15,000 -> 10,000 training sessions, 14d's submission 20,000 -> 10,000 sessions "
+           "(phase 18 adds ~21 s)")
+
+
+def mp_inputs(torch, name: str):
+    """A family's config, its seeded whole parameter tree (CPU) and one
+    batch of the config's shape over the full catalog (left-aligned
+    prefixes padded with the PAD id, uniform negatives; ``ep``: the pooled
+    recommender's tree and a float mask)."""
+    from otto_tpu_torch.models import sequence as sq
+    from otto_tpu_torch.parallel.expert_parallel import init_moe_recommender
+
+    cfg = sq.SequenceModelConfig.from_yaml(MP_CONFIGS["moe" if name == "moe" else "dense"]) \
+        .replace(n_aids=N_AIDS)
+    rng = np.random.default_rng(SEED + 19 + ("dense", "moe", "ep").index(name))
+    B, L = cfg.batch_size, cfg.max_len
+    mask = np.arange(L)[None, :] < rng.integers(1, L + 1, B)[:, None]
+    seq = np.where(mask, rng.integers(0, N_AIDS, (B, L)), N_AIDS).astype(np.int32)
+    batch = [seq, mask, rng.integers(0, N_AIDS, B).astype(np.int32),
+             rng.integers(0, N_AIDS, (B, cfg.n_negatives)).astype(np.int32)]
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if name == "ep":
+        batch[1] = mask.astype(np.float32)
+        return cfg, init_moe_recommender(gen, N_AIDS, cfg.dim, 4 * cfg.dim, MP_EP_EXPERTS), batch
+    return cfg, sq._config_params(cfg, gen), batch
+
+
+def mp_adam(torch, leaves, cfg):
+    """sequence.make_optimizer's Adam over a rank's blocks."""
+    return torch.optim.Adam(leaves, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            fused=True)
+
+
+def mp_families(mesh, meshes3, name: str, cfg):
+    """(family, its mesh, the tree's re-layout, its layouts, the step) of
+    ``name``'s config on ``mesh`` and the 3-D meshes."""
+    from otto_tpu_torch.parallel import expert_parallel as ep
+    from otto_tpu_torch.parallel import model_parallel as mpm
+    from otto_tpu_torch.parallel.mesh import axis_size
+
+    def same(p):
+        return p
+
+    if name == "ep":
+        cap = -(-2 * cfg.batch_size // MP_EP_EXPERTS)  # capacity factor 2, as _moe_ffn's
+        return [("ep_recommender", mesh, same, lambda p: ep.moe_recommender_specs(mesh),
+                 lambda o: ep.make_ep_moe_step(mesh, o, capacity=cap))]
+    if name == "moe":
+        return [("tp_ep_moe", mesh, same, lambda p: mpm.tp_param_specs(mesh, p),
+                 lambda o: mpm.make_tp_sequence_step(mesh, o))]
+    S = axis_size(mesh, "model")
+    fams = [("tp", mesh, same, lambda p: mpm.tp_param_specs(mesh, p),
+             lambda o: mpm.make_tp_sequence_step(mesh, o)),
+            ("tp_sp", mesh, same, lambda p: mpm.tp_param_specs(mesh, p),
+             lambda o: mpm.make_tp_sequence_step(mesh, o, sequence_parallel=True)),
+            ("pp", mesh, lambda p: mpm.stack_pipeline_params(p, S),
+             lambda p: mpm.pp_param_specs(mesh, p),
+             lambda o: mpm.make_pp_sequence_step(mesh, o, n_micro=MP_N_MICRO))]
+    for m3 in meshes3:
+        _, pp, tp = (int(x) for x in m3.mesh.shape)
+        fams.append((f"3d_1x{pp}x{tp}", m3,
+                     lambda p, pp=pp: mpm.stack_pipeline_params(p, pp),
+                     lambda p, m3=m3: mpm.pp_tp_param_specs(m3, p),
+                     lambda o, m3=m3, tp=tp: mpm.make_pp_tp_sequence_step(
+                         m3, o, n_micro=MP_N_MICRO, sequence_parallel=tp > 1)))
+    return fams
+
+
+def mp_single(torch, dev, name: str, cfg, base, batch):
+    """The single-device step (``sequence.train_step``; for ``ep`` the
+    recommender's objective without a mesh), after a warm-up step on a
+    copy: the updated tree (its leaves carry the step's gradients), the
+    loss and the step's seconds."""
+    from otto_tpu_torch.models import sequence as sq
+    from otto_tpu_torch.parallel.expert_parallel import moe_recommender_loss
+    from otto_tpu_torch.utils.runtime import full_f32_matmul
+
+    cap = -(-2 * cfg.batch_size // MP_EP_EXPERTS)
+
+    def step(p, opt):
+        if name != "ep":
+            return sq.train_step(p, opt, *batch)
+        opt.zero_grad(set_to_none=True)
+        with full_f32_matmul():
+            value = moe_recommender_loss(p, *batch, capacity=cap)
+            value.backward()
+        opt.step()
+        return value.detach()
+
+    for _ in range(2):  # a warm-up step on a copy, then the measured one
+        p = sq._tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True), base)
+        opt = mp_adam(torch, sq.tree_leaves(p), cfg)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        loss = float(step(p, opt))
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        del opt
+    return p, loss, secs
+
+
+def mp_steps(torch, dev, mesh, meshes3, tag: str, read_launches) -> dict:
+    """Phase 18 on ``mesh`` (a rank of 18a or 18b) and the 3-D meshes: each
+    family's step after a warm-up step on a copy, against the single-device
+    step this rank runs itself; its ms, the bytes this rank handed to
+    collectives in the step, the Adam state it holds; at 18a whether it is
+    bit-equal; and ``read_launches()``, the kernels' counters after it.
+    Every check raises."""
+    from otto_tpu_torch.models import sequence as sq
+    from otto_tpu_torch.parallel import collectives as coll
+    from otto_tpu_torch.parallel import model_parallel as mpm
+    from otto_tpu_torch.parallel.data_parallel import optimizer_state_numel
+
+    out = {}
+    for name in ("dense", "moe", "ep"):
+        cfg, base, batch = mp_inputs(torch, name)
+        dbatch = [torch.as_tensor(a, device=dev) for a in batch]
+        ref, ref_loss, ref_s = mp_single(torch, dev, name, cfg, base, dbatch)
+        out[f"single_{name}"] = {"ms": 1e3 * ref_s, "loss": ref_loss}
+        for fam, on, relay, specs_of, make in mp_families(mesh, meshes3, name, cfg):
+            tree = relay(base)
+            specs = specs_of(tree)
+            for warm in (True, False):
+                blocks = mpm.shard_params(on, tree, specs)
+                opt = mp_adam(torch, sq.tree_leaves(blocks), cfg)
+                step = make(opt)
+                sync(torch, dev)
+                coll.reset_counts()
+                t0 = time.perf_counter()
+                loss = float(step(blocks, *dbatch))
+                sync(torch, dev)
+                secs = time.perf_counter() - t0
+                moved = dict(coll.COUNTS)
+                if warm:
+                    del blocks, opt, step
+            whole = mpm.gather_params(on, blocks, specs)
+            if "stage_layers" in whole:
+                whole = mpm.unstack_pipeline_params(whole)
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            same = loss == ref_loss and all(torch.equal(a, b) for a, b in
+                                            zip(sq.tree_leaves(ref), sq.tree_leaves(whole)))
+            check(rel <= SEQ_LOSS_RTOL, f"{tag} {fam}: loss {loss} against the single "
+                  f"device's {ref_loss}")
+            flipped = seq_step_matches(torch, ref, whole, cfg.learning_rate, f"{tag} {fam}")
+            out[fam] = {"ms": 1e3 * secs, "single_ms": 1e3 * ref_s, "loss": loss,
+                        "loss_rel": rel, "bit_equal": same, "sign_decided": flipped,
+                        "collective_calls": moved["calls"], "collective_bytes": moved["bytes"],
+                        "adam_state_bytes": 4 * optimizer_state_numel(opt),
+                        "param_bytes": sum(4 * t.numel() for t in sq.tree_leaves(blocks))}
+            del blocks, opt, step, whole
+            torch.cuda.empty_cache()
+        del ref, base, dbatch
+        torch.cuda.empty_cache()
+    out["launches"] = read_launches()
     return out
 
 
@@ -5074,9 +5306,11 @@ def main() -> int:
         print(f"phase 16 cut: {cut}", flush=True)
     for cut in DP_CUTS:
         print(f"phase 17 cut: {cut}", flush=True)
+    for cut in MP_CUTS:
+        print(f"phase 18 cut: {cut}", flush=True)
     torch.cuda.empty_cache()
-    with phase("16-17 sharded serving and tables, data-parallel training: 16a and 17a one "
-               "NCCL rank, 16b and 17b two gloo ranks"):
+    with phase("16-18 sharded serving and tables, data-, model- and expert-parallel training: "
+               "16a-18a one NCCL rank, 16b-18b two gloo ranks"):
         mesh16 = sharded_paths(torch, dev, bench_train, bench_mats, bench_aids, phase16,
                                dp_fold, zero_counters, read_counters)
     del phase16, bench_mats, bench_train, dp_fold
@@ -5095,6 +5329,12 @@ def main() -> int:
     print("phase 17 metrics: " + json.dumps({
         "17a": {k: v for k, v in dp_a.items() if k != "launches"},
         "17b": {f"rank{r['rank']}": r["dp"] for r in mesh16["b"]}}), flush=True)
+    print("phase 18 launches none of K1-K5 or K4 bin: its steps are torch ops and "
+          "collectives", flush=True)
+    print(f"phase 18 metrics ({card_line()}): " + json.dumps({
+        "18a": {k: v for k, v in mesh16["mp_a"].items() if k != "launches"},
+        "18b": {f"rank{r['rank']}": {k: v for k, v in r["mp"].items() if k != "launches"}
+                for r in mesh16["b"]}}), flush=True)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;

@@ -363,32 +363,45 @@ def transformer_block(layer, x, attn_ok):
                       approximate="tanh") @ layer["ffn_w2"] + layer["ffn_b2"]
 
 
-def _moe_ffn(moe, h, attn_ok):
+def _moe_ffn(moe, h, attn_ok, model_axis: str | None = None, mesh=None):
     """MoE FFN over the flattened [B*L] token stream; padding positions (the
     last attention row is the key mask) never occupy expert capacity.
-    Capacity factor 2 over a uniform split, T counting the padded rows."""
+    Capacity factor 2 over a uniform split, T counting the padded rows.
+    With ``model_axis`` (and the rank's ``mesh``) the experts split over
+    that axis (``moe_apply``'s expert parallelism)."""
     B, L, D = h.shape
     n_experts = moe["wg"].shape[1]
     tok_ok = attn_ok[:, -1, :].reshape(-1)  # [B*L] key mask
     T = B * L
     cap = min(T, max(1, -(-2 * T // n_experts)))
-    return moe_apply(moe, h.reshape(T, D), capacity=cap, token_mask=tok_ok).reshape(B, L, D)
+    return moe_apply(moe, h.reshape(T, D), capacity=cap, model_axis=model_axis,
+                     token_mask=tok_ok, mesh=mesh).reshape(B, L, D)
+
+
+def _positions(params, seq, mask):
+    """The transformer's input: item and position embeddings, zero at
+    padding [B, L, D], and the causal key mask [B, Lq, Lk]."""
+    L = seq.shape[1]
+    x = _embed(params, seq) + params["pos_emb"][None, :L]  # [B, L, D]
+    x = torch.where(mask[:, :, None], x, 0.0)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=seq.device))
+    return x, causal[None] & mask[:, None, :]
+
+
+def _last_state(params, x, mask):
+    """The final norm, the state at the last valid position, ``out_proj``."""
+    x = _layer_norm(params["final_ln"], x)
+    last = (mask.sum(dim=1) - 1).clamp(min=0)  # [B]
+    return x[torch.arange(x.shape[0], device=x.device), last] @ params["out_proj"]
 
 
 def _encode_transformer(params, seq, mask):
     """SASRec-style causal encoder over right-padded sessions; the session
     vector is the state at the last valid position."""
-    B, L = seq.shape
-    x = _embed(params, seq) + params["pos_emb"][None, :L]  # [B, L, D]
-    x = torch.where(mask[:, :, None], x, 0.0)
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=seq.device))
-    attn_ok = causal[None] & mask[:, None, :]  # [B, Lq, Lk]
+    x, attn_ok = _positions(params, seq, mask)
     for layer in params["layers"]:
         x = transformer_block(layer, x, attn_ok)
-    x = _layer_norm(params["final_ln"], x)
-    last = (mask.sum(dim=1) - 1).clamp(min=0)  # [B]
-    h_last = x[torch.arange(B, device=seq.device), last]
-    return h_last @ params["out_proj"]
+    return _last_state(params, x, mask)
 
 
 def encode(params, seq: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -525,16 +538,28 @@ def sequence_loss(params, seq, mask, tgt, negs, *, loss: str = "sampled_softmax"
     against the sampled negatives) or GRU4Rec+'s BPR-max (negatives
     softmax-weighted by their own scores, plus a score regularizer)."""
     h = encode(params, seq, mask)  # [B, D]
-    # the positive and the negatives in one gather (one table-sized gradient)
-    rows = _embed(params, torch.cat([tgt[:, None], negs], dim=1))  # [B, 1 + Neg, D]
+    if loss != "bpr_max":
+        return sampled_softmax(h, params["item_emb"], tgt, negs)
+    pos_logit, neg_logit = _scores(h, params["item_emb"], tgt, negs)
+    s = torch.softmax(neg_logit, dim=1)
+    p_win = (s * torch.sigmoid(pos_logit[:, None] - neg_logit)).sum(dim=1)
+    reg = (s * neg_logit ** 2).sum(dim=1)
+    return (-torch.log(p_win + 1e-10) + bpr_reg * reg).mean()
+
+
+def _scores(h, item_emb, tgt, negs):
+    """The session vectors' scores [B] against the targets and [B, Neg]
+    against the negatives; the positive and the negatives in one gather
+    (one table-sized gradient)."""
+    rows = F.embedding(torch.cat([tgt[:, None], negs], dim=1), item_emb)  # [B, 1 + Neg, D]
     pos_e, neg_e = rows[:, 0], rows[:, 1:]
-    pos_logit = (h * pos_e).sum(dim=1)
-    neg_logit = torch.einsum("bd,bnd->bn", h, neg_e)
-    if loss == "bpr_max":
-        s = torch.softmax(neg_logit, dim=1)
-        p_win = (s * torch.sigmoid(pos_logit[:, None] - neg_logit)).sum(dim=1)
-        reg = (s * neg_logit ** 2).sum(dim=1)
-        return (-torch.log(p_win + 1e-10) + bpr_reg * reg).mean()
+    return (h * pos_e).sum(dim=1), torch.einsum("bd,bnd->bn", h, neg_e)
+
+
+def sampled_softmax(h, item_emb, tgt, negs) -> torch.Tensor:
+    """One positive against the sampled negatives: the mean over the batch of
+    -log softmax of the positive's score."""
+    pos_logit, neg_logit = _scores(h, item_emb, tgt, negs)
     logits = torch.cat([pos_logit[:, None], neg_logit], dim=1)
     return -torch.log_softmax(logits, dim=1)[:, 0].mean()
 

@@ -1,9 +1,12 @@
-"""Run the sharded tables, sharded serving and data-parallel training
-once, at tiny shapes, over every rank of a process group: the port's part of
-the JAX package's ``dryrun_multichip`` (``__graft_entry__.py``: the sharded
-SGNS and MF steps, the distributed top-k and lookup, the sharded candidate
-chunk and heuristic routes, the data-parallel ranker, GBDT growth, sequence
-and ZeRO-1 steps).
+"""Run the sharded tables, sharded serving, and data-, model- and
+expert-parallel training once, at tiny shapes, over every rank of a process
+group: the port of the JAX package's ``dryrun_multichip``
+(``__graft_entry__.py``: the sharded SGNS and MF steps, the distributed
+top-k and lookup, the sharded candidate chunk and heuristic routes, the
+data-parallel ranker, GBDT growth, sequence and ZeRO-1 steps, the tensor,
+sequence-, pipeline- and expert-parallel transformer steps, the 3-D step
+when the world size is a multiple of 4, and the expert-parallel
+recommender).
 
     torchrun --nproc-per-node N -m otto_tpu_torch.parallel.dryrun \
         [--backend gloo] [--device cpu]
@@ -99,7 +102,10 @@ def run(mesh, seed: int = 0) -> dict:
     out["recency_shape"] = tuple(rec["clicks"].shape)
 
     out.update(_data_parallel(mesh, rng))
-    losses = ("sgns_loss", "mf_loss", "ranker_loss", "sequence_loss", "zero_loss")
+    out.update(_model_parallel(mesh, rng))
+    losses = ("sgns_loss", "mf_loss", "ranker_loss", "sequence_loss", "zero_loss", "tp_loss",
+              "tp_sp_loss", "pp_loss", "tp_moe_loss", "ep_loss") + (
+                  ("d3_loss",) if "d3_loss" in out else ())
     if not all(np.isfinite(out[k]) for k in losses):
         raise RuntimeError(f"dryrun: a loss is not finite: {out}")
     want = {"topk_shape": (8, 5), "lookup_shape": (8, D), "candidates_shape": (S, 24),
@@ -167,6 +173,77 @@ def _data_parallel(mesh, rng) -> dict:
     zp = params(8)
     state = zero_init(mesh, partial(torch.optim.Adam, lr=1e-3), zp)
     out["zero_loss"] = float(make_zero_sequence_step(mesh)(zp, state, *batch))
+    return out
+
+
+def _model_parallel(mesh, rng) -> dict:
+    """The model- and expert-parallel steps of ``dryrun_multichip``
+    (:158-193, :206-233) at its shapes, with Adam(1e-3): tensor-parallel with
+    and without sequence parallelism, the GPipe step (2 microbatches), a
+    tensor-parallel transformer with expert-parallel MoE FFNs, the 3-D step
+    on a (world/4) x 2 x 2 mesh of the same ranks when the world size is a
+    multiple of 4, and the expert-parallel recommender."""
+    import torch.distributed as dist
+
+    from otto_tpu_torch.models.sequence import init_params, tree_leaves
+    from otto_tpu_torch.parallel.expert_parallel import (
+        init_moe_recommender,
+        make_ep_moe_step,
+        moe_recommender_specs,
+    )
+    from otto_tpu_torch.parallel.mesh import axis_size, make_mesh3d
+    from otto_tpu_torch.parallel.model_parallel import (
+        make_pp_sequence_step,
+        make_pp_tp_sequence_step,
+        make_tp_sequence_step,
+        pp_param_specs,
+        pp_tp_param_specs,
+        shard_params,
+        stack_pipeline_params,
+        tp_param_specs,
+    )
+
+    dp, mp = axis_size(mesh, "data"), axis_size(mesh, "model")
+    Bq, Lm = 2 * dp, (2 * mp if mp > 1 else 4)  # the length divides by mp (sequence parallel)
+    tgt = rng.integers(0, 64, Bq).astype(np.int32)
+    negs = rng.integers(0, 64, (Bq, 4)).astype(np.int32)
+    batch = (rng.integers(0, 64, (Bq, Lm)).astype(np.int32), np.ones((Bq, Lm), bool), tgt, negs)
+
+    def seq_init(seed, dim, **kw):
+        return init_params(torch.Generator().manual_seed(seed), 64, dim, dim,
+                           architecture="transformer", **kw)
+
+    def run_step(on, params, specs, make, data=batch):
+        blocks = shard_params(on, params, specs)
+        return float(make(torch.optim.Adam(tree_leaves(blocks), lr=1e-3))(blocks, *data))
+
+    out = {}
+    tp = seq_init(4, 2 * mp, max_len=Lm, n_layers=mp, n_heads=mp)
+    for key, use_sp in (("tp_loss", False), ("tp_sp_loss", True)):
+        out[key] = run_step(mesh, tp, tp_param_specs(mesh, tp),
+                            lambda o: make_tp_sequence_step(mesh, o, sequence_parallel=use_sp))
+    stacked = stack_pipeline_params(tp, mp)
+    out["pp_loss"] = run_step(mesh, stacked, pp_param_specs(mesh, stacked),
+                              lambda o: make_pp_sequence_step(mesh, o, n_micro=2))
+    moe = seq_init(6, 2 * mp, max_len=Lm, n_layers=1, n_heads=mp, moe_experts=2 * mp)
+    out["tp_moe_loss"] = run_step(mesh, moe, tp_param_specs(mesh, moe),
+                                  lambda o: make_tp_sequence_step(mesh, o))
+    world = dist.get_world_size()
+    if world % 4 == 0:
+        mesh3 = make_mesh3d(world // 4, 2, 2, device_type=mesh.device_type)
+        stacked3 = stack_pipeline_params(seq_init(7, 4, max_len=4, n_layers=2, n_heads=2), 2)
+        B3 = 2 * (world // 4)
+        b3 = (rng.integers(0, 64, (B3, 4)).astype(np.int32), np.ones((B3, 4), bool),
+              rng.integers(0, 64, B3).astype(np.int32),
+              rng.integers(0, 64, (B3, 4)).astype(np.int32))
+        out["d3_loss"] = run_step(mesh3, stacked3, pp_tp_param_specs(mesh3, stacked3),
+                                  lambda o: make_pp_tp_sequence_step(mesh3, o, n_micro=2,
+                                                                     sequence_parallel=True), b3)
+    rec = init_moe_recommender(torch.Generator().manual_seed(5), 64, 8, 16, 2 * mp)
+    pooled = (rng.integers(0, 64, (Bq, 4)).astype(np.int32), np.ones((Bq, 4), np.float32), tgt,
+              negs)
+    out["ep_loss"] = run_step(mesh, rec, moe_recommender_specs(mesh),
+                              lambda o: make_ep_moe_step(mesh, o, capacity=Bq), pooled)
     return out
 
 

@@ -12,7 +12,12 @@ run on ``mesh.get_group(axis)``.  The collectives used are ``all_reduce``
 host memory) and NCCL on CUDA tensors, so the same code runs under both.
 
 Rank ``r`` of a ``dp x mp`` mesh sits at ``(r // mp, r % mp)``, the layout
-of ``np.asarray(devices).reshape(dp, mp)`` in the JAX package.  A rank's
+of ``np.asarray(devices).reshape(dp, mp)`` in the JAX package; a 3-D mesh
+(:func:`make_mesh3d`) has dims ``(data, pipe, model)``.  A mesh may cover
+the first ranks of the group only (``make_mesh(ranks=)``).  A layout is a
+list of ``Shard``/``Replicate`` placements, one a mesh dim (:func:`sharded`);
+:func:`take_block` and :func:`gather_block` cut a tensor into a rank's block
+and join the blocks again.  A rank's
 device is ``cuda:<LOCAL_RANK modulo the card count>`` on a CUDA mesh (ranks
 beyond the card count share cards; two ranks on one card must use ``gloo``:
 NCCL refuses them) and the CPU on a CPU mesh.
@@ -81,12 +86,20 @@ def _checked_device_type(device_type: str) -> str:
     return device_type
 
 
-def make_mesh(config: MeshConfig = MeshConfig(), device_type: str = "cuda") -> DeviceMesh:
-    """A ``data x model`` mesh over every rank of the process group;
-    ``data_parallel=-1`` takes the world size over ``model_parallel``.  A
-    CUDA mesh without a card raises; CPU ranks pass ``device_type="cpu"``."""
+def make_mesh(config: MeshConfig = MeshConfig(), device_type: str = "cuda",
+              ranks: int | None = None) -> DeviceMesh:
+    """A ``data x model`` mesh over every rank of the process group, or over
+    its first ``ranks`` ranks (the JAX ``devices=`` argument: one launch of 8
+    ranks serves a 4-device mesh); ``data_parallel=-1`` takes that count
+    over ``model_parallel``.  Every rank of the group calls this (the mesh's
+    groups are made by all of them); a rank outside the mesh gets a mesh in
+    which :func:`in_mesh` is False and calls nothing on it.  A CUDA mesh
+    without a card raises; CPU ranks pass ``device_type="cpu"``."""
     device_type = _checked_device_type(device_type)
-    n = _world_size()
+    world = _world_size()
+    n = world if ranks is None else ranks
+    if not 0 < n <= world:
+        raise ValueError(f"make_mesh: ranks={ranks} is not in 1..{world}")
     mp = max(config.model_parallel, 1)
     dp = config.data_parallel if config.data_parallel > 0 else n // mp
     if dp * mp != n:
@@ -100,7 +113,8 @@ def make_mesh3d(data_parallel: int, pipeline_parallel: int, tensor_parallel: int
                 axes: tuple[str, str, str] = ("data", "pipe", "model")) -> DeviceMesh:
     """A ``data x pipe x model`` mesh over the first ranks of the group
     (tensor parallelism innermost: neighbouring ranks); CUDA unless
-    ``device_type="cpu"``, as :func:`make_mesh`."""
+    ``device_type="cpu"``.  Every rank of the group calls it, as
+    :func:`make_mesh`."""
     device_type = _checked_device_type(device_type)
     n = data_parallel * pipeline_parallel * tensor_parallel
     have = _world_size()
@@ -109,6 +123,11 @@ def make_mesh3d(data_parallel: int, pipeline_parallel: int, tensor_parallel: int
                          f"needs {n} devices, have {have}")
     ranks = torch.arange(n).reshape(data_parallel, pipeline_parallel, tensor_parallel)
     return DeviceMesh(device_type, ranks, mesh_dim_names=axes)
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    """Whether this rank is one of ``mesh``'s."""
+    return mesh.get_coordinate() is not None
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
@@ -152,6 +171,17 @@ def _sharded_on(mesh: DeviceMesh, axis: str) -> list:
     return [Shard(0) if name == axis else Replicate() for name in mesh.mesh_dim_names]
 
 
+def sharded(mesh: DeviceMesh, dims: dict[str, int]) -> list:
+    """The layout of a tensor whose dim ``dims[axis]`` splits in equal
+    blocks over each named ``axis`` (for instance ``{"pipe": 0, "model": 3}``
+    for a stacked pipeline stage's heads), replicated over the others."""
+    unknown = set(dims) - set(mesh.mesh_dim_names)
+    if unknown:
+        raise ValueError(f"sharded: axes {sorted(unknown)} are not the mesh's "
+                         f"{mesh.mesh_dim_names}")
+    return [Shard(dims[name]) if name in dims else Replicate() for name in mesh.mesh_dim_names]
+
+
 def row_sharded(mesh: DeviceMesh, axis: str = "model") -> list:
     """The layout of a table whose rows split in blocks over ``axis``."""
     return _sharded_on(mesh, axis)
@@ -178,6 +208,42 @@ def shard_rows(mesh: DeviceMesh, array, axis: str = "model"):
     if t.shape[0] < per:
         t = torch.cat([t, t.new_zeros((per - t.shape[0], *t.shape[1:]))])
     return t.contiguous()
+
+
+def _split_dims(mesh: DeviceMesh, placements) -> list[tuple[str, int]]:
+    """(axis, tensor dim) of each ``Shard`` in a layout; one axis a dim."""
+    out = [(name, pl.dim) for name, pl in zip(mesh.mesh_dim_names, placements)
+           if isinstance(pl, Shard)]
+    dims = [d for _, d in out]
+    if len(set(dims)) != len(dims):
+        raise ValueError(f"a tensor dim split over two mesh axes is not supported: "
+                         f"{list(placements)}")
+    return out
+
+
+def take_block(mesh: DeviceMesh, whole, placements) -> torch.Tensor:
+    """This rank's block of ``whole`` (numpy or a tensor) under a layout
+    (:func:`sharded`), as a new contiguous tensor on the rank's device; each
+    split dim must divide by its axis size."""
+    t = torch.from_numpy(np.asarray(whole)) if not torch.is_tensor(whole) else whole
+    for axis, dim in _split_dims(mesh, placements):
+        parts = axis_size(mesh, axis)
+        if t.shape[dim] % parts:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} tensor does not split over "
+                             f"the {parts} ranks of {axis!r}")
+        per = t.shape[dim] // parts
+        t = t.narrow(dim, axis_index(mesh, axis) * per, per)
+    return t.to(mesh_device(mesh), copy=True).contiguous()
+
+
+def gather_block(mesh: DeviceMesh, block: torch.Tensor, placements) -> torch.Tensor:
+    """The whole tensor from every rank's :func:`take_block` block (one
+    ``all_gather`` an axis it is split over); every rank of the mesh calls
+    it and gets the whole."""
+    t = block.detach()
+    for axis, dim in _split_dims(mesh, placements):
+        t = torch.cat(all_gather(mesh, t.contiguous(), axis), dim=dim)
+    return t
 
 
 def host_shard_sessions(n_sessions: int, process_index: int | None = None,

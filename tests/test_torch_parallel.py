@@ -203,12 +203,29 @@ def _task_mesh8(d: Path) -> dict:
 
 
 def _task_mesh4(d: Path) -> dict:
+    import torch
+    import torch.distributed as dist
+
     from otto_tpu_torch.config import MeshConfig
+    from otto_tpu_torch.ops.moe import init_moe, moe_apply, moe_param_specs
     from otto_tpu_torch.parallel import make_mesh
+    from otto_tpu_torch.parallel.mesh import in_mesh
+    from otto_tpu_torch.parallel.model_parallel import shard_params
 
     inp = dict(np.load(d / "in.npz"))
     mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=4), device_type="cpu")
-    return {f"sgns_1x4_{k}": v for k, v in _sgns_run(mesh, inp, "dup").items()}
+    out = {f"sgns_1x4_{k}": v for k, v in _sgns_run(mesh, inp, "dup").items()}
+    # expert parallelism on the first two ranks, mesh (1, 2); its own file
+    m12 = make_mesh(MeshConfig(data_parallel=1, model_parallel=2), device_type="cpu", ranks=2)
+    if in_mesh(m12):
+        p = init_moe(torch.Generator().manual_seed(5), 16, 32, 4)
+        x = torch.from_numpy(np.random.default_rng(6).normal(size=(12, 16)).astype(np.float32))
+        with torch.no_grad():
+            got = moe_apply(shard_params(m12, p, moe_param_specs(m12)), x, capacity=5,
+                            model_axis="model", mesh=m12)
+        np.savez(d / f"moe12_rank{dist.get_rank()}.npz", got=got.numpy(),
+                 want=moe_apply(p, x, capacity=5).numpy())
+    return out
 
 
 def _worker(task: str, d: Path) -> None:
@@ -261,7 +278,8 @@ def ranks(tmp_path_factory):
     jm.save(d / "ranker.npz")
     outs = _launch("mesh8", 8, d)
     outs4 = _launch("mesh4", 4, d)
-    return dict(inp=inp, jm=jm, d=d, outs=outs, outs4=outs4, out={**outs[0], **outs4[0]})
+    return dict(inp=inp, jm=jm, d=d, outs=outs, outs4=outs4, out={**outs[0], **outs4[0]},
+                moe12=[dict(np.load(d / f"moe12_rank{r}.npz")) for r in range(2)])
 
 
 @pytest.fixture(scope="module")
@@ -545,17 +563,26 @@ def test_dryrun_module_on_two_gloo_ranks(tmp_path):
                         env={"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}, cwd=REPO)
     assert [o.split(" ok ")[0] for o in outs] == ["dryrun rank 0/2", "dryrun rank 1/2"]
     assert outs[0].split(" ok ")[1] == outs[1].split(" ok ")[1]
+    # mesh (1, 2): the model- and expert-parallel steps ran too (no 3-D at 2 ranks)
+    for key in ("tp_loss", "tp_sp_loss", "pp_loss", "tp_moe_loss", "ep_loss"):
+        assert f"'{key}'" in outs[0], key
+    assert "'d3_loss'" not in outs[0]
 
 
-def test_mesh_still_raises_in_later_slices():
+def test_mesh_still_raises_in_later_slices(ranks):
+    """Expert parallelism runs since M15c: ``moe_apply(model_axis=)`` over a
+    (1, 2) mesh (each rank two of the four experts) equals the
+    single-device ``moe_apply``; without a mesh it raises."""
     import torch
 
-    from otto_tpu_torch.ops.moe import moe_apply
+    from otto_tpu_torch.ops.moe import init_moe, moe_apply
 
-    # fit_gbdt(mesh=) and train_gbdt_ranker(mesh=) run since M15b
-    # (tests/test_torch_data_parallel.py)
-    with pytest.raises(NotImplementedError, match="M15c"):
-        moe_apply({}, torch.zeros((2, 2)), capacity=1, model_axis="model")
+    for r in ranks["moe12"]:
+        np.testing.assert_allclose(r["got"], r["want"], rtol=0, atol=1e-6)
+    assert np.abs(ranks["moe12"][0]["want"]).max() > 0
+    p = init_moe(torch.Generator().manual_seed(5), 16, 32, 4)
+    with pytest.raises(ValueError, match="mesh"):
+        moe_apply(p, torch.zeros((2, 16)), capacity=1, model_axis="model")
 
 
 def test_port_and_chip_smoke_import_no_jax():

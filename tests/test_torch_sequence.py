@@ -178,7 +178,7 @@ def test_moe_apply_equal_to_jax_drops_included():
     np.testing.assert_array_equal(np.flatnonzero(kept_want[40:60]), np.arange(11))
     assert kept_want[7]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(ValueError, match="mesh"):  # expert parallelism needs the mesh
         tmoe.moe_apply(tp, torch.from_numpy(x), capacity=cap, model_axis="model")
 
 
