@@ -22,7 +22,7 @@ exit code):
    (1,855,603 items x 32 dims: stage 1 over 1,867,776 padded items at 256
    queries, at 115, the neighbor table's last batch, and at 4,096 x 102,
    the table's other batches, on the very inputs it is timed on; stage 1's
-   FMA route for bf16 deeper than 256 at DA 300; the peel on those batches'
+   deep wgmma route for bf16 deeper than 256 at DA 300; the peel on those batches'
    packed maxima and on tie-heavy and -inf rows, R = 1, 6, 21, 40), with
    the times of both at a 4,096-query batch (the peel's by CUDA graphs:
    device time alone), each kernel's share of its bound, ``torch.matmul``
@@ -32,10 +32,14 @@ exit code):
    through ``SGNSModel.save``/``load``, ``FusedRetriever`` queries/s and its
    recall against the exact scan;
 3b. ``FusedRetriever`` on a seeded 1,000,000 x 96 table (compensated: a
-   contraction of 294, past the wgmma kernel's 256, so stage 1 runs its FMA
-   route), recall against the exact scan, with the counters zeroed before
-   and read after; then that route against its twin on the retriever's own
-   operands, and the times of both;
+   contraction of 294, past the wgmma kernel's 256, so stage 1 runs its
+   deep wgmma route and never the FMA kernel), recall against the exact
+   scan, with the counters zeroed before and read after; then that route
+   against its twin on the retriever's own operands, its time beside the
+   FMA kernel's and the twin's on them, and one launch at the full
+   catalog's [4096 x 294] x [294 x 1,867,776]; then the same table as a
+   float32 single-precision retriever (DA 98: the FMA kernel), recall and
+   counters again, and the FMA kernel against its twin on its operands;
 4. the serving path in the order of ``otto_tpu.pipelines.run_embedding_knn``:
    ``neighbor_table(k=21)`` over every aid, ``embedding_knn_predictions`` on
    20,000 synthetic sessions, ``evaluate_predictions``; the kernels' launch
@@ -133,11 +137,11 @@ exit code):
    5-tree lambdarank fit (``configs/gbdt_lambdarank.yaml``, trees cut) and
    ``_lambdarank_gh`` on its scores, card within 1e-5 relative of the CPU;
    11d the CLI's ``two_stage validation --config <20 trees, 3 folds>`` on
-   phase 6's store cut to 20,000 sessions into an empty directory (three
+   phase 6's store cut to 10,000 sessions into an empty directory (three
    rankers saved, the histogram and binning kernels launched), the same
    command resuming (neither launched; lists equal to ``predict_two_stage``
    with the saved artifacts), and ``two_stage_streamed validation
-   --train-sessions 5000`` on its first 20,000 sessions (a lift printed);
+   --train-sessions 2500`` on the same sessions (a lift printed);
 12. SGNS training on the card with the published configs
    (``configs/fasttext.yaml``, ``configs/word2vec.yaml``), one epoch each,
    each cut printed: 12a the four SGNS steps (per-pair, weighted,
@@ -146,7 +150,7 @@ exit code):
    negatives drawn on the host), within 1e-4 * (|x| + 0.01), and each
    step's ms against its bound; 12b ``train_sgns`` (fasttext ns, word2vec
    hs) and ``train_sgns_device`` (1,024 shared negatives) on phase 7's
-   store: pairs, pairs/s, ms a step, the loss falling, the device
+   store cut to its first 100,000 sessions: pairs, pairs/s, ms a step, the loss falling, the device
    sampler's kept pairs against the host epoch's count; 12c one fasttext
    epoch on a planted-cluster corpus spread over the full catalog, then
    ``neighbor_table(k=21)`` (stage 1 and the peel launch) and
@@ -155,7 +159,7 @@ exit code):
    the exact scan; 12d the CLI's ``embedding_knn validation``, ``doc2vec
    validation`` and ``embedding_knn submission`` on phase 7's store as
    parquet, the file equal to the runner's lists; 12e ``run_two_stage``
-   with ``sgns_config`` on phase 11d's store cut to 20,000 sessions over a
+   with ``sgns_config`` on phase 11d's store cut to 10,000 sessions over a
    100,000-aid catalog: trains SGNS and the rankers and saves, then
    resumes with no training and lists equal to ``predict_two_stage``;
 13. the listwise tower at ``configs/ranker.yaml``'s widths ((256, 256, 128),
@@ -166,12 +170,12 @@ exit code):
    compute, 1e-4 in bfloat16), ms a step, and candidates scored per second
    at the reference bench's [1,024 x 128 x 52] against the float32 bound;
    13b ``run_two_stage(ranker_config=<configs/ranker.yaml>)`` on phase
-   11d's store cut to 20,000 sessions into an empty directory (``train_s``,
+   11d's store cut to 10,000 sessions into an empty directory (``train_s``,
    steps, each fold's loss falling from its first epoch to its last,
    MAP@20 per fold, ``report``, ``report_disjoint``, the paired bootstrap
    of the lift over the heuristic on the disjoint half with its ci95 upper
    end above 0), the same call resumed (no step; lists equal to
-   ``predict_two_stage``), and on the store's first 10,000 sessions the
+   ``predict_two_stage``), and on the store's first 5,000 sessions the
    tower paired with a small GBDT (K5, K4 and K4 bin launch) and
    ``run_two_stage_streamed`` training a tower; 13c the
    CLI's ``two_stage validation`` with no ``--ranker`` (the tower) into an
@@ -189,15 +193,16 @@ exit code):
    within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
    but where a rounding-level gradient decides Adam's sign, counted), ms a
    step against the dense Adam's bound; 14b ``pipelines.run_sequence`` with
-   each config on phase 7's split (``train_s``, steps, ms a step and the
+   each config on the split of phase 7's store cut to its first 100,000
+   sessions (``train_s``, steps, ms a step and the
    host draw's share, the loss falling from the first tenth of the steps to
    the last, routes, serve seconds, sessions/s, weighted recall@20, K1, K2
    and K3 launched); 14c K1 on the path's own operands ([4,096 x 198]
    against the compensated dim-64 table) and K3's block kernel on the
    recency route's [S, 256] input against their twins, with times and
    bounds, and ``full_sort_topk`` against the exact scan on 2,000 sessions
-   (recall >= 0.99); 14d ``sequence validation`` through the CLI on phase
-   7's store as ``.jsonl`` (report and lists equal to 14b's gru run: the
+   (recall >= 0.99); 14d ``sequence validation`` through the CLI on 14b's
+   100,000 sessions as ``.jsonl`` (report and lists equal to 14b's gru run: the
    card's training is bit-reproducible), ``sequence submission`` in a
    process of its own on 10,000 sessions, and a saved model loaded back
    (lists equal);
@@ -393,11 +398,13 @@ def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
 
 def stage1_bound(q, t) -> tuple[float, str]:
     """Stage 1's bound: q [B, DA] and t [DA, N_pad] read once, [B, N_pad/128]
-    float32 written once, 2 B DA N_pad operations at the bf16 tensor rate."""
+    float32 written once, 2 B DA N_pad operations at the bf16 tensor rate
+    for bf16 operands and at the float32 rate for float32 ones (the tensor
+    cores take float32 only as TF32, outside the float32 contract)."""
     n_pad = t.shape[1]
+    rate = F32_OPS_PER_S if q.element_size() == 4 else BF16_TENSOR_OPS_PER_S
     return bound(q.numel() * q.element_size() + t.numel() * t.element_size()
-                 + q.shape[0] * (n_pad // 128) * 4, 2.0 * q.numel() * n_pad,
-                 BF16_TENSOR_OPS_PER_S)
+                 + q.shape[0] * (n_pad // 128) * 4, 2.0 * q.numel() * n_pad, rate)
 
 
 def matmul_yardstick_ms(torch, q, t, reps: int) -> tuple[float, int]:
@@ -428,8 +435,8 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     table's last batch.  On integer-valued inputs it is exact, so bit-equal.
     On normal data the tensor cores and cuBLAS sum in other orders: a packed
     maximum may move by one truncation step (2^7 ulps) and change its 7-bit
-    position code, so the bound is 2^8 ulps = 2^-15 relative.  Its FMA
-    route (bf16 deeper than 256) is held to the same limits at DA 300.  The
+    position code, so the bound is 2^8 ulps = 2^-15 relative.  Its deep
+    wgmma route (bf16 deeper than 256) is held to the same limits at DA 300.  The
     peel is pure selection, bit-equal on the path's own packed maxima and on
     tie-heavy and -inf rows of ``peel_rows_cmp`` rows.
     """
@@ -515,27 +522,32 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     check(rel <= 2.0**-15, f"stage 1 DA=102 B={b_time}: relative error {rel}")
     check(same >= 0.999, f"stage 1 DA=102 B={b_time}: window positions agree on {same}")
 
-    # stage 1's FMA route: bf16 deeper than the wgmma kernel's 256, at DA 300
-    # over 2 chunks (a compensated table of 98 dims)
-    fma_n = 2 * fr.CHUNK
+    # stage 1's deep wgmma route: bf16 deeper than the wgmma kernel's 256, at
+    # DA 300 over 2 chunks (a compensated table of 98 dims)
+    deep_n = 2 * fr.CHUNK
     qi = torch.randint(-8, 9, (b_last, 300), generator=g, device=dev).to(torch.bfloat16)
     qi[:, -1] = 64
-    ti = torch.randint(-8, 9, (300, fma_n), generator=g, device=dev).to(torch.bfloat16)
+    ti = torch.randint(-8, 9, (300, deep_n), generator=g, device=dev).to(torch.bfloat16)
+    before = fr.fused_stage1.deep_launches
     k, r = fr.fused_stage1(qi, ti), fr._stage1_reference(qi, ti)
     sync(torch, dev)
+    check(dev.type != "cuda" or fr.fused_stage1.deep_launches == before + 1,
+          "stage 1 DA=300 did not take the deep route")
     check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
-          "stage 1 FMA route DA=300: kernel and twin differ on integer-valued inputs")
+          "stage 1 deep route DA=300: kernel and twin differ on integer-valued inputs")
     qf = torch.randn((b_time, 300), generator=g, device=dev)
     qf[:, -1] = 128.0
-    tf = torch.randn((300, fma_n), generator=g, device=dev)
+    tf = torch.randn((300, deep_n), generator=g, device=dev)
     tf[-1] = 1.0
     qf, tf = qf.to(torch.bfloat16), tf.to(torch.bfloat16)
     k, r = fr.fused_stage1(qf, tf), fr._stage1_reference(qf, tf)
-    rel_fma = ((k - r).abs() / r.abs()).max().item()
-    check(rel_fma <= 2.0**-15, f"stage 1 FMA route DA=300: relative error {rel_fma}")
-    print(f"stage 1 FMA route, bf16 DA=300 over {fma_n} columns: integer inputs bit-equal "
-          f"(B={b_last}); normal inputs (B={b_time}) max rel err {rel_fma:.3e} (limit 2^-15)",
-          flush=True)
+    rel_deep = ((k - r).abs() / r.abs()).max().item()
+    same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
+    check(rel_deep <= 2.0**-15, f"stage 1 deep route DA=300: relative error {rel_deep}")
+    check(same >= 0.999, f"stage 1 deep route DA=300: window positions agree on {same}")
+    print(f"stage 1 deep route, bf16 DA=300 over {deep_n} columns: integer inputs bit-equal "
+          f"(B={b_last}); normal inputs (B={b_time}) max rel err {rel_deep:.3e} (limit 2^-15), "
+          f"same window position {same:.6f} (limit 0.999)", flush=True)
 
     # the peel on the path's own packed maxima (this batch and the table's
     # last), and on tie-heavy (few distinct values) and -inf rows, for the
@@ -571,8 +583,8 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     k1_ms = loop_ms(lambda: fr.fused_stage1(qt, tt), 10 * reps)
     k1_plain = loop_ms(lambda: fr._stage1_reference(qt, tt), reps)
     k1_ms2 = loop_ms(lambda: fr.fused_stage1(qt, tt), 10 * reps)
-    fma_ms = loop_ms(lambda: fr.fused_stage1(qf, tf), 5)
-    fma_plain = loop_ms(lambda: fr._stage1_reference(qf, tf), reps)
+    deep_ms = loop_ms(lambda: fr.fused_stage1(qf, tf), 10 * reps)
+    deep_plain = loop_ms(lambda: fr._stage1_reference(qf, tf), reps)
     k2_ms = dev_ms(lambda: rt.peel_rows(packed, 6))
     k2_plain = loop_ms(lambda: rt.peel_rows_reference(packed, 6), reps)
     k2_ms2 = dev_ms(lambda: rt.peel_rows(packed, 6))
@@ -582,7 +594,7 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     mm_ms, slices = (matmul_yardstick_ms(torch, qt, tt, reps) if dev.type == "cuda"
                      else (None, 0))
     k1_bound = stage1_bound(qt, tt)
-    fma_bound = stage1_bound(qf, tf)
+    deep_bound = stage1_bound(qf, tf)
     k2_bound = bound(packed.numel() * 4 + 2 * b_time * 6 * w * 4,
                      2.0 * 6 * packed.numel(), F32_OPS_PER_S)
     print(f"stage 1 [{b_time} x 102] x [102 x {n_pad}] bf16 (wgmma): kernel {k1_ms:.3f} / "
@@ -591,9 +603,9 @@ def compare_kernels(torch, dev, n_items: int, b_cmp: int, peel_rows_cmp: int,
     if mm_ms is not None:
         print(f"torch.matmul yardstick, the bf16 product alone (no pack, no window max) in "
               f"{slices} column slices: {mm_ms:.3f} ms", flush=True)
-    print(f"stage 1 FMA route [{b_time} x 300] x [300 x {fma_n}] bf16: kernel {fma_ms:.3f} ms, "
-          f"twin {fma_plain:.3f} ms; bound {fma_bound[0]:.4f} ms ({fma_bound[1]}): "
-          f"{100 * fma_bound[0] / fma_ms:.1f}% of it", flush=True)
+    print(f"stage 1 deep route [{b_time} x 300] x [300 x {deep_n}] bf16: kernel "
+          f"{deep_ms:.3f} ms, twin {deep_plain:.3f} ms; bound {deep_bound[0]:.4f} ms "
+          f"({deep_bound[1]}): {100 * deep_bound[0] / deep_ms:.1f}% of it", flush=True)
     print(f"peel [{b_time}, {m}] R=6 on K1's packed maxima: kernel {k2_ms:.4f} / "
           f"{k2_ms2:.4f} ms (CUDA graph), twin {k2_plain:.3f} ms; bound {k2_bound[0]:.4f} ms "
           f"({k2_bound[1]}): {100 * k2_bound[0] / k2_best:.1f}% of it; context, not the same "
@@ -675,69 +687,182 @@ def retrieval(torch, dev, n_aids: int, n_queries: int, n_recall: int, workdir: P
     return model
 
 
-def wide_retrieval(torch, dev, n_items: int, dim: int, n_queries: int):
-    """Phase 3b: ``FusedRetriever`` (euclidean, compensated) on a seeded
-    ``n_items`` x ``dim`` table with dim >= 84, so that the contraction
-    3(dim + 2) passes the wgmma kernel's 256 and stage 1 takes its FMA
-    route; recall against the exact scan.  The caller zeroes the launch
-    counters before and reads them after.  Returns the retriever and the
-    queries."""
+def wide_retrieval(torch, dev, n_items: int, dim: int, n_queries: int,
+                   table_dtype=None):
+    """Phase 3b: ``FusedRetriever`` (euclidean) on a seeded ``n_items`` x
+    ``dim`` table, compensated by default: with dim >= 84 the contraction
+    3(dim + 2) passes the wgmma kernel's 256, so stage 1 takes its deep
+    wgmma route.  With ``table_dtype=torch.float32`` the table is stored in
+    single precision as float32 (DA dim + 2), which the FMA kernel takes.
+    Recall against the exact scan.  The caller zeroes the launch counters
+    before and reads them after.  Returns the retriever and the queries."""
     from otto_tpu_torch.ops.fused_retrieval import FusedRetriever
     from otto_tpu_torch.ops.retrieval import topk_scan
 
     rng = np.random.default_rng(SEED + 3)
     items = torch.as_tensor(rng.standard_normal((n_items, dim), dtype=np.float32), device=dev)
     q = items[torch.as_tensor(rng.choice(n_items, n_queries, replace=False), device=dev)]
+    kind = ({"precision": "compensated"} if table_dtype is None else
+            {"precision": "single", "table_dtype": table_dtype})
+    label = ", ".join(str(v).removeprefix("torch.") for v in kind.values())
     t0 = time.perf_counter()
-    retriever = FusedRetriever(items, metric="euclidean", precision="compensated", device=dev)
+    retriever = FusedRetriever(items, metric="euclidean", device=dev, **kind)
     s, i = retriever.topk(q, k=K_NNS)
     sync(torch, dev)
     secs = time.perf_counter() - t0
     check(bool(torch.isfinite(s).all()) and i.shape == (n_queries, K_NNS), "wide top-k output")
     _, ei = topk_scan(q, items, k=K_NNS, metric="euclidean")
     rec = overlap(i.cpu().numpy(), ei.cpu().numpy())
-    print(f"FusedRetriever(euclidean, compensated) {n_items} x {dim} (contraction "
-          f"{retriever.items_aug_t.shape[0]}), {n_queries} queries k={K_NNS}: {secs:.2f} s "
+    table = retriever.items_aug_t
+    print(f"FusedRetriever(euclidean, {label}) {n_items} x {dim} (contraction "
+          f"{table.shape[0]}), {n_queries} queries k={K_NNS}: {secs:.2f} s "
           f"with the table's preparation; recall vs exact scan {rec:.4f} (limit 0.99)",
           flush=True)
     check(rec >= 0.99, f"wide-table recall {rec} < 0.99")
     return retriever, q
 
 
-def wide_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
-    """Phase 3b, after its counters are read: stage 1's FMA route against its
-    twin on the wide table's own operands (the retriever's augmented table,
-    and the queries augmented and split as ``FusedRetriever.topk`` does),
-    then the times of both.  The kernel sums each product in ascending d,
-    cuBLAS's float32 matmul in another order, so as in phase 2 the live
-    windows agree within 2^-15 relative and the window positions on >= 0.999
-    of cells.  Returns the route's record for the kernels line."""
+def retriever_operands(torch, retriever, q):
+    """The stage-1 operands ``FusedRetriever.topk`` hands ``fused_stage1``:
+    the queries augmented (and split when compensated) and the table."""
     from otto_tpu_torch.ops import fused_retrieval as fr
 
     q_aug, _ = fr._augment_queries(q, retriever.max_sq, retriever.metric)
-    qhi, qlo = fr._bf16_split(q_aug)
-    q_aug = torch.cat([qhi, qhi, qlo], dim=1)
-    t = retriever.items_aug_t
-    k, r = fr.fused_stage1(q_aug, t), fr._stage1_reference(q_aug, t)
-    sync(torch, dev)
-    live = r >= 1.0  # pad windows pack below 1.0 in both
-    check(torch.equal(live, k >= 1.0), "stage 1 FMA route on the wide table: live windows differ")
+    if retriever.precision == "compensated":
+        qhi, qlo = fr._bf16_split(q_aug)
+        q_aug = torch.cat([qhi, qhi, qlo], dim=1)
+    else:
+        q_aug = q_aug.to(retriever.items_aug_t.dtype)
+    return q_aug, retriever.items_aug_t
+
+
+def stage1_close(torch, k, r, what: str) -> tuple[float, float, float]:
+    """Phase 2's bars for stage 1 on normal data: the same live windows
+    (pad windows pack below 1.0), values within 2^-15 relative on them,
+    the same window position on >= 0.999 of cells.  Returns (max relative
+    error, share of equal positions, max absolute error)."""
+    live = r >= 1.0
+    check(torch.equal(live, k >= 1.0), f"{what}: live windows differ")
     rel = ((k - r).abs() / r.abs())[live].max().item()
     same = ((k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)).float().mean().item()
-    err = (k - r).abs().max().item()
-    check(rel <= 2.0**-15, f"stage 1 FMA route on the wide table: relative error {rel}")
-    check(same >= 0.999, f"stage 1 FMA route on the wide table: positions agree on {same}")
+    check(rel <= 2.0**-15, f"{what}: relative error {rel}")
+    check(same >= 0.999, f"{what}: window positions agree on {same}")
+    return rel, same, (k - r).abs().max().item()
+
+
+def wide_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
+    """Phase 3b, after its counters are read: stage 1's deep wgmma route
+    against its twin on the wide table's own operands (the retriever's
+    augmented table, and the queries augmented and split as
+    ``FusedRetriever.topk`` does), within phase 2's bars (the tensor cores
+    and cuBLAS's float32 matmul sum in other orders); then the times of the
+    route, of the FMA kernel on the same operands (its C entry called
+    directly: the wrapper no longer sends it bf16 this shallow), of the
+    twin and of ``torch.matmul``'s bare bf16 product.  The route must be at
+    least 10x faster than the FMA kernel.  Returns its record for the
+    kernels line."""
+    from otto_tpu_torch.ops import _kernels
+    from otto_tpu_torch.ops import fused_retrieval as fr
+
+    q_aug, t = retriever_operands(torch, retriever, q)
+    check(fr.stage1_route(q_aug.dtype, q_aug.shape[1]) == "wgmma_deep",
+          f"the wide table's DA {q_aug.shape[1]} is not on the deep route")
+    k, r = fr.fused_stage1(q_aug, t), fr._stage1_reference(q_aug, t)
+    sync(torch, dev)
+    rel, same, err = stage1_close(torch, k, r, "stage 1 deep route on the wide table")
     del k, r
-    loop_ms = ((lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms)
+    fma_ms = mm_ms = None
+    if dev.type == "cuda":
+        loop_ms = lambda fn, n: cuda_ms(torch, fn, n)  # noqa: E731
+        out = torch.empty((q_aug.shape[0], t.shape[1] // fr.WINDOW), dtype=torch.float32,
+                          device=dev)
+        fma_ms = cuda_ms(torch, lambda: _kernels.launch_fused_stage1_fma(q_aug, t, out), reps)
+        mm_ms, slices = matmul_yardstick_ms(torch, q_aug, t, reps)
+        del out
+    else:  # a rehearsal on the CPU
+        loop_ms = _host_ms
+    ms = loop_ms(lambda: fr.fused_stage1(q_aug, t), 10 * reps)
+    plain_ms = loop_ms(lambda: fr._stage1_reference(q_aug, t), reps)
+    ms2 = loop_ms(lambda: fr.fused_stage1(q_aug, t), 10 * reps)
+    best = min(ms, ms2)
+    b = stage1_bound(q_aug, t)
+    shape = f"[{q_aug.shape[0]} x {t.shape[0]}] x [{t.shape[0]} x {t.shape[1]}] bf16"
+    print(f"stage 1 deep route on the wide table's operands {shape}: max rel err {rel:.3e} "
+          f"(limit 2^-15), same window position {same:.6f} (limit 0.999); kernel {ms:.4f} / "
+          f"{ms2:.4f} ms, twin {plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}): "
+          f"{100 * b[0] / best:.1f}% of it", flush=True)
+    if fma_ms is not None:
+        print(f"the FMA kernel on the same operands {fma_ms:.3f} ms ({fma_ms / best:.1f}x the "
+              f"deep route); torch.matmul's bare bf16 product (no pack, no window max) in "
+              f"{slices} column slices {mm_ms:.3f} ms", flush=True)
+        check(10 * best <= fma_ms, f"the deep route ({best} ms) is not 10x faster than the "
+              f"FMA kernel ({fma_ms} ms)")
+    return {"name": "fused_stage1_deep", "route": "cuda", "source": K1_SOURCE,
+            "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
+            "max_abs_err": err, "ms": best, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "fma_kernel_ms": fma_ms, "matmul_bf16_product_ms": mm_ms}
+
+
+def deep_full_catalog(torch, dev, b: int, da: int, n_items: int, reps: int = 3) -> dict:
+    """Phase 3b: one deep-route launch at the full catalog's shape, [b x da]
+    x [da x N_pad] bf16 over ``n_items`` items (pad columns zero): normal
+    operands with the retriever's positivity shift, held to the twin within
+    phase 2's bars, and its time against its bound."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+
+    n_pad = -(-n_items // fr.CHUNK) * fr.CHUNK
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q = torch.randn((b, da), generator=g, device=dev)
+    q[:, -1] = 128.0
+    t = torch.randn((da, n_pad), generator=g, device=dev).to(torch.bfloat16)
+    t[-1] = 1.0
+    t[:, n_items:] = 0
+    q = q.to(torch.bfloat16)
+    before = fr.fused_stage1.deep_launches
+    k = fr.fused_stage1(q, t)
+    sync(torch, dev)
+    check(dev.type != "cuda" or fr.fused_stage1.deep_launches == before + 1,
+          f"stage 1 at [{b} x {da}] did not take the deep route")
+    rel, same, _ = stage1_close(torch, k, fr._stage1_reference(q, t),
+                                f"stage 1 deep route at [{b} x {da}] x [{da} x {n_pad}]")
+    del k
+    loop_ms = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
+    ms = [loop_ms(lambda: fr.fused_stage1(q, t), reps) for _ in range(2)]
+    bd = stage1_bound(q, t)
+    print(f"stage 1 deep route at the full catalog's [{b} x {da}] x [{da} x {n_pad}] bf16: max "
+          f"rel err {rel:.3e}, same window position {same:.6f}; kernel {ms[0]:.4f} / "
+          f"{ms[1]:.4f} ms; bound {bd[0]:.4f} ms ({bd[1]}): {100 * bd[0] / min(ms):.1f}% of it",
+          flush=True)
+    return {"shape": [b, da, n_pad], "ms": min(ms), "bound_ms": bd[0], "bound_by": bd[1],
+            "max_rel_err": rel}
+
+
+def f32_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
+    """Phase 3b: the FMA kernel against its twin on the float32 wide table's
+    own operands (single precision, DA dim + 2), within phase 2's bars (it
+    sums in ascending d, cuBLAS in another order), and the times of both;
+    the bound prices its operations at the float32 rate.  Returns its
+    record for the kernels line."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+
+    q_aug, t = retriever_operands(torch, retriever, q)
+    check(fr.stage1_route(q_aug.dtype, q_aug.shape[1]) == "fma",
+          f"the float32 wide table (DA {q_aug.shape[1]}) is not on the FMA route")
+    k, r = fr.fused_stage1(q_aug, t), fr._stage1_reference(q_aug, t)
+    sync(torch, dev)
+    rel, same, err = stage1_close(torch, k, r, "stage 1 FMA kernel on the float32 wide table")
+    del k, r
+    loop_ms = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
     ms = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
     plain_ms = loop_ms(lambda: fr._stage1_reference(q_aug, t), reps)
     ms2 = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
     b = stage1_bound(q_aug, t)
-    print(f"stage 1 FMA route on the wide table's operands [{q_aug.shape[0]} x {t.shape[0]}] x "
-          f"[{t.shape[0]} x {t.shape[1]}] bf16: max rel err {rel:.3e} (limit 2^-15), same "
-          f"window position {same:.6f} (limit 0.999); kernel {ms:.3f} / {ms2:.3f} ms, twin "
-          f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}): {100 * b[0] / min(ms, ms2):.1f}% "
-          f"of it", flush=True)
+    print(f"stage 1 FMA kernel on the float32 wide table's operands [{q_aug.shape[0]} x "
+          f"{t.shape[0]}] x [{t.shape[0]} x {t.shape[1]}] float32: max rel err {rel:.3e} (limit "
+          f"2^-15), same window position {same:.6f} (limit 0.999); kernel {ms:.3f} / {ms2:.3f} "
+          f"ms, twin {plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}, at the float32 rate): "
+          f"{100 * b[0] / min(ms, ms2):.1f}% of it", flush=True)
     return {"name": "fused_stage1_fma", "route": "cuda", "source": K1_SOURCE,
             "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
             "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms,
@@ -2284,8 +2409,10 @@ def fits_card_vs_cpu(torch, dev, fold: dict, tree_sessions: int = 2_000) -> None
 # 11d's store: phase 6's first sessions (40,000 until phase 17 came, when
 # the script took 1,070.58 s of phases on a slower host: cut so that its
 # command time stays well under the 1,200 s limit; 24,000 until phase 18
-# came; at least the streamed run's 20,000)
-CLI_TRAIN_SESSIONS = 20_000
+# came; 20,000 until phase 3b's deep stage-1 route came, when it took
+# 1,210.5 s of phases on a slow host); the streamed run takes the same
+# sessions
+CLI_TRAIN_SESSIONS = 10_000
 
 
 def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counters) -> dict:
@@ -2297,9 +2424,9 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
     saved artifacts on the same split (the training run's own lists rank
     out-of-fold scores, the resumed run's the fold average, in both
     packages: the sessions where they differ are counted).  Then
-    ``two_stage_streamed validation --train-sessions 5000`` on the store's
-    first 20,000 sessions (the streamed count cut to 5,000): exit 0, a lift
-    printed.  Returns the launches."""
+    ``two_stage_streamed validation --train-sessions 2500`` on the same
+    sessions (half of its target sessions train, half stream): exit 0, a
+    lift printed.  Returns the launches."""
     import io
 
     from otto_tpu_torch import pipelines, twostage
@@ -2345,21 +2472,20 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
           f"(weighted {second.report.weighted:.6f}); the resumed lists equal predict_two_stage "
           f"with the saved artifacts; sessions whose lists differ between the training run "
           f"(out-of-fold scores) and the resumed one (fold average): {differ}", flush=True)
-    # the streamed run on the store's first 20,000 sessions: 5,000 of its
-    # 10,000 target sessions train, 5,000 stream
-    small = workdir / "bench_20k.parquet"
-    head_sessions(store, 20_000).to_parquet(small)
+    # the streamed run on the same sessions: half of the target sessions
+    # train, half stream
+    n_train = sp.val_input.n_sessions // 2
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         streamed = pipelines.main(["two_stage_streamed", "validation", "--train-sessions",
-                                   "5000", "--events", str(small), *common])
+                                   str(n_train), "--events", str(events), *common])
     streamed_s = time.perf_counter() - t0
     lift = [line for line in out.getvalue().splitlines() if line.startswith("lift vs heuristic")]
     check(len(lift) == 1 and 0 < streamed.report.weighted <= 1,
           "two_stage_streamed validation printed no lift")
-    print(f"CLI two_stage_streamed validation --train-sessions 5000 on 20,000 sessions "
-          f"(5,000 stream): {streamed_s:.2f} s; "
+    print(f"CLI two_stage_streamed validation --train-sessions {n_train} on "
+          f"{store.n_sessions} sessions: {streamed_s:.2f} s; "
           f"{lift[0]}; weighted {streamed.report.weighted:.6f}", flush=True)
     return {"launches": trained, "resumed": resumed}
 
@@ -2374,11 +2500,19 @@ def cli_train(torch, dev, bench_store, workdir: Path, zero_counters, read_counte
 # catalog's covisitation tables and aid features would add a minute of
 # host work that phases 7 and 9 already drive.
 TWO_STAGE_SGNS_AIDS = 100_000
+# 12b's corpus and 12e's store (200,000 and 20,000 sessions until phase
+# 3b's deep stage-1 route came, when the script took 1,210.5 s of phases on
+# a slow host: cut so that its command time stays under the 1,200 s limit)
+SGNS_TRAINER_SESSIONS = 100_000
+TWO_STAGE_SGNS_SESSIONS = 10_000
 SGNS_CUTS = ("epochs 5 -> 1 (each config)",
              "corpus: phase 7's 200,000-session store (2,599,069 events over the "
-             "1,855,603-aid catalog), not the OTTO training week",
-             "12e: phase 11d's store cut to its first 20,000 sessions (10,000 target), "
-             f"over a {TWO_STAGE_SGNS_AIDS:,}-aid catalog")
+             "1,855,603-aid catalog), not the OTTO training week; 12b trains on its first "
+             f"{SGNS_TRAINER_SESSIONS:,} sessions (the whole store until 3b's deep route came)",
+             f"12e: phase 11d's store cut to its first {TWO_STAGE_SGNS_SESSIONS:,} sessions "
+             f"(half of them target; 20,000 until 3b's deep route came), over a "
+             f"{TWO_STAGE_SGNS_AIDS:,}-aid "
+             "catalog")
 # 12a: card against CPU, each table entry within STEP_RTOL * (|cpu| +
 # STEP_FLOOR) and the loss within LOSS_RTOL relative.  Set from the CPU
 # rehearsal on these inputs: float32 against float64 differed by at most
@@ -2699,7 +2833,7 @@ def cli_sgns(torch, dev, store, workdir: Path, n_aids: int, zero_counters,
 def two_stage_trains_sgns(torch, dev, bench_store, workdir: Path, n_aids: int, zero_counters,
                    read_counters) -> dict:
     """Phase 12e: ``run_two_stage(sgns_config=fasttext, 1 epoch)`` on phase
-    11d's store cut to its first 20,000 sessions (val 0.5, seed 0; 11d's
+    11d's store cut to its first TWO_STAGE_SGNS_SESSIONS sessions (val 0.5, seed 0; 11d's
     20-tree, 3-fold bce rankers) over ``n_aids`` aids, enough for the SGNS
     table to take the fused route: the first run trains SGNS, saves ``sgns.npz``
     and the rankers (K1, K2, K5, K4 bin launch); the second resumes them
@@ -2710,7 +2844,8 @@ def two_stage_trains_sgns(torch, dev, bench_store, workdir: Path, n_aids: int, z
     from otto_tpu_torch.config import GBDTConfig
     from otto_tpu_torch.data.splits import split_by_fraction
 
-    sp = split_by_fraction(head_sessions(bench_store, 20_000), val_fraction=0.5, seed=0)
+    sp = split_by_fraction(head_sessions(bench_store, TWO_STAGE_SGNS_SESSIONS), val_fraction=0.5,
+                           seed=0)
     adir = workdir / "two_stage_sgns"
     kw = dict(labels=sp.val_labels, sgns_config=sgns_config("fasttext"),
               ranker_config=GBDTConfig(n_trees=20, n_folds=3, min_data_in_leaf=200,
@@ -2768,11 +2903,14 @@ TOWER_CONFIG = REPO / "configs" / "ranker.yaml"
 TOWER_SHARE, TOWER_REL, TOWER_FLOOR, TOWER_WORST = 0.99, 1e-5, 1e-3, 4e-3
 STEP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
 BENCH_TOWER = (1024, 128, 52)
-TOWER_CUTS = ("13b-13c: phase 11d's store cut to its first 20,000 sessions (10,000 target, "
-              "val 0.5, seed 0) over the bench's 20,000 aids; the tower/GBDT pair and the "
-              "streamed run on its first 10,000 (5,000 target), the pair's tower cut to 1 "
-              "epoch and its GBDT to 10 trees, 2 folds; the streamed run trains on 2,500 of "
-              "the 5,000 target sessions and streams the other 2,500",
+TOWER_SESSIONS = 10_000  # 13b-13c (20,000 until 3b's deep route came)
+TOWER_CUTS = ("13b-13c: phase 11d's store cut to its first 10,000 sessions (5,000 target, "
+              "val 0.5, seed 0; 20,000 until 3b's deep route came, when the script took "
+              "1,210.5 s of phases "
+              "on a slow host) over the bench's 20,000 aids; the tower/GBDT pair and the "
+              "streamed run on its first 5,000 (2,500 target), the pair's tower cut to 1 "
+              "epoch and its GBDT to 10 trees, 2 folds; the streamed run trains on 1,250 of "
+              "the 2,500 target sessions and streams the other 1,250",
               "13d: phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 "
               "events; the OTTO week has ~220M events) as .jsonl; card vs CPU on the first "
               "2,000 target sessions")
@@ -2912,9 +3050,9 @@ def artifact_differences(a: Path, b: Path) -> list[str]:
 
 
 def tower_training(torch, dev, bench_store, workdir: Path, zero_counters, read_counters,
-                   n_sessions: int = 20_000) -> dict:
+                   n_sessions: int = TOWER_SESSIONS) -> dict:
     """Phase 13b: ``run_two_stage(ranker_config=<configs/ranker.yaml>)`` on
-    phase 11d's store cut to its first 20,000 sessions (val 0.5, seed 0)
+    phase 11d's store cut to its first ``n_sessions`` sessions (val 0.5, seed 0)
     into an empty artifact directory: ``train_s``, the steps and ms a step,
     each fold's loss falling from its first epoch to its last, MAP@20 per
     fold, ``report`` and ``report_disjoint`` and the paired bootstrap of
@@ -3062,17 +3200,17 @@ def tower_training(torch, dev, bench_store, workdir: Path, zero_counters, read_c
 
 
 def tower_cli(torch, dev, bench_store, workdir: Path, trained: dict,
-              n_sessions: int = 20_000) -> dict:
+              n_sessions: int = TOWER_SESSIONS) -> dict:
     """Phase 13c: ``python -m otto_tpu_torch.pipelines two_stage validation``
     with no ``--ranker`` and no ``--config`` (the tower, ``RankerConfig()``,
-    whose values are configs/ranker.yaml's) on 13b's 20,000 sessions as
+    whose values are configs/ranker.yaml's) on 13b's ``n_sessions`` sessions as
     parquet (``--val-fraction 0.5 --seed 0``), into an empty directory, in
     this process: it trains, and its report, lists and files equal 13b's
     training run; the same command again resumes, and equals 13b's resumed
     run."""
     from otto_tpu_torch import pipelines
 
-    events, cli_dir = workdir / "bench_20k.parquet", workdir / "cli"
+    events, cli_dir = workdir / "bench_head.parquet", workdir / "cli"
     head_sessions(bench_store, n_sessions).to_parquet(events)
     argv = ["two_stage", "validation", "--n-aids", "20000", "--val-fraction", "0.5",
             "--seed", "0", "--artifact-dir", str(cli_dir), "--events", str(events),
@@ -3152,15 +3290,19 @@ def tfidf_run(torch, dev, store, workdir: Path, n_check: int = 2_000) -> dict:
 # epochs; the transformers 2 layers of 2 heads, the MoE's FFNs 4 experts)
 # over the full catalog.
 SEQ_CONFIGS = ("gru", "gru4rec_plus", "narm", "stamp", "caser", "transformer", "moe")
+SEQ_STORE_SESSIONS = 100_000  # 14b-14d: phase 7's store cut (200,000 before)
 SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with epochs: 1); "
             "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
-            "OTTO week has ~220M events): run_sequence trains gru on its 180,000-session "
-            "split",
+            f"OTTO week has ~220M events) cut to its first {SEQ_STORE_SESSIONS:,} sessions "
+            "(the whole store until 3b's deep route came, when the script took 1,210.5 s "
+            "of phases on a "
+            "slow host): run_sequence trains gru on its 90,000-session split and serves its "
+            "10,000 target sessions",
             "14b: the six other configs train on the split's first 10,000 training sessions "
             "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s; 45,000 until "
             "phase 16 came, when the script's phases 1-15 took 955 s on one host; 25,000 "
             "until phase 17 came, when the script took 1,070.58 s of phases on one host; "
-            "15,000 until phase 18 came) and serve the same 20,000 target sessions",
+            "15,000 until phase 18 came) and serve the same target sessions",
             "14d: the subprocess's sequence submission on phase 7's first 10,000 sessions",
             "14a: card against CPU on one step from one seeded batch of phase 7's examples "
             "and on 512 of its sessions")
@@ -3304,7 +3446,8 @@ def seq_draw_ms(n_aids: int, B: int, n_neg: int, reps: int = 20) -> float:
 
 def seq_runs(torch, dev, split, workdir: Path, zero_counters, read_counters) -> dict:
     """Phase 14b: ``run_sequence`` with each published config (epochs cut to
-    1) on phase 7's split, counters zeroed before each run and read after
+    1) on ``split`` (that of phase 7's store cut to SEQ_STORE_SESSIONS),
+    counters zeroed before each run and read after
     (K1, K2 and K3 must launch): ``train_s``, steps, ms a step and the
     negative draw's host share, the mean loss of the last tenth of the steps
     against the first tenth (it must fall), the routes, serve seconds,
@@ -3501,7 +3644,7 @@ def seq_kernels_on_path(torch, dev, target, model, n_aids: int, n_recall: int = 
 def seq_cli(torch, dev, store, workdir: Path, trained: dict, zero_counters,
             read_counters) -> dict:
     """Phase 14d: ``sequence validation --config <sequence_gru.yaml, 1
-    epoch>`` in process on phase 7's store as ``.jsonl``: if its report and
+    epoch>`` in process on ``store`` (14b's) as ``.jsonl``: if its report and
     lists equal 14b's gru run (a second training run of the same data: the
     card's training is then bit-reproducible), else held within 1e-3 of
     its weighted recall and named; ``sequence submission`` in a process of
@@ -4999,6 +5142,7 @@ def main() -> int:
 
     # each kernel's launch counter: (the wrapper, its attribute)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
+                "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
@@ -5050,11 +5194,25 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     zero_counters()
-    with phase("3b wide-table retrieval (stage 1's FMA route)"):
+    with phase("3b wide-table retrieval (stage 1's deep wgmma route)"):
         retriever, wide_q = wide_retrieval(torch, dev, 1_000_000, 96, 256)
-    wide = read_counters("wide-table retrieval", ("fused_stage1_fma", "peel_rows"))
-    with phase("3b stage 1's FMA route vs its twin on the wide table"):
+    wide = read_counters("wide-table retrieval", ("fused_stage1_deep", "peel_rows"))
+    check(wide["fused_stage1_fma"] == 0 and wide["fused_stage1"] == 0,
+          f"the compensated wide table left the deep route: {wide}")
+    with phase("3b stage 1's deep route vs its twin and the FMA kernel on the wide table"):
         records.insert(1, wide_stage1_vs_twin(torch, dev, retriever, wide_q))
+    del retriever
+    with phase("3b stage 1's deep route at the full catalog's shape"):
+        records[1]["full_catalog"] = deep_full_catalog(torch, dev, QUERY_BATCH, 294, N_AIDS)
+    zero_counters()
+    with phase("3b the wide table in float32 (stage 1's FMA kernel)"):
+        retriever, _ = wide_retrieval(torch, dev, 1_000_000, 96, 256,
+                                      table_dtype=torch.float32)
+    wide_f32 = read_counters("float32 wide-table retrieval", ("fused_stage1_fma", "peel_rows"))
+    check(wide_f32["fused_stage1_deep"] == 0 and wide_f32["fused_stage1"] == 0,
+          f"the float32 wide table left the FMA route: {wide_f32}")
+    with phase("3b stage 1's FMA kernel vs its twin on the float32 wide table"):
+        records.insert(2, f32_stage1_vs_twin(torch, dev, retriever, wide_q))
     del retriever, wide_q
 
     zero_counters()
@@ -5185,8 +5343,9 @@ def main() -> int:
         print(f"phase 12 cut: {cut}", flush=True)
     with phase("12a the SGNS steps at full width, card against CPU"):
         steps = sgns_steps(torch, dev, phase7_store, N_AIDS)
-    with phase("12b the SGNS trainers, one epoch on phase 7's store"):
-        trainers = sgns_trainers(torch, dev, phase7_store, N_AIDS)
+    with phase("12b the SGNS trainers, one epoch on phase 7's first 100,000 sessions"):
+        trainers = sgns_trainers(torch, dev, head_sessions(phase7_store, SGNS_TRAINER_SESSIONS),
+                                 N_AIDS)
     torch.cuda.empty_cache()
     with phase("12c a trained table through the kernels (planted clusters)"):
         planted = trained_table(torch, dev, phase7_target, N_AIDS, zero_counters,
@@ -5254,14 +5413,15 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     try:
-        split7 = split_by_fraction(phase7_store)  # phase 7's split, as the CLI makes it
-        with phase("14b run_sequence with each published config on phase 7's split"):
-            seq_b = seq_runs(torch, dev, split7, workdir, zero_counters, read_counters)
+        seq_store = head_sessions(phase7_store, SEQ_STORE_SESSIONS)
+        split14 = split_by_fraction(seq_store)  # the store's split, as the CLI makes it
+        with phase("14b run_sequence with each config on phase 7's first 100,000 sessions"):
+            seq_b = seq_runs(torch, dev, split14, workdir, zero_counters, read_counters)
         with phase("14c K1 and K3 on the sequence path's operands"):
-            seq_c = seq_kernels_on_path(torch, dev, split7.val_input, seq_b["gru"]["model"],
+            seq_c = seq_kernels_on_path(torch, dev, split14.val_input, seq_b["gru"]["model"],
                                         N_AIDS)
         with phase("14d the CLI: sequence validation in process, submission as a process"):
-            seq_d = seq_cli(torch, dev, phase7_store, workdir, seq_b, zero_counters,
+            seq_d = seq_cli(torch, dev, seq_store, workdir, seq_b, zero_counters,
                             read_counters)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5282,6 +5442,7 @@ def main() -> int:
     workdir = REPO / "tmp" / "chip_smoke_mf"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
+    split7 = split_by_fraction(phase7_store)  # phase 7's split, as the CLI makes it
     try:
         with phase("15a the sparse adagrad step at full table height, card against CPU"):
             mf_a = mf_steps(torch, dev, phase7_store)
@@ -5355,7 +5516,8 @@ def main() -> int:
                   "two_stage_sgns_resumed": ts_sgns["resumed"]["launches"]}
     seq_paths = {f"sequence_{k}": v["launches"] for k, v in seq_b.items()}
     seq_paths["cli_sequence_validation"] = seq_d["launches"]
-    paths = {"embedding_knn": knn, "wide_table_retrieval": wide, "baselines": heur,
+    paths = {"embedding_knn": knn, "wide_table_retrieval": wide,
+             "wide_table_retrieval_f32": wide_f32, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
              "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
@@ -5364,7 +5526,8 @@ def main() -> int:
              **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()},
              **seq_paths, "sharded_topk_world1": a16["launches"],
              "dp_fit_world1": dp_a["launches"]}
-    home = {"fused_stage1": knn, "fused_stage1_fma": wide, "peel_rows": knn, "aid_vote": heur,
+    home = {"fused_stage1": knn, "fused_stage1_deep": wide, "fused_stage1_fma": wide_f32,
+            "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:

@@ -32,13 +32,18 @@ constexpr unsigned LANE_MASK = WINDOW - 1;
 // [DA, N_pad], so position a of chunk c is the 128 consecutive columns
 // c*16384 + a*128 .. +127, and lane l is the l-th of them.
 //
-// Two routes, chosen by the wrapper from the dtype and DA:
-// - bf16 with DA <= 256 (the retriever's tables): fused_stage1_bf16_kernel,
-//   on the tensor cores (below).
-// - float32, and bf16 with DA > 256: fused_stage1_fma_kernel<T>, float32 FMA
+// Three routes, chosen by the wrapper from the dtype and DA
+// (ops/fused_retrieval.py::stage1_route):
+// - bf16 with DA <= 256 (the retriever's tables of dim <= 83):
+//   fused_stage1_bf16_kernel, on the tensor cores; a table tile of DA rows
+//   is one TMA box (at most 256 rows).
+// - bf16 with 256 < DA <= 512 (compensated tables of dim 84-168):
+//   fused_stage1_deep_kernel, on the tensor cores; a tile is two TMA boxes
+//   and a block takes 64 of a window's 128 lanes.
+// - float32, and bf16 with DA > 512: fused_stage1_fma_kernel<T>, float32 FMA
 //   on the CUDA cores.  The tensor cores take float32 only as TF32, which
 //   would break the float32 contract of table_dtype=float32; a bf16 table
-//   deeper than one TMA box (256 rows) is converted to float32 as it loads.
+//   is converted to float32 as it loads.
 // ---------------------------------------------------------------------------
 
 // --- FMA: one thread per lane ----------------------------------------------
@@ -50,7 +55,8 @@ constexpr unsigned LANE_MASK = WINDOW - 1;
 // so the loads coalesce.  Scores accumulate over d in ascending order.
 // Bound by FMA throughput (each table element read feeds TQ FMAs).  The
 // query tile limits the depth: DA * TQ * 4 bytes of shared memory, so DA <=
-// 1,816 on an H100 (232,448 bytes a block).
+// 1,816 on an H100 (232,448 bytes a block).  It serves float32 tables, and
+// bf16 tables deeper than the deep wgmma kernel's 512.
 
 constexpr int K1_TQ = 32;       // queries per block
 constexpr int K1_THREADS = 128; // one thread per lane of the window
@@ -370,6 +376,208 @@ fused_stage1_bf16_kernel(const __grid_constant__ CUtensorMap table,
   }
 }
 
+// --- bf16 deeper than one TMA box: wgmma on 64-lane tiles --------------------
+//
+// fused_stage1_deep_kernel<K_STEPS> takes bf16 tables with 256 < DA <= 512
+// (K_STEPS = da_pad/16 = 17..32): the compensated tables of dims 84-168,
+// whose contraction 3(dim + 2) passes one TMA box.  Its layout and roles
+// follow the kernel above, with three changes that the depth forces.
+//
+// - A block owns 128 query rows, one chunk and one half of the window's
+//   lanes: 64 columns of each position a.  A warpgroup's output tile is then
+//   64 rows x 64 lanes, so wgmma.m64n64k16 keeps 32 accumulators and the
+//   window max 32 more.  Beside them the consumers still hold their 64 query
+//   rows as A fragments in registers, K_STEPS x 4 of them (128 at DA 512):
+//   192 in all at the deepest, under setmaxnreg's 232.  A 128-lane tile
+//   would need 128 for the accumulators and the maxima, and spill.  Holding
+//   A in shared memory instead ([128, da_pad] bf16, 75-128 KB) would leave
+//   room for one or two table slots.  The query rows stay at 128 a block:
+//   the table slice of a chunk is read from L2 once per query tile.
+// - A table tile is [da_pad, 64] bf16 (one 128-byte swizzle row wide), loaded
+//   as two TMA boxes of da_pad/2 rows under one `full` barrier; the second
+//   lands at +da_pad*64 bytes, a multiple of 1024, so the 128-byte swizzle
+//   runs on unbroken and a k step that straddles the boxes reads as any
+//   other (+2048 bytes a step).  Rows DA .. da_pad-1 lie outside the tensor:
+//   TMA fills them with zeros, which add exactly 0.  A slot is da_pad x 128
+//   bytes (38,912 at DA 294), so the ring holds 3-5 slots.
+// - The grid is (2 x query tiles, chunks), the lane half fastest: the
+//   blocks of a chunk run together, both halves' reads of a table row (two
+//   adjacent 128-byte runs) meet in L2 (L2 promotion of 256 bytes), and at a
+//   small batch (B 256: 4 x 62 blocks at DA 294 over 1,015,808 items) twice
+//   as many blocks keep the card's 132 SMs and its memory busy.
+//
+// What bounds it: at B = 256 the table's bytes (597 MB at DA 294, 0.181 ms;
+// the operations need 0.155 ms), at B = 4,096 the tensor-core operations
+// (2 B DA N_pad: 4.50e12 at [4096 x 294] x [294 x 1,867,776], 4.55 ms).
+// What holds it above them: the contraction padded to a multiple of 16
+// (294 -> 304, 3.4%), each warpgroup's wait for its product before it
+// folds it (the other warpgroup's product fills the gap), the query rows'
+// load at each block's start, and the table slice read from L2 once per
+// 128 query rows (1/128 byte an operation).  Measured on an H100 (700 W):
+// 0.237-0.250 ms at [256 x 294] x [294 x 1,015,808] (75-76% of the bytes
+// bound; the FMA kernel takes 9.58-9.62 ms there), 6.69-6.85 ms at [4096 x
+// 294] x [294 x 1,867,776] (67-68% of the operations bound, like the DA <=
+// 256 kernel's 67-69% at DA 198), 65-67% at DA 390 and 510.  ptxas: no
+// spill at any K_STEPS.
+
+constexpr int K1D_MIN_STEPS = 17;  // DA 257-272
+constexpr int K1D_MAX_DA = 512;    // two TMA boxes of at most 256 rows
+constexpr int K1D_LANES = K1B_BOX;  // lanes per block: a 128-byte swizzle row of bf16
+constexpr int K1D_MAX_STAGES = 8;
+
+// d[32] (+)= A[64 x 16] . B[16 x 64]; A from registers, B MN-major in
+// shared memory (as wgmma_m64n128k16).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int K_STEPS>
+__global__ void __launch_bounds__(K1B_THREADS, 1)
+fused_stage1_deep_kernel(const __grid_constant__ CUtensorMap table,
+                         const __nv_bfloat16* __restrict__ q, float* __restrict__ out, int B,
+                         int DA, int stages, long long n_pad) {
+  constexpr int da_pad = 16 * K_STEPS;
+  constexpr uint32_t tile_bytes = (uint32_t)da_pad * K1D_LANES * 2;
+  constexpr uint32_t box_bytes = tile_bytes / 2;  // da_pad/2 rows of 128 bytes
+  extern __shared__ uint8_t k1_smem[];
+  // [ring: stages x tile][full x stages][empty x stages], the ring
+  // 1024-byte aligned for the 128-byte swizzle
+  const uint32_t ring = (smem_u32(k1_smem) + 1023u) & ~1023u;
+  const uint32_t full0 = ring + (uint32_t)stages * tile_bytes;
+  const uint32_t empty0 = full0 + 8u * stages;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int half = blockIdx.x & 1;
+  const int b0 = (blockIdx.x >> 1) * K1B_ROWS;
+  const long long chunk = blockIdx.y;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8u * s, 1);
+      mbar_init(empty0 + 8u * s, K1B_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == K1B_CONSUMERS) {
+    // ---- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == 0) {
+      const int col0 = (int)(chunk * CHUNK) + half * K1D_LANES;
+      int s = 0;
+      uint32_t phase = 0;
+      for (int a = 0; a < WINDOW; ++a) {
+        if (a >= stages) mbar_wait(empty0 + 8u * s, phase ^ 1u);
+        const uint32_t full = full0 + 8u * s;
+        const uint32_t dst = ring + (uint32_t)s * tile_bytes;
+        mbar_expect_tx(full, tile_bytes);
+        tma_load_2d(dst, &table, full, col0 + a * WINDOW, 0);
+        tma_load_2d(dst + box_bytes, &table, full, col0 + a * WINDOW, da_pad / 2);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // A fragments as in fused_stage1_bf16_kernel: in k step ks, register r
+    // of thread (warp w, lane) holds row 16w + lane/4 + 8(r&1), columns
+    // 16ks + 8(r>>1) + 2(lane%4) + {0, 1}; zeros past DA and past B
+    uint32_t afrag[K_STEPS][4];
+    {
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+      for (int ks = 0; ks < K_STEPS; ++ks) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int b = b0 + wg * K1B_WG_ROWS + 16 * warp + (lane >> 2) + 8 * (r & 1);
+          const int k = 16 * ks + 8 * (r >> 1) + 2 * (lane & 3);
+          const __nv_bfloat16* row = q + (long long)b * DA;
+          const __nv_bfloat16 lo = (b < B && k < DA) ? row[k] : zero;
+          const __nv_bfloat16 hi = (b < B && k + 1 < DA) ? row[k + 1] : zero;
+          afrag[ks][r] = (uint32_t)__bfloat16_as_ushort(lo) |
+                         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+        }
+      }
+    }
+    float acc[32], best[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc[i] = 0.0f;
+      best[i] = -CUDART_INF_F;
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int a = 0; a < WINDOW; ++a) {
+      const uint32_t tile = ring + (uint32_t)s * tile_bytes;
+      mbar_wait(full0 + 8u * s, phase);
+      // B: 128-byte swizzle, MN-major, one 64-column block (the leading
+      // offset is not used); the stride offset is the next 8 k rows (1024
+      // B), one k step of 16 rows +2048 B, across the two boxes alike
+      const uint64_t desc_b = gmma_desc(tile, tile_bytes, 1024, 1);
+      fence_operands(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < K_STEPS; ++k)
+        wgmma_m64n64k16(acc, afrag[k], desc_b + (uint64_t)(128 * k), k);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_operands(acc);
+      if (tid == 0) mbar_arrive(empty0 + 8u * s);
+      const unsigned code = (unsigned)a;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        best[i] = fmaxf(best[i], __uint_as_float((__float_as_uint(acc[i]) & ~LANE_MASK) | code));
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+
+    // accumulator layout of m64n64k16: register 4n + 2i + j of thread
+    // (warp w, lane) holds row 16w + lane/4 + 8i, lane 8n + 2(lane%4) + j of
+    // this block's half
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const long long nw = n_pad / WINDOW;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = b0 + wg * K1B_WG_ROWS + warp * 16 + (lane >> 2) + 8 * i;
+        if (b < B) {
+          const long long col = chunk * WINDOW + half * K1D_LANES + 8 * n + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(out + (long long)b * nw + col) =
+              make_float2(best[4 * n + 2 * i], best[4 * n + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -395,6 +603,24 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The table t [DA, N_pad] bf16 as a tensor map of [box_rows, 64] boxes (64
+// bf16 = one 128-byte swizzle row; rows past DA zero-filled).  Returns 0,
+// -1 when cuTensorMapEncodeTiled is not found, or -1000 - CUresult when the
+// map is refused.
+int encode_table_map(CUtensorMap* map, const void* t, int DA, long long n_pad, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)DA};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)K1B_BOX, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t), dims,
+                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
 constexpr int K1B_MAX_DA = 256;   // a TMA box has at most 256 rows
 constexpr int K1B_MAX_STAGES = 4;
 
@@ -417,18 +643,9 @@ int launch_fused_stage1_bf16(const void* q, const void* t, void* out, int B, int
   if (stages > K1B_MAX_STAGES) stages = K1B_MAX_STAGES;
   if (stages < 1) return (int)cudaErrorInvalidConfiguration;
   const int smem = 1024 + stages * slot_bytes;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return -1;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)DA};
-  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)K1B_BOX, (cuuint32_t)da_pad};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t), dims,
-                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return -1000 - (int)r;
+  const int map_err = encode_table_map(&map, t, DA, n_pad, da_pad);
+  if (map_err != 0) return map_err;
   typedef void (*Kernel)(const CUtensorMap, const __nv_bfloat16*, float*, int, int, int,
                          long long);
   static const Kernel kernels[] = {
@@ -443,6 +660,47 @@ int launch_fused_stage1_bf16(const void* q, const void* t, void* out, int B, int
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + K1B_ROWS - 1) / K1B_ROWS, (unsigned)(n_pad / CHUNK));
+  kernel<<<grid, K1B_THREADS, smem, (cudaStream_t)stream>>>(
+      map, static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), B, DA, stages,
+      n_pad);
+  return (int)cudaGetLastError();
+}
+
+// The deep route, 256 < DA <= 512.  Launch shape: the contraction padded to
+// wgmma's depth of 16, boxes of half of it, and as many ring slots (up to
+// 8) as the card's per-block shared memory holds.  Errors as
+// launch_fused_stage1_bf16's.
+int launch_fused_stage1_deep(const void* q, const void* t, void* out, int B, int DA,
+                             long long n_pad, int device, void* stream) {
+  if (DA <= K1B_MAX_DA || DA > K1D_MAX_DA) return (int)cudaErrorInvalidValue;
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  int smem_max = 0;
+  dev_err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int da_pad = (DA + 15) / 16 * 16;
+  const int slot_bytes = da_pad * K1D_LANES * 2 + 16;  // a tile and its two mbarriers
+  const int stages = std::min((smem_max - 1024) / slot_bytes, K1D_MAX_STAGES);
+  if (stages < 1) return (int)cudaErrorInvalidConfiguration;
+  const int smem = 1024 + stages * slot_bytes;
+  CUtensorMap map;
+  const int map_err = encode_table_map(&map, t, DA, n_pad, da_pad / 2);
+  if (map_err != 0) return map_err;
+  typedef void (*Kernel)(const CUtensorMap, const __nv_bfloat16*, float*, int, int, int,
+                         long long);
+  static const Kernel kernels[] = {
+      fused_stage1_deep_kernel<17>, fused_stage1_deep_kernel<18>, fused_stage1_deep_kernel<19>,
+      fused_stage1_deep_kernel<20>, fused_stage1_deep_kernel<21>, fused_stage1_deep_kernel<22>,
+      fused_stage1_deep_kernel<23>, fused_stage1_deep_kernel<24>, fused_stage1_deep_kernel<25>,
+      fused_stage1_deep_kernel<26>, fused_stage1_deep_kernel<27>, fused_stage1_deep_kernel<28>,
+      fused_stage1_deep_kernel<29>, fused_stage1_deep_kernel<30>, fused_stage1_deep_kernel<31>,
+      fused_stage1_deep_kernel<32>};
+  const Kernel kernel = kernels[da_pad / 16 - K1D_MIN_STEPS];
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  // x: query tile x 2 lane halves, the half fastest; y: the chunk
+  const dim3 grid(2u * (unsigned)((B + K1B_ROWS - 1) / K1B_ROWS), (unsigned)(n_pad / CHUNK));
   kernel<<<grid, K1B_THREADS, smem, (cudaStream_t)stream>>>(
       map, static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), B, DA, stages,
       n_pad);
@@ -681,6 +939,11 @@ extern "C" {
 int fused_stage1_bf16(const void* q, const void* t, void* out, int B, int DA,
                       long long n_pad, int device, void* stream) {
   return launch_fused_stage1_bf16(q, t, out, B, DA, n_pad, device, stream);
+}
+
+int fused_stage1_bf16_deep(const void* q, const void* t, void* out, int B, int DA,
+                           long long n_pad, int device, void* stream) {
+  return launch_fused_stage1_deep(q, t, out, B, DA, n_pad, device, stream);
 }
 
 int fused_stage1_f32(const void* q, const void* t, void* out, int B, int DA,

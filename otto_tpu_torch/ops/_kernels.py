@@ -30,7 +30,11 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((PKG_DIR / "csrc").glob("*.cu")))
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# --split-compile=0 optimises a source's kernels in parallel threads, as many
+# as the host has cores: retrieval_kernels.cu alone holds 32 instantiations
+# of the stage-1 kernels
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -95,6 +99,7 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # the C entry points and their arguments; each returns a cudaError_t
 ENTRY_POINTS = {
     "fused_stage1_bf16": [_p, _p, _p, _i, _i, _ll, _i, _p],
+    "fused_stage1_bf16_deep": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "fused_stage1_f32": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "fused_stage1_bf16_fma": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "peel_rows_f32": [_p, _p, _p, _i, _i, _i, _i, _p],
@@ -138,20 +143,33 @@ def _stream(t: torch.Tensor) -> int:
 
 def launch_fused_stage1_bf16(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
     """q [B, DA], t [DA, N_pad] bf16 (DA <= 256), out [B, N_pad/128] f32,
-    on the wgmma kernel;
-    the launcher works out the padded depth and the ring from DA.  Besides
-    CUDA errors it returns -1 (``cuTensorMapEncodeTiled`` not found) and
-    -1000 - CUresult (tensor map refused)."""
+    on the wgmma kernel whose table tile is one TMA box
+    (``fused_stage1_bf16_kernel``); the launcher works out the padded depth
+    and the ring from DA.  Besides CUDA errors it returns -1
+    (``cuTensorMapEncodeTiled`` not found) and -1000 - CUresult (tensor map
+    refused)."""
     err = lib().fused_stage1_bf16(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0],
                                   q.shape[1], t.shape[1], t.device.index, _stream(t))
     _check(err, "fused_stage1_bf16")
 
 
+def launch_fused_stage1_deep(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
+    """q [B, DA], t [DA, N_pad] bf16 (256 < DA <= 512), out [B, N_pad/128]
+    f32, on the deep wgmma kernel (``fused_stage1_deep_kernel``: a table
+    tile of two TMA boxes, 64 lanes a block); errors as
+    :func:`launch_fused_stage1_bf16`'s."""
+    err = lib().fused_stage1_bf16_deep(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0],
+                                       q.shape[1], t.shape[1], t.device.index, _stream(t))
+    _check(err, "fused_stage1_bf16_deep")
+
+
 def launch_fused_stage1_fma(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
     """q [B, DA], t [DA, N_pad], both f32 or both bf16, out [B, N_pad/128]
-    f32, on the CUDA-core FMA kernel (``fused_stage1_fma_kernel<T>``).  The
-    launcher returns cudaErrorInvalidValue when the query tile of DA rows
-    does not fit in shared memory."""
+    f32, on the CUDA-core FMA kernel (``fused_stage1_fma_kernel<T>``; the
+    wrapper sends it float32 tables and bf16 deeper than 512, but it takes
+    any DA whose query tile fits).  The launcher returns
+    cudaErrorInvalidValue when the query tile of DA rows does not fit in
+    shared memory."""
     fn = lib().fused_stage1_f32 if q.dtype == torch.float32 else lib().fused_stage1_bf16_fma
     err = fn(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], t.shape[1],
              t.device.index, _stream(t))

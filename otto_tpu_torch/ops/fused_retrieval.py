@@ -50,13 +50,33 @@ LIVE_BITS = 0x3F800000  # bits of 1.0: every real score is >= 1
 # columns in whole chunks so that one step holds at most this many elements.
 _REFERENCE_STEP_ELEMS = 1 << 28
 
-# Routes of stage 1 on the card, chosen by dtype and depth: the bf16 wgmma
-# kernel loads a table tile of DA rows as one TMA box, which has at most 256
-# rows; float32 tables, and bf16 tables deeper than that, go to the FMA
-# kernel, whose [DA, 32] float32 query tile must fit in a block's 232,448
-# bytes of shared memory on an H100.
+# Routes of stage 1 on the card, chosen by dtype and depth
+# (:func:`stage1_route`): bf16 tables go to the tensor cores, through the
+# wgmma kernel whose table tile of DA rows is one TMA box (at most 256
+# rows), or through the deep wgmma kernel, whose tile is two boxes and whose
+# query rows sit in registers as wgmma A fragments (at most 512).  Float32
+# tables, and bf16 tables deeper than that, go to the FMA kernel, whose
+# [DA, 32] float32 query tile must fit in a block's 232,448 bytes of shared
+# memory on an H100.
 K1_WGMMA_MAX_DA = 256
+K1_WGMMA_DEEP_MAX_DA = 512
 K1_FMA_MAX_DA = 232_448 // (32 * 4)  # 1,816
+
+
+def stage1_route(dtype: torch.dtype, da: int) -> str:
+    """The kernel :func:`fused_stage1` launches for a card's operands of
+    ``dtype`` and depth ``da``: ``"wgmma"`` (bf16, DA <= 256),
+    ``"wgmma_deep"`` (bf16, 256 < DA <= 512) or ``"fma"`` (float32, and bf16
+    deeper than 512).  Raises for DA outside 1..1,816 and for other dtypes."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_stage1: no kernel for {dtype}")
+    if not 1 <= da <= K1_FMA_MAX_DA:
+        raise ValueError(f"fused_stage1: the kernels take 1 <= DA <= {K1_FMA_MAX_DA}, got {da}")
+    if dtype == torch.bfloat16 and da <= K1_WGMMA_MAX_DA:
+        return "wgmma"
+    if dtype == torch.bfloat16 and da <= K1_WGMMA_DEEP_MAX_DA:
+        return "wgmma_deep"
+    return "fma"
 
 
 def _pack_window_max(s: torch.Tensor) -> torch.Tensor:
@@ -90,11 +110,13 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
     against items_aug_t [DA, N_pad] (the counterpart of ``_stage1``).
 
     Both operands bf16, or both float32; N_pad a multiple of 16384.  On a
-    CUDA tensor this launches ``fused_stage1_bf16_kernel`` (tensor cores,
-    bf16 with DA <= 256; counted in ``fused_stage1.launches``) or
+    CUDA tensor this launches the kernel :func:`stage1_route` names:
+    ``fused_stage1_bf16_kernel`` (tensor cores, bf16 with DA <= 256; counted
+    in ``fused_stage1.launches``), ``fused_stage1_deep_kernel`` (tensor
+    cores, bf16 with 256 < DA <= 512; ``fused_stage1.deep_launches``) or
     ``fused_stage1_fma_kernel`` (CUDA-core FMA: float32, and bf16 with DA >
-    256; counted in ``fused_stage1.fma_launches``), and raises for DA >
-    1,816; on a CPU tensor it runs :func:`_stage1_reference`.
+    512; ``fused_stage1.fma_launches``), and raises for DA > 1,816; on a CPU
+    tensor it runs :func:`_stage1_reference`.
     """
     b, da = q_aug.shape
     da_t, n_pad = items_aug_t.shape
@@ -112,26 +134,29 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
         raise ValueError(f"fused_stage1: no kernel for device {q_aug.device}")
     if n_pad // CHUNK > 65535:
         raise ValueError(f"fused_stage1: {n_pad} items exceed the kernel's grid")
+    route = stage1_route(q_aug.dtype, da)
     q_aug = q_aug.contiguous()
     items_aug_t = items_aug_t.contiguous()
-    if da > K1_FMA_MAX_DA:
-        raise ValueError(f"fused_stage1: the kernels take DA <= {K1_FMA_MAX_DA}, got {da}")
-    wgmma = q_aug.dtype == torch.bfloat16 and da <= K1_WGMMA_MAX_DA
-    if wgmma and items_aug_t.data_ptr() % 16:
+    if route != "fma" and items_aug_t.data_ptr() % 16:
         raise ValueError("fused_stage1: the table must start on a 16-byte boundary (TMA)")
     out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q_aug.device)
     if b:
-        if wgmma:
+        if route == "wgmma":
             _kernels.launch_fused_stage1_bf16(q_aug, items_aug_t, out)
             fused_stage1.launches += 1
+        elif route == "wgmma_deep":
+            _kernels.launch_fused_stage1_deep(q_aug, items_aug_t, out)
+            fused_stage1.deep_launches += 1
         else:
             _kernels.launch_fused_stage1_fma(q_aug, items_aug_t, out)
             fused_stage1.fma_launches += 1
     return out
 
 
-fused_stage1.launches = 0      # launches of the wgmma kernel made by this wrapper
-fused_stage1.fma_launches = 0  # launches of the FMA kernel made by this wrapper
+# launches made by this wrapper, one counter a kernel
+fused_stage1.launches = 0       # the wgmma kernel (bf16, DA <= 256)
+fused_stage1.deep_launches = 0  # the deep wgmma kernel (bf16, 256 < DA <= 512)
+fused_stage1.fma_launches = 0   # the FMA kernel (float32; bf16, DA > 512)
 
 
 def _bf16_split(x: torch.Tensor):

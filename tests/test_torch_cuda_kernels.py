@@ -9,7 +9,8 @@ installed:
 Shapes are the full-width ones of the serving path (1,855,603 items: stage 1
 over 1,867,776 padded columns, the peel over [B, 14,592] at the neighbor
 table's batches, 4096 and 115 rows; the bf16 stage-1 kernel also at those
-batches over 6 chunks, and its FMA route at DA 257 and 300).  Tolerances:
+batches over 6 chunks, its deep wgmma route at DA 257-512 and a ragged
+batch at DA 294, and its FMA route at DA 528 and on a float32 table).  Tolerances:
 the peel and stage 1 on integer-valued inputs are bit-equal; stage 1 on
 normal data may move a packed maximum by one truncation step and change its
 7-bit position code, so values agree within 2^8 ulps = 2^-15 relative and
@@ -109,26 +110,34 @@ def test_cuda_stage1_kernel_matches_twin(cuda_device, da, b, n_pad):
     assert same.float().mean().item() >= 0.999
 
 
+def _counts():
+    f = tfr.fused_stage1
+    return {"wgmma": f.launches, "wgmma_deep": f.deep_launches, "fma": f.fma_launches}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("da", [1, 198, 256, 257, 300])
+@pytest.mark.parametrize("da", [1, 198, 256, 257, 294, 300, 390, 510, 512, 528])
 def test_cuda_stage1_kernel_contraction_depths(cuda_device, da):
     """The bf16 kernels at the other depths they take: one k step, a 64-dim
     compensated table (198), the wgmma kernel's deepest (256, a 3-slot
-    ring), and past it (257, 300), where the FMA route takes over; deeper
-    than the FMA kernel's query tile holds (1,817) raises.  The queries
-    carry the retriever's positive shift in their last dimension, so no row
-    is all zeros (whose scores the padded product would give as +0.0 where
-    the twin gives -0.0)."""
+    ring); past it the deep wgmma kernel (257; 294, 390 and 510, the
+    compensated tables of 96, 128 and 168 dims; 300; its deepest, 512), and
+    past that (528) the FMA kernel; deeper than the FMA kernel's query tile
+    holds (1,817) raises.  Each depth moves its own route's counter alone.
+    The queries carry the retriever's positive shift in their last
+    dimension, so no row is all zeros (whose scores the padded product
+    would give as +0.0 where the twin gives -0.0)."""
     g = torch.Generator(device=cuda_device).manual_seed(da)
     q = torch.randint(-8, 9, (130, da), generator=g, device=cuda_device).to(torch.bfloat16)
     q[:, -1] = 64
     t = torch.randint(-8, 9, (da, 2 * 16384), generator=g, device=cuda_device).to(torch.bfloat16)
-    wgmma, fma = tfr.fused_stage1.launches, tfr.fused_stage1.fma_launches
+    route = tfr.stage1_route(torch.bfloat16, da)
+    assert route == ("wgmma" if da <= 256 else "wgmma_deep" if da <= 512 else "fma")
+    before = _counts()
     k = tfr.fused_stage1(q, t)
     torch.cuda.synchronize()
-    deep = da > tfr.K1_WGMMA_MAX_DA
-    assert tfr.fused_stage1.launches == wgmma + (not deep)
-    assert tfr.fused_stage1.fma_launches == fma + deep
+    after = _counts()
+    assert after == {name: n + (name == route) for name, n in before.items()}
     r = tfr._stage1_reference(q, t)
     assert torch.equal(k.view(torch.int32), r.view(torch.int32))
     with pytest.raises(ValueError):
@@ -137,11 +146,43 @@ def test_cuda_stage1_kernel_contraction_depths(cuda_device, da):
 
 
 @pytest.mark.cuda
+def test_cuda_stage1_deep_ragged_batch(cuda_device):
+    """The deep route at DA 294 over 3 chunks with a batch that is not a
+    multiple of 128 (the last query tile part-empty): bit-equal to the twin
+    on integer inputs, within 2^-15 relative on normal ones."""
+    g = torch.Generator(device=cuda_device).manual_seed(294)
+    b, n_pad = 333, 3 * 16384
+    q = torch.randint(-8, 9, (b, 294), generator=g, device=cuda_device).to(torch.bfloat16)
+    q[:, -1] = 64
+    t = torch.randint(-8, 9, (294, n_pad), generator=g, device=cuda_device).to(torch.bfloat16)
+    t[:, n_pad - 5_000:] = 0  # pad columns
+    before = tfr.fused_stage1.deep_launches
+    k = tfr.fused_stage1(q, t)
+    torch.cuda.synchronize()
+    assert tfr.fused_stage1.deep_launches == before + 1
+    r = tfr._stage1_reference(q, t)
+    assert torch.equal(k.view(torch.int32), r.view(torch.int32))
+
+    qn = torch.randn((b, 294), generator=g, device=cuda_device)
+    qn[:, -1] = 128.0
+    tn = torch.randn((294, n_pad), generator=g, device=cuda_device)
+    tn[-1] = 1.0
+    qn, tn = qn.to(torch.bfloat16), tn.to(torch.bfloat16)
+    k, r = tfr.fused_stage1(qn, tn), tfr._stage1_reference(qn, tn)
+    torch.testing.assert_close(k, r, rtol=2.0**-15, atol=0)
+    same = (k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)
+    assert same.float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
 def test_cuda_stage1_f32_table_and_ragged_batch(cuda_device):
+    """A float32 table stays on the FMA kernel."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randint(-8, 9, (37, 34), generator=g, device=cuda_device).float()
     t = torch.randint(-8, 9, (34, 3 * 16384), generator=g, device=cuda_device).float()
+    before = _counts()
     k = tfr.fused_stage1(q, t)
+    assert _counts() == {**before, "fma": before["fma"] + 1}
     r = tfr._stage1_reference(q, t)
     assert torch.equal(k.view(torch.int32), r.view(torch.int32))
 

@@ -174,11 +174,13 @@ def _stage1_both(q, t, dtype):
     return np.asarray(jout), tout.numpy()
 
 
-# DA 257 and 300 are past the wgmma kernel's depth: on the card they take
-# the FMA route, which must give the same packed maxima
+# DA 257-510 are past the wgmma kernel's depth: on the card they take the
+# deep wgmma route (294: a compensated table of 96 dims, 390: 128 dims, 510:
+# 168 dims), which must give the same packed maxima
 @pytest.mark.parametrize("da,dtype", [(34, torch.bfloat16), (102, torch.bfloat16),
                                       (34, torch.float32), (257, torch.bfloat16),
-                                      (300, torch.bfloat16)])
+                                      (294, torch.bfloat16), (300, torch.bfloat16),
+                                      (390, torch.bfloat16), (510, torch.bfloat16)])
 def test_stage1_twin_bit_equal_on_integer_inputs(da, dtype):
     rng = np.random.default_rng(4)
     q = _int_data(rng, (8, da))
@@ -190,7 +192,7 @@ def test_stage1_twin_bit_equal_on_integer_inputs(da, dtype):
 
 
 @pytest.mark.parametrize("da,dtype", [(34, torch.float32), (34, torch.bfloat16),
-                                      (102, torch.bfloat16)])
+                                      (102, torch.bfloat16), (294, torch.bfloat16)])
 def test_stage1_twin_close_on_normal_inputs(da, dtype):
     rng = np.random.default_rng(5)
     q = rng.normal(size=(8, da)).astype(np.float32)
@@ -229,6 +231,26 @@ def test_stage1_twin_unchanged_by_zero_padded_contraction(da):
         base = tfr.fused_stage1(torch.from_numpy(q).to(dtype), torch.from_numpy(t).to(dtype))
         padded = tfr.fused_stage1(torch.from_numpy(qp).to(dtype), torch.from_numpy(tp).to(dtype))
         np.testing.assert_array_equal(padded.numpy().view(np.int32), base.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("dtype,da,route", [
+    (torch.bfloat16, 1, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 257, "wgmma_deep"), (torch.bfloat16, 294, "wgmma_deep"),
+    (torch.bfloat16, tfr.K1_WGMMA_DEEP_MAX_DA, "wgmma_deep"),
+    (torch.bfloat16, tfr.K1_WGMMA_DEEP_MAX_DA + 16, "fma"), (torch.bfloat16, 1816, "fma"),
+    (torch.bfloat16, 1817, None), (torch.float32, 34, "fma"), (torch.float32, 300, "fma"),
+])
+def test_stage1_route(dtype, da, route):
+    """The card's kernel for each dtype and depth: bf16 on the tensor cores up
+    to the deep kernel's limit (at least 512, a compensated table of 168
+    dims), float32 (which the tensor cores would round to TF32) and deeper
+    bf16 on the FMA kernel, nothing past the FMA kernel's 1,816."""
+    assert tfr.K1_WGMMA_DEEP_MAX_DA >= 512
+    if route is None:
+        with pytest.raises(ValueError):
+            tfr.stage1_route(dtype, da)
+    else:
+        assert tfr.stage1_route(dtype, da) == route
 
 
 @pytest.mark.parametrize("q_shape,t_shape,dtypes,error", [

@@ -68,6 +68,7 @@ def main() -> int:
     _kernels.lib()
     print(f"torch {torch.__version__}; kernel build {time.perf_counter() - t0:.1f} s", flush=True)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
+                "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),

@@ -64,6 +64,7 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     print(f"torch {torch.__version__}", flush=True)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
+                "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
