@@ -40,6 +40,28 @@ exit code):
    catalog's [4096 x 294] x [294 x 1,867,776]; then the same table as a
    float32 single-precision retriever (DA 98: the FMA kernel), recall and
    counters again, and the FMA kernel against its twin on its operands;
+3c. the other retrieval backends on phase 3's table (every width full:
+   1,855,603 x 32, k 21, 4,096-query batches): 3c-i the int8 stage-1 kernel
+   on one batch against the int8 table, both metrics, bit-equal to its
+   twin, its ms against its bound (set by the epilogue's instructions),
+   the twin's and ``torch._int_mm``'s bare int8 product in slices; 3c-ii
+   ``build_neighbor_table(backend="int8")``: its seconds, 454 launches of
+   the int8 kernel and of the peel and none of K1's routes (counters zeroed
+   before, read after), the prepared table's bytes beside the compensated
+   retriever's, recall on 4,096 sampled aids against the exact top-21 of
+   the quantized scores (>= 0.99) and against the float32 exact scan (no
+   bar: the quantization's); 3c-iii ``topk_hybrid`` (euclidean) and
+   ``topk_approx`` (dot), two batches each on the float32 table (the FMA
+   kernel) and one on the table in bf16 (the wgmma kernel), recall against
+   the exact scan (>= 0.99), the scores ``_rescore`` of the ids, then the
+   FMA kernel against its twin on one batch of the float32 table's
+   [4096 x 34] x [34 x 1,867,776] operands, with its times and bound (the
+   FMA record's ``hybrid_path``); 3c-iv
+   ``FusedRetriever.topk(rescore_survivors=True)`` on one batch of the
+   compensated retriever, recall >= 0.99 and at least the plain
+   ``topk``'s; the depth cut that pays for the phase is printed as a
+   ``phase 3c cut:`` line (``tools/run_phase3c.py`` runs phases 3 and 3c
+   alone);
 4. the serving path in the order of ``otto_tpu.pipelines.run_embedding_knn``:
    ``neighbor_table(k=21)`` over every aid, ``embedding_knn_predictions`` on
    20,000 synthetic sessions, ``evaluate_predictions``; the kernels' launch
@@ -193,7 +215,7 @@ exit code):
    within 1e-5 relative, the updated parameters within 1e-4 * (|x| + 0.01)
    but where a rounding-level gradient decides Adam's sign, counted), ms a
    step against the dense Adam's bound; 14b ``pipelines.run_sequence`` with
-   each config on the split of phase 7's store cut to its first 100,000
+   each config on the split of phase 7's store cut to its first 50,000
    sessions (``train_s``, steps, ms a step and the
    host draw's share, the loss falling from the first tenth of the steps to
    the last, routes, serve seconds, sessions/s, weighted recall@20, K1, K2
@@ -202,7 +224,7 @@ exit code):
    recency route's [S, 256] input against their twins, with times and
    bounds, and ``full_sort_topk`` against the exact scan on 2,000 sessions
    (recall >= 0.99); 14d ``sequence validation`` through the CLI on 14b's
-   100,000 sessions as ``.jsonl`` (report and lists equal to 14b's gru run: the
+   50,000 sessions as ``.jsonl`` (report and lists equal to 14b's gru run: the
    card's training is bit-reproducible), ``sequence submission`` in a
    process of its own on 10,000 sessions, and a saved model loaded back
    (lists equal);
@@ -838,27 +860,29 @@ def deep_full_catalog(torch, dev, b: int, da: int, n_items: int, reps: int = 3) 
             "max_rel_err": rel}
 
 
-def f32_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
-    """Phase 3b: the FMA kernel against its twin on the float32 wide table's
-    own operands (single precision, DA dim + 2), within phase 2's bars (it
-    sums in ascending d, cuBLAS in another order), and the times of both;
-    the bound prices its operations at the float32 rate.  Returns its
-    record for the kernels line."""
+def f32_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3,
+                       table: str = "the float32 wide table") -> dict:
+    """The FMA kernel against its twin on a float32 single-precision
+    retriever's own operands (DA dim + 2; phase 3b's wide table, 3c-iii's
+    ``topk_hybrid`` table), within phase 2's bars (it sums in ascending d,
+    cuBLAS in another order), and the times of both; the bound prices its
+    operations at the float32 rate.  Returns its record for the kernels
+    line."""
     from otto_tpu_torch.ops import fused_retrieval as fr
 
     q_aug, t = retriever_operands(torch, retriever, q)
     check(fr.stage1_route(q_aug.dtype, q_aug.shape[1]) == "fma",
-          f"the float32 wide table (DA {q_aug.shape[1]}) is not on the FMA route")
+          f"{table} (DA {q_aug.shape[1]}) is not on the FMA route")
     k, r = fr.fused_stage1(q_aug, t), fr._stage1_reference(q_aug, t)
     sync(torch, dev)
-    rel, same, err = stage1_close(torch, k, r, "stage 1 FMA kernel on the float32 wide table")
+    rel, same, err = stage1_close(torch, k, r, f"stage 1 FMA kernel on {table}")
     del k, r
     loop_ms = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
     ms = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
     plain_ms = loop_ms(lambda: fr._stage1_reference(q_aug, t), reps)
     ms2 = loop_ms(lambda: fr.fused_stage1(q_aug, t), reps)
     b = stage1_bound(q_aug, t)
-    print(f"stage 1 FMA kernel on the float32 wide table's operands [{q_aug.shape[0]} x "
+    print(f"stage 1 FMA kernel on {table}'s operands [{q_aug.shape[0]} x "
           f"{t.shape[0]}] x [{t.shape[0]} x {t.shape[1]}] float32: max rel err {rel:.3e} (limit "
           f"2^-15), same window position {same:.6f} (limit 0.999); kernel {ms:.3f} / {ms2:.3f} "
           f"ms, twin {plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]}, at the float32 rate): "
@@ -866,7 +890,285 @@ def f32_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3) -> dict:
     return {"name": "fused_stage1_fma", "route": "cuda", "source": K1_SOURCE,
             "replaces": "otto_tpu/ops/pallas_retrieval.py:68", "launches": 0,
             "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "shape": [q_aug.shape[0], t.shape[0], t.shape[1]]}
+
+
+# The int8 stage-1 kernel's bound (its source's note): the int8 tensor
+# cores' dense rate, and the epilogue's CUDA-core instructions a score as
+# counted in the kernel's source (the conversion's FADD, two FMULs, the
+# shift's FADD, one LOP3, one FMNMX; euclidean adds the FFMA of 2 s - sq),
+# at one warp instruction a clock a scheduler: 132 SMs x 128 lanes x
+# 1.98 GHz.
+INT8_SOURCE = "otto_tpu_torch/csrc/int8_retrieval_kernels.cu"
+INT8_TENSOR_OPS_PER_S = 1979e12
+CUDA_CORE_INSTR_PER_S = 132 * 128 * 1.98e9
+INT8_EPILOGUE_INSTR = {"dot": 6, "euclidean": 7}
+INT8_RECALL = 0.99  # phase 3c's bars against the exact scans
+SCAN_BLOCK = 1 << 16  # phase 3c's exact scans (topk_scan) of 4,096 queries
+
+
+def int8_stage1_bound(b: int, d_pad: int, n_pad: int, metric: str) -> tuple[float, str, dict]:
+    """The int8 kernel's bound in ms and what sets it: the bytes (q8,
+    q_scale, the table, its scales and, for euclidean, its norms read once;
+    the packed maxima written once), the int8 tensor operations 2 B D_pad
+    N_pad, and the epilogue's instructions; with each part's ms."""
+    n_bytes = b * d_pad + 4 * b + n_pad * d_pad + 4 * n_pad * (2 if metric == "euclidean" else 1) \
+        + 4 * b * (n_pad // 128)
+    parts = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "tensor_ms": 2.0 * b * d_pad * n_pad / INT8_TENSOR_OPS_PER_S * 1e3,
+             "epilogue_ms": b * n_pad * INT8_EPILOGUE_INSTR[metric] / CUDA_CORE_INSTR_PER_S * 1e3}
+    top = max(parts, key=parts.get)
+    return parts[top], "bytes" if top == "bytes_ms" else "operations", parts
+
+
+def int_mm_product_ms(torch, q8, table8, reps: int) -> tuple[float | None, str]:
+    """CUDA-event ms of ``torch._int_mm``'s bare int8 product q8 @ table8.T
+    (no rescale, no pack, no window max) in equal slices of whole chunks into
+    one reused int32 output, summed over the slices; context only, the port
+    never calls it.  (None, the reason) if the call refuses the operands."""
+    from otto_tpu_torch.ops.fused_retrieval import CHUNK
+
+    n_pad = table8.shape[0]
+    n_chunks = n_pad // CHUNK
+    per = max(d for d in range(1, 17) if n_chunks % d == 0) * CHUNK
+    buf = torch.empty((q8.shape[0], per), dtype=torch.int32, device=q8.device)
+
+    def run():
+        for c0 in range(0, n_pad, per):
+            torch._int_mm(q8, table8[c0:c0 + per].t(), out=buf)
+
+    try:
+        run()
+        return cuda_ms(torch, run, reps), f"{n_pad // per} slices"
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0]}"
+
+
+def without_self(ids, rows, k: int):
+    """The first ``k`` ids [B, k + 1] of each row but its own id ``rows``
+    [B] (a neighbor table's exact row from a scan of k + 1)."""
+    keep = ids != rows[:, None]
+    cols = np.argsort(~keep, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(ids, cols, axis=1)
+
+
+def quantized_topk(torch, retriever, q, k: int):
+    """Exact top-k ids [B, k] (numpy) of an ``Int8Retriever``'s quantized
+    scores of queries ``q``: integer products in float32 (TF32 off), 2^18
+    items at a time."""
+    from otto_tpu_torch.ops.fused_retrieval import quantize_rows_int8
+    from otto_tpu_torch.utils.runtime import full_f32_matmul
+
+    q8q, qs = quantize_rows_int8(q.to(torch.float32))
+    qf = q8q.to(torch.float32)
+    best_s = best_i = None
+    for c0 in range(0, retriever.n_items, 1 << 18):
+        c1 = min(c0 + (1 << 18), retriever.n_items)
+        with full_f32_matmul():
+            acc = qf @ retriever.q8[c0:c1].to(torch.float32).T
+        s = retriever._scores(acc, qs, retriever.scale[None, c0:c1], retriever.sq[None, c0:c1])
+        v, i = torch.topk(s, min(k, c1 - c0), dim=1)
+        i = i + c0
+        if best_s is not None:
+            v, pos = torch.topk(torch.cat([best_s, v], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, pos)
+        best_s, best_i = v, i
+    return best_i.cpu().numpy()
+
+
+def int8_stage1_vs_twin(torch, dev, w_in, n_queries: int, reps: int = 10) -> dict:
+    """Phase 3c-i: the int8 kernel on one batch of ``n_queries`` aids
+    against the full table, for both metrics, bit-equal to its twin; its
+    times, the twin's, ``torch._int_mm``'s bare product and the bound.
+    Returns the kernels line's record (the euclidean metric's numbers, the
+    neighbor table's; the dot metric's beside them)."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+    from otto_tpu_torch.ops.retrieval import quantize_items_int8
+
+    rng = np.random.default_rng(SEED + 5)
+    q = w_in[torch.as_tensor(rng.choice(w_in.shape[0], n_queries, replace=False), device=dev)]
+    quant = quantize_items_int8(w_in)
+    out = {}
+    for metric in ("dot", "euclidean"):
+        r8 = fr.Int8Retriever(*quant, metric=metric, device=dev)
+        q8q, qs = fr.quantize_rows_int8(q)
+        q8p = torch.nn.functional.pad(q8q, (0, r8.table8.shape[1] - r8.dim))
+        args = (q8p, qs, r8.table8, r8.item_scale, r8.item_bias)
+        kw = {"n_items": r8.n_items, "shift": r8._shift(q8q, qs), "metric": metric}
+        k, r = fr.fused_stage1_int8(*args, **kw), fr._stage1_int8_reference(*args, **kw)
+        sync(torch, dev)
+        check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+              f"3c-i: the int8 kernel differs from its twin ({metric})")
+        live = (r.view(torch.int32) >= fr.LIVE_BITS).float().mean().item()
+        del k, r
+        loop_ms = (lambda fn, n: cuda_ms(torch, fn, n)) if dev.type == "cuda" else _host_ms
+        ms = [loop_ms(lambda: fr.fused_stage1_int8(*args, **kw), reps) for _ in range(2)]
+        plain_ms = loop_ms(lambda: fr._stage1_int8_reference(*args, **kw), 1)
+        mm_ms, mm_how = (int_mm_product_ms(torch, q8p, r8.table8, 3) if dev.type == "cuda"
+                         else (None, "not on the CPU"))
+        b_ms, b_by, parts = int8_stage1_bound(n_queries, q8p.shape[1], r8.table8.shape[0],
+                                              metric)
+        shape = f"[{n_queries} x {q8p.shape[1]}] x [{q8p.shape[1]} x {r8.table8.shape[0]}] int8"
+        print(f"3c-i int8 stage 1 ({metric}) {shape}: bit-equal to its twin (live windows "
+              f"{live:.6f}); kernel {ms[0]:.4f} / {ms[1]:.4f} ms, twin {plain_ms:.3f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {json.dumps(parts)}): "
+              f"{100 * b_ms / min(ms):.1f}% of it; torch._int_mm's bare product "
+              f"{'%.4f ms' % mm_ms if mm_ms is not None else 'not timed'} ({mm_how})",
+              flush=True)
+        out[metric] = {"ms": min(ms), "ms_runs": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_parts": parts, "int_mm_product_ms": mm_ms}
+        del r8, args
+    e = out["euclidean"]
+    return {"name": "fused_stage1_int8", "route": "cuda", "source": INT8_SOURCE,
+            "replaces": "otto_tpu/ops/retrieval.py:295", "launches": 0, "max_abs_err": 0.0,
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": None,
+            "int_mm_product_ms": e["int_mm_product_ms"], "bound_parts": e["bound_parts"],
+            "dot": out["dot"]}
+
+
+def int8_neighbor_table(torch, dev, w_in, n_recall: int, zero_counters, read_counters) -> dict:
+    """Phase 3c-ii: ``build_neighbor_table(backend="int8")`` over the full
+    table (counters zeroed before, read after: the int8 kernel and the peel
+    once a batch, none of K1's routes), its seconds, the prepared table's
+    bytes beside the compensated retriever's, recall on ``n_recall``
+    sampled aids against the exact top-k of the quantized scores (>= 0.99)
+    and against the float32 exact scan (the quantization's, no bar)."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+    from otto_tpu_torch.ops.retrieval import build_neighbor_table, quantize_items_int8, topk_scan
+
+    n = w_in.shape[0]
+    zero_counters()
+    t0 = time.perf_counter()
+    table = build_neighbor_table(w_in, k=K_NNS, backend="int8", device=dev)
+    secs = time.perf_counter() - t0
+    launches = read_counters("int8 neighbor table", ("fused_stage1_int8", "peel_rows")
+                             if dev.type == "cuda" else ())
+    batches = -(-n // QUERY_BATCH)
+    if dev.type == "cuda":
+        check(launches["fused_stage1_int8"] == batches and launches["peel_rows"] == batches,
+              f"3c-ii: {launches} for {batches} query batches")
+        check(not any(launches[r] for r in ("fused_stage1", "fused_stage1_deep",
+                                            "fused_stage1_fma")), f"3c-ii: K1 ran: {launches}")
+    r8 = fr.Int8Retriever(*quantize_items_int8(w_in), metric="euclidean", device=dev)
+    comp = fr.FusedRetriever(w_in, metric="euclidean", precision="compensated", device=dev)
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    comp_bytes = nbytes(comp.items_aug_t, comp.items, comp.sq)
+    int8_bytes = nbytes(r8.table8, r8.item_scale, r8.item_bias)
+    ids = torch.as_tensor(np.random.default_rng(SEED + 6).choice(n, n_recall, replace=False),
+                          device=dev)
+    rows = ids.cpu().numpy()
+    got = table[rows]
+    q = w_in[ids]
+    want_q = without_self(quantized_topk(torch, r8, q, K_NNS + 1), rows, K_NNS)
+    want_f = without_self(topk_scan(q, w_in, k=K_NNS + 1, block=SCAN_BLOCK,
+                                    metric="euclidean")[1].cpu().numpy(), rows, K_NNS)
+    rec_q, rec_f = overlap(got, want_q), overlap(got, want_f)
+    print(f"3c-ii build_neighbor_table(backend='int8') {n} x {w_in.shape[1]}, k={K_NNS}: "
+          f"{secs:.3f} s; launches {launches}; the prepared int8 table {int8_bytes} bytes "
+          f"against the compensated retriever's {comp_bytes} ({int8_bytes / comp_bytes:.3f}x); "
+          f"recall on {n_recall} aids vs the exact quantized top-{K_NNS} {rec_q:.4f} "
+          f"(limit {INT8_RECALL}), vs the float32 exact scan {rec_f:.4f} (the quantization's, "
+          f"no bar)", flush=True)
+    check(rec_q >= INT8_RECALL, f"3c-ii: recall {rec_q} vs the quantized scan")
+    return {"s": secs, "launches": launches, "int8_bytes": int8_bytes,
+            "compensated_bytes": comp_bytes, "recall_quantized": rec_q, "recall_f32": rec_f,
+            "retriever": comp}
+
+
+def hybrid_approx(torch, dev, w_in, n_queries: int, zero_counters, read_counters) -> dict:
+    """Phase 3c-iii: ``topk_hybrid`` (euclidean) and ``topk_approx`` (dot),
+    each on two ``n_queries`` batches of the float32 table (stage 1's FMA
+    kernel) and one of the table in bf16 (the wgmma kernel), counters
+    zeroed before and read after each; recall against the exact scan of the
+    same table (>= 0.99), and the returned scores ``_rescore`` of the
+    returned ids (within 1e-6 relative: a [B, k] product may sum a column in
+    another order once the columns are sorted; the share bit-equal is
+    printed).  Then the FMA kernel against its twin on one batch of the
+    float32 table's operands (``fma_vs_twin``, its record at this shape)."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+    from otto_tpu_torch.ops.retrieval import hybrid_retriever, topk_approx, topk_hybrid, topk_scan
+
+    n = w_in.shape[0]
+    rng = np.random.default_rng(SEED + 7)
+    w_bf16 = w_in.to(torch.bfloat16)
+    out = {}
+    for fn, metric in ((topk_hybrid, "euclidean"), (topk_approx, "dot")):
+        name = fn.__name__
+        zero_counters()
+        runs = []
+        t0 = time.perf_counter()
+        for items in (w_in, w_in, w_bf16):
+            q = w_in[torch.as_tensor(rng.choice(n, n_queries, replace=False), device=dev)]
+            s, i = fn(q, items, K_NNS, metric=metric)
+            runs.append((items, q, s, i))
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters(f"{name} path", ("fused_stage1_fma", "fused_stage1", "peel_rows")
+                                 if dev.type == "cuda" else ())
+        if dev.type == "cuda":
+            check(launches["fused_stage1_fma"] == 2 and launches["fused_stage1"] == 1
+                  and launches["peel_rows"] == 3, f"3c-iii {name}: {launches}")
+        recs, same = [], []
+        for items, q, s, i in runs:
+            itf = items.to(torch.float32)
+            _, want = topk_scan(q, itf, k=K_NNS, block=SCAN_BLOCK, metric=metric)
+            recs.append(overlap(i.cpu().numpy(), want.cpu().numpy()))
+            again = fr._rescore(itf, (itf * itf).sum(dim=1), q, i.long(), metric)
+            check(torch.allclose(s, again, rtol=1e-6, atol=1e-5),
+                  f"3c-iii {name}: scores are not _rescore of the ids")
+            same.append((s == again).float().mean().item())
+        print(f"3c-iii {name} ({metric}) {n} x {w_in.shape[1]}, 2 x {n_queries} queries on the "
+              f"float32 table and {n_queries} on bf16, k={K_NNS}: {secs:.3f} s; launches "
+              f"{launches}; recall vs the exact scan {[round(r, 4) for r in recs]} (limit "
+              f"{INT8_RECALL}); scores _rescore of the ids, bit-equal on "
+              f"{[round(x, 6) for x in same]}", flush=True)
+        check(min(recs) >= INT8_RECALL, f"3c-iii {name}: recall {recs}")
+        out[name] = {"s": secs, "launches": launches, "recall": recs}
+    q = w_in[torch.as_tensor(rng.choice(n, n_queries, replace=False), device=dev)]
+    out["fma_vs_twin"] = f32_stage1_vs_twin(
+        torch, dev, hybrid_retriever(w_in, "euclidean", torch.float32, dev), q,
+        table="topk_hybrid's float32 table")
+    return out
+
+
+def survivors_batch(torch, dev, retriever, n_queries: int, zero_counters,
+                    read_counters) -> dict:
+    """Phase 3c-iv: ``FusedRetriever.topk(rescore_survivors=True)`` on one
+    batch of the compensated retriever over the full table: recall against
+    the exact scan >= 0.99 and at least the plain ``topk``'s on the batch;
+    the times of both."""
+    from otto_tpu_torch.ops import fused_retrieval as fr
+    from otto_tpu_torch.ops.retrieval import topk_scan
+
+    n = retriever.n_items
+    rng = np.random.default_rng(SEED + 8)
+    q = retriever.items[torch.as_tensor(rng.choice(n, n_queries, replace=False), device=dev)]
+    zero_counters()
+    t0 = time.perf_counter()
+    s, i = retriever.topk(q, k=K_NNS, rescore_survivors=True)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = read_counters("rescore_survivors path", ("fused_stage1", "peel_rows")
+                             if dev.type == "cuda" else ())
+    t0 = time.perf_counter()
+    _, i0 = retriever.topk(q, k=K_NNS)
+    sync(torch, dev)
+    plain_s = time.perf_counter() - t0
+    _, want = topk_scan(q, retriever.items, k=K_NNS, block=SCAN_BLOCK, metric="euclidean")
+    rec, rec0 = (overlap(x.cpu().numpy(), want.cpu().numpy()) for x in (i, i0))
+    # the survivors were rescored as a [B, rounds * windows] block, so a
+    # score may differ in its summation order from a [B, k] rescoring
+    check(torch.allclose(s, fr._rescore(retriever.items, retriever.sq, q, i.long(), "euclidean"),
+                         rtol=1e-6, atol=1e-5), "3c-iv: scores are not _rescore of the ids")
+    print(f"3c-iv FusedRetriever(compensated).topk(rescore_survivors=True) {n_queries} queries "
+          f"k={K_NNS}: {secs * 1e3:.1f} ms (plain topk {plain_s * 1e3:.1f} ms); launches "
+          f"{launches}; recall vs the exact scan {rec:.4f} (plain {rec0:.4f}; limit "
+          f"{INT8_RECALL} and >= plain)", flush=True)
+    check(rec >= INT8_RECALL and rec >= rec0, f"3c-iv: recall {rec}, plain {rec0}")
+    return {"s": secs, "plain_s": plain_s, "launches": launches, "recall": rec,
+            "plain_recall": rec0}
 
 
 def serve(torch, dev, model, n_sessions: int, n_check: int):
@@ -3290,14 +3592,14 @@ def tfidf_run(torch, dev, store, workdir: Path, n_check: int = 2_000) -> dict:
 # epochs; the transformers 2 layers of 2 heads, the MoE's FFNs 4 experts)
 # over the full catalog.
 SEQ_CONFIGS = ("gru", "gru4rec_plus", "narm", "stamp", "caser", "transformer", "moe")
-SEQ_STORE_SESSIONS = 100_000  # 14b-14d: phase 7's store cut (200,000 before)
+SEQ_STORE_SESSIONS = 50_000  # 14b-14d: phase 7's store cut (100,000 until phase 3c, 200,000 before)
 SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with epochs: 1); "
             "phase 7's store (200,000 sessions over 1,855,603 aids, 2,599,069 events; the "
             f"OTTO week has ~220M events) cut to its first {SEQ_STORE_SESSIONS:,} sessions "
             "(the whole store until 3b's deep route came, when the script took 1,210.5 s "
-            "of phases on a "
-            "slow host): run_sequence trains gru on its 90,000-session split and serves its "
-            "10,000 target sessions",
+            "of phases on a slow host; 100,000 until phase 3c came, when it took 1,088.89 s "
+            "of phases on a slow host): run_sequence trains gru on the split's training "
+            "sessions (90%) and serves its target sessions (10%)",
             "14b: the six other configs train on the split's first 10,000 training sessions "
             "(phase 14 ran past 200 s uncut, and at 90,000 the script past 850 s; 45,000 until "
             "phase 16 came, when the script's phases 1-15 took 955 s on one host; 25,000 "
@@ -3307,6 +3609,9 @@ SEQ_CUTS = ("14b-14d: epochs 3 -> 1 for every config (a copy of each YAML with e
             "14a: card against CPU on one step from one seeded batch of phase 7's examples "
             "and on 512 of its sessions")
 SEQ_CUT_TRAIN_SESSIONS = 10_000  # 14b: the non-default configs' training sessions
+# phase 3c's cost (7.5-7.8 s of phases on an H100) is paid by phase 14's store
+PHASE3C_CUTS = (f"14b-14d: phase 7's store 100,000 -> {SEQ_STORE_SESSIONS:,} sessions (14b's "
+                "and 14d's gru runs took 26.5 s each at 100,000 on a slow host)",)
 SEQ_SUBMISSION_SESSIONS = 10_000  # 14d: the subprocess's store (20,000 until phase 18)
 # 14a: session vectors within SEQ_ENC_RTOL * (|x| + SEQ_ENC_FLOOR * max |x|),
 # max over the batch (cuBLAS and the CPU sum each float32 dot in another
@@ -5144,6 +5449,7 @@ def main() -> int:
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
                 "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
+                "fused_stage1_int8": (fused_retrieval.fused_stage1_int8, "launches"),
                 "peel_rows": (row_topk.peel_rows, "launches"),
                 "aid_vote": (fused_sessions.aid_vote_aggregate, "launches"),
                 "predict_forest": (forest.predict_forest, "launches"),
@@ -5214,6 +5520,30 @@ def main() -> int:
     with phase("3b stage 1's FMA kernel vs its twin on the float32 wide table"):
         records.insert(2, f32_stage1_vs_twin(torch, dev, retriever, wide_q))
     del retriever, wide_q
+    torch.cuda.empty_cache()
+
+    for cut in PHASE3C_CUTS:
+        print(f"phase 3c cut: {cut}", flush=True)
+    with phase("3c-i the int8 stage-1 kernel vs its twin on the full catalog"):
+        records.insert(3, int8_stage1_vs_twin(torch, dev, model.w_in, QUERY_BATCH))
+    torch.cuda.empty_cache()
+    with phase("3c-ii build_neighbor_table(backend='int8') on the full catalog"):
+        int8_run = int8_neighbor_table(torch, dev, model.w_in, QUERY_BATCH, zero_counters,
+                                       read_counters)
+    with phase("3c-iii topk_hybrid and topk_approx on the full catalog"):
+        hybrid_run = hybrid_approx(torch, dev, model.w_in, QUERY_BATCH, zero_counters,
+                                   read_counters)
+    # the FMA kernel's record gains its numbers at topk_hybrid's shape
+    next(r for r in records if r["name"] == "fused_stage1_fma")["hybrid_path"] = {
+        key: hybrid_run["fma_vs_twin"][key]
+        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    with phase("3c-iv rescore_survivors on the compensated retriever"):
+        survivors_run = survivors_batch(torch, dev, int8_run.pop("retriever"), QUERY_BATCH,
+                                        zero_counters, read_counters)
+    torch.cuda.empty_cache()
+    print("phase 3c metrics: " + json.dumps({
+        "int8_table": int8_run, "hybrid_approx": hybrid_run, "rescore_survivors": survivors_run}),
+        flush=True)
 
     zero_counters()
     with phase("4 serving path"):
@@ -5415,7 +5745,8 @@ def main() -> int:
     try:
         seq_store = head_sessions(phase7_store, SEQ_STORE_SESSIONS)
         split14 = split_by_fraction(seq_store)  # the store's split, as the CLI makes it
-        with phase("14b run_sequence with each config on phase 7's first 100,000 sessions"):
+        with phase(f"14b run_sequence with each config on phase 7's first "
+                   f"{SEQ_STORE_SESSIONS:,} sessions"):
             seq_b = seq_runs(torch, dev, split14, workdir, zero_counters, read_counters)
         with phase("14c K1 and K3 on the sequence path's operands"):
             seq_c = seq_kernels_on_path(torch, dev, split14.val_input, seq_b["gru"]["model"],
@@ -5516,8 +5847,15 @@ def main() -> int:
                   "two_stage_sgns_resumed": ts_sgns["resumed"]["launches"]}
     seq_paths = {f"sequence_{k}": v["launches"] for k, v in seq_b.items()}
     seq_paths["cli_sequence_validation"] = seq_d["launches"]
+    # phase 3c's paths: the int8 neighbor table (the int8 kernel's home),
+    # topk_hybrid and topk_approx (the FMA kernel on float32 tables, the
+    # wgmma kernel on bf16), rescore_survivors (the compensated route)
+    paths3c = {"int8_neighbor_table": int8_run["launches"],
+               "topk_hybrid": hybrid_run["topk_hybrid"]["launches"],
+               "topk_approx": hybrid_run["topk_approx"]["launches"],
+               "rescore_survivors": survivors_run["launches"]}
     paths = {"embedding_knn": knn, "wide_table_retrieval": wide,
-             "wide_table_retrieval_f32": wide_f32, "baselines": heur,
+             "wide_table_retrieval_f32": wide_f32, **paths3c, "baselines": heur,
              "two_stage": two_stage, "prebinned_scoring": prebinned,
              "two_stage_sgns": two_stage_sgns, "cli_aid_weight": cli_aid_weight_run["launches"],
              "cli_two_stage": cli_two_stage_run["launches"], "refit": refit_run["launches"],
@@ -5527,13 +5865,14 @@ def main() -> int:
              **seq_paths, "sharded_topk_world1": a16["launches"],
              "dp_fit_world1": dp_a["launches"]}
     home = {"fused_stage1": knn, "fused_stage1_deep": wide, "fused_stage1_fma": wide_f32,
-            "peel_rows": knn, "aid_vote": heur,
+            "fused_stage1_int8": int8_run["launches"], "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
             "node_histograms": refit_run["launches"], "bin_rows": refit_run["launches"]}
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]] + sum(
             c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values(),
-                                     a16["launches"], dp_a["launches"]))
+                                     a16["launches"], dp_a["launches"], *paths3c.values())
+            if c is not home[rec["name"]])
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
         if rec["name"] in ("fused_stage1", "peel_rows"):  # each rank of 16b, mesh (1, 2)
             rec["launches_by_path"]["sharded_topk_world2_per_rank"] = \

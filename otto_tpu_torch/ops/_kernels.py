@@ -102,6 +102,7 @@ ENTRY_POINTS = {
     "fused_stage1_bf16_deep": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "fused_stage1_f32": [_p, _p, _p, _i, _i, _ll, _i, _p],
     "fused_stage1_bf16_fma": [_p, _p, _p, _i, _i, _ll, _i, _p],
+    "fused_stage1_int8": [_p, _p, _p, _p, _p, _p, _i, _i, _ll, _ll, _f, _i, _i, _p],
     "peel_rows_f32": [_p, _p, _p, _i, _i, _i, _i, _p],
     "aid_vote_f32": [_p, _p, _p, _p, _p, _i, _i, _i, _p],
     "predict_forest_binned": [_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _f, _i, _p],
@@ -174,6 +175,22 @@ def launch_fused_stage1_fma(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor)
     err = fn(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], t.shape[1],
              t.device.index, _stream(t))
     _check(err, "fused_stage1_fma")
+
+
+def launch_fused_stage1_int8(q8: torch.Tensor, q_scale: torch.Tensor, table8: torch.Tensor,
+                             item_scale: torch.Tensor, item_bias: torch.Tensor,
+                             out: torch.Tensor, *, n_items: int, shift: float,
+                             euclidean: bool) -> None:
+    """q8 [B, D_pad] and table8 [N_pad, D_pad] int8, q_scale [B], item_scale
+    and item_bias [N_pad] f32 (all 16-byte aligned) -> out [B, N_pad/128] f32
+    packed window maxima (``csrc/int8_retrieval_kernels.cu``); the launcher
+    returns cudaErrorInvalidValue for D_pad outside 32..256 or not a
+    multiple of 32, a ragged N_pad or a misaligned operand."""
+    err = lib().fused_stage1_int8(q8.data_ptr(), q_scale.data_ptr(), table8.data_ptr(),
+                                  item_scale.data_ptr(), item_bias.data_ptr(), out.data_ptr(),
+                                  q8.shape[0], q8.shape[1], table8.shape[0], n_items, shift,
+                                  int(euclidean), q8.device.index, _stream(q8))
+    _check(err, "fused_stage1_int8")
 
 
 def launch_peel_rows(x: torch.Tensor, rounds: int, vals: torch.Tensor,

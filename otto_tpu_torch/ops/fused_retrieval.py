@@ -25,13 +25,22 @@ counterpart of ``PallasRetriever``.  It replaces the reference's Annoy index
   decode (column, low bits) to the item index, and optionally rescore the k
   winners exactly.
 
+**The int8 route** (:class:`Int8Retriever`, :func:`fused_stage1_int8`) keeps
+the table as per-row int8 with float32 scales (a quarter of a float32
+table's bytes) and scores it on the int8 tensor cores into the same packed
+window maxima, so stages 2 and 3 run unchanged after it.
+
 Recall: an entry is missed if another top-k entry shares its 128-item window
 (stage 1, ~(k-1)*128/N) or if >= R stronger window maxima share its stage-2
-window.  Use :func:`otto_tpu_torch.ops.retrieval.topk_scan` when exactness is
-required.
+window (:func:`expected_window_recall`).  Given a ``recall_target``, the
+retrievers' :meth:`topk` raise R or take an exact dense route to meet it
+(:func:`window_rounds`).  Use :func:`otto_tpu_torch.ops.retrieval.topk_scan`
+when exactness is required.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -61,6 +70,11 @@ _REFERENCE_STEP_ELEMS = 1 << 28
 K1_WGMMA_MAX_DA = 256
 K1_WGMMA_DEEP_MAX_DA = 512
 K1_FMA_MAX_DA = 232_448 // (32 * 4)  # 1,816
+# The int8 kernel's contraction: a multiple of 32 (mma.m16n8k32's depth) of
+# at most 8 k steps.  Its integer products are exact in float32 (the twin's
+# route) while 127^2 * D_pad < 2^24, and the kernel's conversion of the sums
+# while they stay below 2^22 in magnitude: both hold to D_pad 256.
+K1_INT8_MAX_DPAD = 256
 
 
 def stage1_route(dtype: torch.dtype, da: int) -> str:
@@ -159,6 +173,150 @@ fused_stage1.deep_launches = 0  # the deep wgmma kernel (bf16, 256 < DA <= 512)
 fused_stage1.fma_launches = 0   # the FMA kernel (float32; bf16, DA > 512)
 
 
+def expected_window_recall(n_items: int, k: int, rounds: int) -> float:
+    """Expected recall of the windowed route for a row whose top ``k`` lie at
+    random among ``n_items``: stage 1 keeps one item a 128-item window, so
+    the j-th best is lost when one of the j - 1 better ones shares its
+    window; the peel keeps ``rounds`` windows a 16,384-item chunk, so a chunk
+    that holds X of the k loses max(0, X - rounds).  The two losses are
+    added, which overstates them a little."""
+    if n_items <= 0 or k <= 0:
+        return 1.0
+    full, tail = divmod(n_items, CHUNK)
+    sizes = [(CHUNK, full)] + ([(tail, 1)] if tail else [])
+    # a chunk of m items: lanes l < m % 128 hold m // 128 + 1 of them
+    pair = sum(count * ((m % WINDOW) * (m // WINDOW + 1) ** 2
+                        + (WINDOW - m % WINDOW) * (m // WINDOW) ** 2)
+               for m, count in sizes) / n_items**2
+    lost = sum(1.0 - (1.0 - pair) ** j for j in range(k))
+    for m, count in sizes:
+        p = m / n_items
+        if p >= 1.0:
+            lost += count * max(0, k - rounds)
+            continue
+        for x in range(rounds + 1, k + 1):  # X ~ Binomial(k, p)
+            log_pmf = (math.lgamma(k + 1) - math.lgamma(x + 1) - math.lgamma(k - x + 1)
+                       + x * math.log(p) + (k - x) * math.log1p(-p))
+            lost += count * (x - rounds) * math.exp(log_pmf)
+    return 1.0 - lost / k
+
+
+def window_rounds(n_items: int, n_pad: int, k: int, rounds: int,
+                  recall_target: float | None, block: int = CHUNK) -> int | None:
+    """The peel's rounds for a windowed top-k, or None for the exact dense
+    route: tables of at most 4 blocks, and k above the survivors' count, go
+    dense; with a ``recall_target``, ``rounds`` is raised until
+    :func:`expected_window_recall` meets it, and a table whose stage 1
+    alone loses more goes dense."""
+    if k > rounds * (n_pad // CHUNK) or n_pad <= 4 * block:
+        return None
+    if recall_target is None:
+        return rounds
+    if expected_window_recall(n_items, k, max(rounds, k)) < recall_target:
+        return None
+    while expected_window_recall(n_items, k, rounds) < recall_target:
+        rounds += 1
+    return rounds
+
+
+def _int8_keys(acc: torch.Tensor, q_scale: torch.Tensor, item_scale: torch.Tensor,
+               item_bias: torch.Tensor, shift: float, metric: str) -> torch.Tensor:
+    """The int8 route's selection keys from exact integer sums ``acc`` [B, n]
+    (float32): ``acc * (q_scale * item_scale)``, then ``2 s - item_bias`` for
+    euclidean, plus the power-of-two ``shift``, each step one float32
+    rounding in this order (the kernel's epilogue).  Overwrites ``acc``."""
+    key = acc.mul_(q_scale[:, None] * item_scale[None, :])
+    if metric == "euclidean":
+        key.mul_(2.0).sub_(item_bias[None, :])
+    return key.add_(shift)
+
+
+def _stage1_int8_reference(q8: torch.Tensor, q_scale: torch.Tensor, table8: torch.Tensor,
+                           item_scale: torch.Tensor, item_bias: torch.Tensor, *,
+                           n_items: int, shift: float, metric: str) -> torch.Tensor:
+    """Plain-torch twin of the int8 stage-1 kernel: packed window maxima
+    [B, N_pad/128] of the keys of :func:`_int8_keys`, pad items (>= n_items)
+    keyed 0.  The integer products run in float32 (TF32 off on the card),
+    exact while 127^2 * D_pad < 2^24."""
+    b = q8.shape[0]
+    n_pad = table8.shape[0]
+    q = q8.to(torch.float32)
+    out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q8.device)
+    step = max(_REFERENCE_STEP_ELEMS // max(b, 1) // CHUNK, 1) * CHUNK
+    with full_f32_matmul():
+        for c0 in range(0, n_pad, step):
+            c1 = min(c0 + step, n_pad)
+            acc = q @ table8[c0:c1].to(torch.float32).T
+            key = _int8_keys(acc, q_scale, item_scale[c0:c1], item_bias[c0:c1], shift, metric)
+            key[:, max(n_items - c0, 0):] = 0.0
+            out[:, c0 // WINDOW:c1 // WINDOW] = _pack_window_max(key)
+    return out
+
+
+def fused_stage1_int8(q8: torch.Tensor, q_scale: torch.Tensor, table8: torch.Tensor,
+                      item_scale: torch.Tensor, item_bias: torch.Tensor, *, n_items: int,
+                      shift: float, metric: str) -> torch.Tensor:
+    """Packed strided-window maxima [B, N_pad/128] float32 of int8 queries
+    q8 [B, D_pad] against the int8 table table8 [N_pad, D_pad] (both
+    row-major, zero-padded to D_pad, a multiple of 32 up to 256; N_pad a
+    multiple of 16384), in K1's layout: item ``c*16384 + a*128 + l`` goes to
+    window ``c*128 + l`` with code ``a``.
+
+    An item's key is ``f32(q8 . t8) * (q_scale * item_scale)``, then ``2 s -
+    item_bias`` for ``metric="euclidean"`` (``item_bias`` is unread for
+    "dot"), plus ``shift``, a power of two that the caller makes large enough
+    for every live key to be >= 1.0; items >= ``n_items`` key 0, below
+    ``LIVE_BITS``.  ``q_scale`` [B], ``item_scale`` and ``item_bias``
+    [N_pad] are float32.
+
+    On a CUDA tensor this launches ``fused_stage1_int8_kernel`` (int8 tensor
+    cores; ``csrc/int8_retrieval_kernels.cu``; counted in
+    ``fused_stage1_int8.launches``); on a CPU tensor it runs
+    :func:`_stage1_int8_reference`.  Raises on other dtypes, shapes and, on
+    the card, operands that are not 16-byte aligned."""
+    b, d_pad = q8.shape
+    n_pad, d_t = table8.shape
+    if q8.dtype != torch.int8 or table8.dtype != torch.int8:
+        raise TypeError(f"fused_stage1_int8: q8 and table8 must be int8, got {q8.dtype}, "
+                        f"{table8.dtype}")
+    if any(x.dtype != torch.float32 for x in (q_scale, item_scale, item_bias)):
+        raise TypeError("fused_stage1_int8: q_scale, item_scale and item_bias must be float32")
+    if (d_t != d_pad or n_pad % CHUNK or tuple(q_scale.shape) != (b,)
+            or tuple(item_scale.shape) != (n_pad,) or tuple(item_bias.shape) != (n_pad,)):
+        raise ValueError(f"fused_stage1_int8: shapes q8 {tuple(q8.shape)}, table8 "
+                         f"{tuple(table8.shape)}, q_scale {tuple(q_scale.shape)}, item_scale "
+                         f"{tuple(item_scale.shape)}, item_bias {tuple(item_bias.shape)} "
+                         f"(N_pad must be a multiple of {CHUNK})")
+    if d_pad % 32 or not 32 <= d_pad <= K1_INT8_MAX_DPAD:
+        raise ValueError(f"fused_stage1_int8: D_pad must be a multiple of 32 in 32.."
+                         f"{K1_INT8_MAX_DPAD}, got {d_pad}")
+    if not 0 <= n_items <= n_pad:
+        raise ValueError(f"fused_stage1_int8: n_items {n_items} outside 0..{n_pad}")
+    if metric not in ("dot", "euclidean"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if len({x.device for x in (q8, q_scale, table8, item_scale, item_bias)}) != 1:
+        raise ValueError("fused_stage1_int8: operands on different devices")
+    if q8.device.type == "cpu":
+        return _stage1_int8_reference(q8, q_scale, table8, item_scale, item_bias,
+                                      n_items=n_items, shift=shift, metric=metric)
+    if q8.device.type != "cuda":
+        raise ValueError(f"fused_stage1_int8: no kernel for device {q8.device}")
+    if n_pad // CHUNK > 65535 or -(-b // 128) > 2**31 - 1:
+        raise ValueError(f"fused_stage1_int8: [{b} x {n_pad}] exceeds the kernel's grid")
+    ops = tuple(x.contiguous() for x in (q8, q_scale, table8, item_scale, item_bias))
+    if any(x.data_ptr() % 16 for x in ops):
+        raise ValueError("fused_stage1_int8: every operand must start on a 16-byte boundary")
+    out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q8.device)
+    if b:
+        _kernels.launch_fused_stage1_int8(*ops, out, n_items=n_items, shift=shift,
+                                          euclidean=metric == "euclidean")
+        fused_stage1_int8.launches += 1
+    return out
+
+
+fused_stage1_int8.launches = 0  # launches of the int8 kernel made by this wrapper
+
+
 def _bf16_split(x: torch.Tensor):
     """float32 -> (hi, lo) bf16 with hi + lo ~ x to ~2^-17 relative; the
     casts round to nearest even, as JAX's do."""
@@ -174,7 +332,9 @@ class FusedRetriever:
     ``items`` [N, D] float, moved to ``device``.  ``metric``: "dot" (score
     q.x) or "euclidean" (Annoy euclidean order: score 2 q.x - ||x||^2).  The
     augmented table [D+2, N_pad] is stored transposed in ``table_dtype``
-    (bf16 by default); returned exact scores come from a float32 copy.
+    (bf16 by default); exact scores come from a copy of the items in
+    ``rescore_dtype`` (float32 by default; bf16 halves it), upcast to
+    float32 for the products.
 
     ``precision="compensated"`` stores an error-compensated bf16 split of the
     augmented table: item columns ``[hi(x); lo(x); hi(x)]`` scored against
@@ -187,7 +347,8 @@ class FusedRetriever:
     """
 
     def __init__(self, items, metric: str = "dot", block: int = CHUNK,
-                 table_dtype: torch.dtype = torch.bfloat16, precision: str = "single",
+                 table_dtype: torch.dtype = torch.bfloat16,
+                 rescore_dtype: torch.dtype = torch.float32, precision: str = "single",
                  *, device: str | torch.device):
         if block % CHUNK:
             raise ValueError("block must be a multiple of 128*128")
@@ -212,7 +373,7 @@ class FusedRetriever:
 
         sq = (itf * itf).sum(dim=1)
         self.max_sq = float(sq.max())
-        self.items = itf  # [N, D] float32, for rescoring
+        self.items = itf.to(rescore_dtype)  # [N, D], for rescoring
         self.sq = sq      # [N] float32
         ones = torch.ones((self.n_items, 1), dtype=torch.float32, device=self.device)
         aug = torch.cat([itf, -sq[:, None], ones], dim=1)  # rows [x, -||x||^2, 1]
@@ -223,23 +384,159 @@ class FusedRetriever:
             table = aug.to(table_dtype)
         self.items_aug_t = torch.nn.functional.pad(table.T, (0, n_pad)).contiguous()
 
-    def topk(self, queries, k: int, rounds: int = 6, exact_scores: bool = False):
+    def topk(self, queries, k: int, rounds: int = 6, exact_scores: bool = False,
+             rescore_survivors: bool = False, recall_target: float | None = None):
         """queries [B, D] -> (scores [B, k] float32, indices [B, k] int32),
         descending.
 
         Scores decode from the packed keys (relative error <= 2^-17 of the
         shifted score — the 7 lane bits); ``exact_scores=True`` re-gathers the
-        winning items and rescores them in float32.
+        winning items and rescores them in float32.  ``rescore_survivors=True``
+        instead rescores every stage-2 survivor (rounds * N_pad/16384 a row)
+        from the ``rescore_dtype`` copy in float32 and keeps the k best, so the
+        table's type only picks the survivor pool.  A ``recall_target`` makes
+        ``rounds`` a floor (:func:`window_rounds`).
         """
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         n_pad = self.items_aug_t.shape[1]
-        n_cands = rounds * (n_pad // CHUNK)
-        if k > n_cands or n_pad <= 4 * self.block:
+        rounds = window_rounds(self.n_items, n_pad, k, rounds, recall_target, self.block)
+        if rounds is None:
             return _dense_topk(self.items, self.sq, q, metric=self.metric,
                                k=min(k, self.n_items))
         return _topk_impl(self.items_aug_t, self.items, self.sq, q, metric=self.metric,
                           n_items=self.n_items, max_sq=self.max_sq, rounds=rounds, k=k,
-                          exact_scores=exact_scores, precision=self.precision)
+                          exact_scores=exact_scores, rescore_survivors=rescore_survivors,
+                          precision=self.precision)
+
+
+def quantize_rows_int8(x: torch.Tensor):
+    """Per-row symmetric int8 quantization of float32 rows [R, D]: returns
+    (q8 [R, D] int8, scale [R] float32) with ``x ~ q8 * scale``: the scale is
+    max(max |x|, 1e-30) / 127, each value divided by it, rounded half to
+    even and clipped to +-127 (``otto_tpu/ops/retrieval.py:256-258, 288-289``).
+    The divisor 127 is a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by its rounded reciprocal, an ulp off the quotient at times."""
+    top = torch.clamp(x.abs().amax(dim=1), min=1e-30)
+    scale = top / torch.full_like(top, 127.0)
+    q8 = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def row_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """||x||^2 of float32 rows [R, D], the d-th square added in ascending d:
+    the same bits on the card and on the CPU (a library reduction sums in an
+    order of its own on each), and XLA's on the CPU for rows of up to 32."""
+    s = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for d in range(x.shape[1]):
+        s = s + x[:, d] * x[:, d]
+    return s
+
+
+class Int8Retriever:
+    """Prepared per-row int8 item table + windowed top-k on the int8 tensor
+    cores (the port's route for the reference's ``topk_hybrid_int8``).
+
+    ``q8`` [N, D] int8, ``scale`` [N] and ``sq`` [N] float32, as
+    ``otto_tpu_torch.ops.retrieval.quantize_items_int8`` returns them, moved
+    to ``device``.  The table is kept zero-padded to [N_pad, D_pad] (N_pad a
+    multiple of ``block``, D_pad of 32; zeros add nothing to an integer
+    dot), with the scales and norms padded alike: N_pad * (D_pad + 8) bytes
+    and no float32 copy of the table.  ``metric``: "dot" (score f32(q8 .
+    x8) * (qs * scale)) or "euclidean" (2 s - sq).
+
+    :meth:`topk` quantizes the queries per row, runs :func:`fused_stage1_int8`,
+    the peel, the decode, and rescores the k winners exactly from the int8
+    table with the reference's float32 formula.  Where :func:`window_rounds`
+    says so it takes an exact dense route over the quantized scores, as
+    :meth:`FusedRetriever.topk` does.
+    """
+
+    def __init__(self, q8, scale, sq, metric: str = "dot", block: int = CHUNK, *,
+                 device: str | torch.device):
+        if block % CHUNK:
+            raise ValueError("block must be a multiple of 128*128")
+        if metric not in ("dot", "euclidean"):
+            raise ValueError(f"unknown metric {metric!r}")
+        self.device = resolve_device(device)
+        q8 = torch.as_tensor(q8, device=self.device)
+        if q8.dtype != torch.int8 or q8.dim() != 2:
+            raise TypeError(f"Int8Retriever: q8 must be [N, D] int8, got {q8.dtype} "
+                            f"{tuple(q8.shape)}")
+        self.n_items, self.dim = q8.shape
+        self.metric = metric
+        self.block = block
+        n_pad = -(-self.n_items // block) * block
+        d_pad = -(-self.dim // 32) * 32
+        self.table8 = torch.zeros((n_pad, d_pad), dtype=torch.int8, device=self.device)
+        self.table8[:self.n_items, :self.dim] = q8
+        self.item_scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+        self.item_scale[:self.n_items] = torch.as_tensor(scale, dtype=torch.float32,
+                                                         device=self.device)
+        self.item_bias = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+        self.item_bias[:self.n_items] = torch.as_tensor(sq, dtype=torch.float32,
+                                                        device=self.device)
+        # views of the unpadded table, scales and norms, for rescoring
+        self.q8 = self.table8[:self.n_items, :self.dim]
+        self.scale = self.item_scale[:self.n_items]
+        self.sq = self.item_bias[:self.n_items]
+        # the largest dequantized norm ||q8 * scale|| and ||x||^2, for the shift
+        norms = self.q8.to(torch.float64).square().sum(dim=1).sqrt() * self.scale
+        self.max_norm = float(norms.max()) if self.n_items else 0.0
+        self.max_sq = float(self.sq.max()) if self.n_items else 0.0
+
+    def _shift(self, q8q: torch.Tensor, qs: torch.Tensor) -> float:
+        """A power of two C with every live key >= 1: by Cauchy-Schwarz a
+        score is at most ||q^|| ||x^|| in magnitude (the dequantized rows),
+        2 ||q^|| ||x^|| + max ||x||^2 for euclidean's 2 s - sq, and 2^-10 of
+        slack covers the float32 roundings."""
+        qn = float((q8q.to(torch.float64).square().sum(dim=1).sqrt() * qs).max())
+        mag = qn * self.max_norm
+        if self.metric == "euclidean":
+            mag = 2.0 * mag + self.max_sq
+        return 2.0 ** math.ceil(math.log2((2.0 + mag) * (1.0 + 2.0**-10)))
+
+    def _scores(self, acc: torch.Tensor, qs: torch.Tensor, scale: torch.Tensor,
+                sq: torch.Tensor) -> torch.Tensor:
+        """The reference's float32 scores from exact integer sums ``acc``:
+        f32(acc) * (qs * scale), then 2 s - sq for euclidean."""
+        s = acc * (qs[:, None] * scale)
+        return 2.0 * s - sq if self.metric == "euclidean" else s
+
+    def _rescore(self, q8q: torch.Tensor, qs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Scores of items ``idx`` [B, k]: integer dots, then :meth:`_scores`."""
+        acc = (q8q[:, None, :].to(torch.int32) * self.q8[idx].to(torch.int32)).sum(dim=2)
+        return self._scores(acc.to(torch.float32), qs, self.scale[idx], self.sq[idx])
+
+    def _dense_topk(self, q8q: torch.Tensor, qs: torch.Tensor, k: int):
+        """Exact top-k over the quantized scores (TF32 off: the integer
+        products are exact in float32), ties to the lower index."""
+        table = self.q8.to(torch.float32)
+
+        def scores(rows):
+            with full_f32_matmul():
+                acc = q8q[rows].to(torch.float32) @ table.T
+            return self._scores(acc, qs[rows], self.scale[None, :], self.sq[None, :])
+
+        return _sorted_topk(scores, q8q.shape[0], self.n_items, k)
+
+    def topk(self, queries, k: int, rounds: int = 6, recall_target: float | None = None):
+        """queries [B, D] float -> (scores [B, k] float32, indices [B, k]
+        int32), descending by the quantized score.  A ``recall_target`` makes
+        ``rounds`` a floor (:func:`window_rounds`)."""
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        q8q, qs = quantize_rows_int8(q)
+        n_pad, d_pad = self.table8.shape
+        rounds = window_rounds(self.n_items, n_pad, k, rounds, recall_target, self.block)
+        if rounds is None:
+            return self._dense_topk(q8q, qs, min(k, self.n_items))
+        packed = fused_stage1_int8(
+            torch.nn.functional.pad(q8q, (0, d_pad - self.dim)), qs, self.table8,
+            self.item_scale, self.item_bias, n_items=self.n_items,
+            shift=self._shift(q8q, qs), metric=self.metric)
+        _, idx, live = _survivors(packed, rounds, k, self.n_items)
+        s = torch.where(live, self._rescore(q8q, qs, idx), NEG)
+        s_sorted, pos = torch.sort(s, dim=1, descending=True, stable=True)
+        return s_sorted[:, :k], torch.gather(idx, 1, pos[:, :k])
 
 
 def _decode_index(col: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -270,14 +567,28 @@ def _augment_queries(q: torch.Tensor, max_sq: float, metric: str):
 def _rescore(items: torch.Tensor, sq: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
              metric: str) -> torch.Tensor:
     """Scores of items ``idx`` [B, k] under the metric, float32 math."""
-    s = torch.einsum("bd,bkd->bk", q, items[idx])
+    s = torch.einsum("bd,bkd->bk", q, items[idx].to(torch.float32))
     if metric == "euclidean":
         s = 2.0 * s - sq[idx]
     return s
 
 
+def _survivors(packed: torch.Tensor, rounds: int, k: int, n_items: int):
+    """Stages 2 and 3 on packed window maxima: the peel, a stable sort of the
+    survivors by packed key (ties in column order, as
+    ``jax.lax.sort_key_val``), then the decode of the best ``k``.  Returns (packed bits int32, item indices, live mask),
+    [B, k] each; pad windows pack below ``LIVE_BITS`` and are not live."""
+    vals, cols = peel_rows(packed, rounds)
+    neg_keys, order = torch.sort(-vals, dim=1, stable=True)
+    top_v = -neg_keys[:, :k]
+    col = torch.gather(cols, 1, order[:, :k])  # window index
+    bits = top_v.view(torch.int32)
+    idx = _decode_index(col, bits & LANE_MASK).clamp(max=n_items - 1)
+    return bits, idx, bits >= LIVE_BITS
+
+
 def _topk_impl(items_aug_t, items, sq, queries, *, metric, n_items, max_sq, rounds, k,
-               exact_scores, precision):
+               exact_scores, rescore_survivors, precision):
     q_aug, c_shift = _augment_queries(queries, max_sq, metric)
     if precision == "compensated":
         # [qhi, qhi, qlo] against item rows [hi; lo; hi]: the C and u
@@ -289,15 +600,18 @@ def _topk_impl(items_aug_t, items, sq, queries, *, metric, n_items, max_sq, roun
         q_aug = q_aug.to(items_aug_t.dtype)
 
     packed = fused_stage1(q_aug, items_aug_t)
-    vals, cols = peel_rows(packed, rounds)
-    # stable sort: ties keep column order, as jax.lax.sort_key_val does
-    neg_keys, order = torch.sort(-vals, dim=1, stable=True)
-    top_v = -neg_keys[:, :k]
-    col = torch.gather(cols, 1, order[:, :k])  # window index
-    bits = top_v.view(torch.int32)
-    idx = _decode_index(col, bits & LANE_MASK).clamp(max=n_items - 1)
-    # pad windows pack to bits in [0, 128); every real score is >= 1.0
-    live = bits >= LIVE_BITS
+    if rescore_survivors:
+        # every survivor, in column order, rescored; a stable sort of the
+        # negated scores keeps ties in that order, as the reference's
+        # sort_key_val does
+        vals, cols = peel_rows(packed, rounds)
+        bits_all = vals.view(torch.int32)
+        idx_all = _decode_index(cols, bits_all & LANE_MASK).clamp(max=n_items - 1)
+        s_all = torch.where(bits_all >= LIVE_BITS,
+                            _rescore(items, sq, queries, idx_all, metric), NEG)
+        neg_s, order = torch.sort(-s_all, dim=1, stable=True)
+        return -neg_s[:, :k], torch.gather(idx_all, 1, order[:, :k])
+    bits, idx, live = _survivors(packed, rounds, k, n_items)
     if exact_scores:
         s = torch.where(live, _rescore(items, sq, queries, idx, metric), NEG)
         s_sorted, pos = torch.sort(s, dim=1, descending=True, stable=True)
@@ -306,12 +620,26 @@ def _topk_impl(items_aug_t, items, sq, queries, *, metric, n_items, max_sq, roun
     return torch.where(live, s, NEG), idx
 
 
+def _sorted_topk(scores, b: int, n: int, k: int):
+    """Top-k of the [rows, n] blocks ``scores(rows)`` over b query rows,
+    ties to the lower index, a block of at most 2^28 scores at a time."""
+    step = max(_REFERENCE_STEP_ELEMS // max(n, 1), 1)
+    vals, ids = [], []
+    for r0 in range(0, max(b, 1), step):
+        v, i = torch.sort(scores(slice(r0, r0 + step)), dim=1, descending=True, stable=True)
+        vals.append(v[:, :k])
+        ids.append(i[:, :k].to(torch.int32))
+    return torch.cat(vals), torch.cat(ids)
+
+
 def _dense_topk(items, sq, queries, *, metric, k):
-    """Exact path for tables too small for the windowed kernel: float32
+    """Exact path for tables the windowed route does not suit: float32
     scores (TF32 off), top-k with ties to the lower index."""
-    with full_f32_matmul():
-        s = queries @ items.T
-    if metric == "euclidean":
-        s = 2.0 * s - sq[None, :]
-    v, i = torch.sort(s, dim=1, descending=True, stable=True)
-    return v[:, :k], i[:, :k].to(torch.int32)
+    table = items.to(torch.float32)
+
+    def scores(rows):
+        with full_f32_matmul():
+            s = queries[rows] @ table.T
+        return 2.0 * s - sq[None, :] if metric == "euclidean" else s
+
+    return _sorted_topk(scores, queries.shape[0], items.shape[0], k)

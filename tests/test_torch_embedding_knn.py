@@ -102,9 +102,18 @@ def test_build_neighbor_table_matches_jax(exact, exclude_self):
 
 
 def test_build_neighbor_table_rejects_partial_reduce_backends():
+    """The reference's PartialReduce backends run on the port's own routes
+    (``tests/test_torch_retrieval_backends.py`` holds them to ``otto_tpu``);
+    a name no package knows still raises."""
+    items = _table(10)
+    want = tret.build_neighbor_table(items, k=2, exact=True, device="cpu")
     for backend in ("hybrid", "approx", "int8"):
-        with pytest.raises(ValueError, match="M11"):
-            tret.build_neighbor_table(_table(10), k=2, backend=backend, device="cpu")
+        got = tret.build_neighbor_table(items, k=2, backend=backend, device="cpu")
+        assert got.shape == (10, 2) and got.dtype == np.int32
+        if backend != "int8":  # int8 ranks by the quantized scores
+            np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="unknown backend"):
+        tret.build_neighbor_table(items, k=2, backend="annoy", device="cpu")
 
 
 def test_cuda_request_without_card_raises():
