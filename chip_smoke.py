@@ -896,8 +896,8 @@ def f32_stage1_vs_twin(torch, dev, retriever, q, reps: int = 3,
 
 # The int8 stage-1 kernel's bound (its source's note): the int8 tensor
 # cores' dense rate, and the epilogue's CUDA-core instructions a score as
-# counted in the kernel's source (the conversion's FADD, two FMULs, the
-# shift's FADD, one LOP3, one FMNMX; euclidean adds the FFMA of 2 s - sq),
+# counted in the kernel's source (the int-to-float conversion, two FMULs,
+# the shift's FADD, one LOP3, one FMNMX; euclidean adds the FFMA of 2 s - sq),
 # at one warp instruction a clock a scheduler: 132 SMs x 128 lanes x
 # 1.98 GHz.
 INT8_SOURCE = "otto_tpu_torch/csrc/int8_retrieval_kernels.cu"

@@ -13,6 +13,8 @@
 
 #include <algorithm>
 
+#include "hopper_sync.cuh"
+
 namespace {
 
 constexpr int WINDOW = 128;            // items per strided window
@@ -40,85 +42,12 @@ constexpr unsigned LANE_MASK = WINDOW - 1;
 // - bf16 with 256 < DA <= 512 (compensated tables of dim 84-168):
 //   fused_stage1_deep_kernel, on the tensor cores; a tile is two TMA boxes
 //   and a block takes 64 of a window's 128 lanes.
-// - float32, and bf16 with DA > 512: fused_stage1_fma_kernel<T>, float32 FMA
-//   on the CUDA cores.  The tensor cores take float32 only as TF32, which
-//   would break the float32 contract of table_dtype=float32; a bf16 table
-//   is converted to float32 as it loads.
+// - float32, and bf16 with 512 < DA <= 2,048: fused_stage1_fma_kernel<T, MQ>,
+//   float32 FMA on the CUDA cores in register tiles, the table staged by
+//   TMA.  The tensor cores take float32 only as TF32, which would break the
+//   float32 contract of table_dtype=float32; a bf16 table is converted to
+//   float32 as it is read.
 // ---------------------------------------------------------------------------
-
-// --- FMA: one thread per lane ----------------------------------------------
-//
-// One block per (query tile of TQ rows, chunk); one thread per lane l,
-// looping over the 128 positions a.  The query tile sits in shared memory as
-// float32, laid out [d][TQ] so that one 16-byte broadcast load feeds four
-// FMAs; for fixed (d, a) the 128 threads read 128 consecutive table columns,
-// so the loads coalesce.  Scores accumulate over d in ascending order.
-// Bound by FMA throughput (each table element read feeds TQ FMAs).  The
-// query tile limits the depth: DA * TQ * 4 bytes of shared memory, so DA <=
-// 1,816 on an H100 (232,448 bytes a block).  It serves float32 tables, and
-// bf16 tables deeper than the deep wgmma kernel's 512.
-
-constexpr int K1_TQ = 32;       // queries per block
-constexpr int K1_THREADS = 128; // one thread per lane of the window
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__global__ void __launch_bounds__(K1_THREADS)
-fused_stage1_fma_kernel(const T* __restrict__ q, const T* __restrict__ t,
-                        float* __restrict__ out, int B, int DA, long long n_pad) {
-  extern __shared__ float4 qs4[];  // [DA][K1_TQ] float32
-  float* qs = reinterpret_cast<float*>(qs4);
-  const int b0 = blockIdx.x * K1_TQ;
-  const long long chunk = blockIdx.y;
-  const int l = threadIdx.x;
-
-  for (int i = threadIdx.x; i < DA * K1_TQ; i += blockDim.x) {
-    const int d = i / K1_TQ;
-    const int r = i - d * K1_TQ;
-    const int b = b0 + r;
-    qs[i] = (b < B) ? to_f32(q[(long long)b * DA + d]) : 0.0f;
-  }
-  __syncthreads();
-
-  float best[K1_TQ];
-#pragma unroll
-  for (int r = 0; r < K1_TQ; ++r) best[r] = -CUDART_INF_F;
-
-  const T* col0 = t + chunk * CHUNK + l;
-  for (int a = 0; a < WINDOW; ++a) {
-    float acc[K1_TQ];
-#pragma unroll
-    for (int r = 0; r < K1_TQ; ++r) acc[r] = 0.0f;
-    const T* col = col0 + a * WINDOW;
-#pragma unroll 2
-    for (int d = 0; d < DA; ++d) {
-      const float x = to_f32(col[(long long)d * n_pad]);
-      const float4* qv = qs4 + d * (K1_TQ / 4);
-#pragma unroll
-      for (int r4 = 0; r4 < K1_TQ / 4; ++r4) {
-        const float4 v = qv[r4];
-        acc[4 * r4 + 0] = fmaf(v.x, x, acc[4 * r4 + 0]);
-        acc[4 * r4 + 1] = fmaf(v.y, x, acc[4 * r4 + 1]);
-        acc[4 * r4 + 2] = fmaf(v.z, x, acc[4 * r4 + 2]);
-        acc[4 * r4 + 3] = fmaf(v.w, x, acc[4 * r4 + 3]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < K1_TQ; ++r) {
-      const unsigned bits = (__float_as_uint(acc[r]) & ~LANE_MASK) | (unsigned)a;
-      best[r] = fmaxf(best[r], __uint_as_float(bits));
-    }
-  }
-
-  const long long nw = n_pad / WINDOW;
-#pragma unroll
-  for (int r = 0; r < K1_TQ; ++r) {
-    const int b = b0 + r;
-    if (b < B) out[(long long)b * nw + chunk * WINDOW + l] = best[r];
-  }
-}
 
 // --- bf16: wgmma fed by a TMA ring -----------------------------------------
 //
@@ -166,45 +95,6 @@ constexpr int K1B_WG_ROWS = 64;        // queries per consumer warpgroup (wgmma 
 constexpr int K1B_CONSUMERS = 2;
 constexpr int K1B_THREADS = 128 * (K1B_CONSUMERS + 1);
 constexpr int K1B_BOX = 64;            // TMA box width: one 128-byte swizzle row
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
-      : "memory");
-}
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (all in 16-byte units) and the layout (1: 128-byte swizzle).
@@ -578,47 +468,296 @@ fused_stage1_deep_kernel(const __grid_constant__ CUtensorMap table,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// --- FMA: register tiles fed by a TMA ring ----------------------------------
+//
+// fused_stage1_fma_kernel<T, MQ> takes float32 tables (T = float) and bf16
+// tables deeper than the deep wgmma kernel's 512 (T = __nv_bfloat16,
+// converted to float32 as it is read).  Every score is the parent's:
+// fmaf(q[b, d], t[d, j], acc) over d ascending from acc = +0.0, then the
+// LOP3 pack and the fmaxf window max, so its output is bit-equal to the
+// one-thread-a-lane kernel it replaced.
+//
+// What bounds it: the float32 FMA issue rate, 2 B DA N_pad operations at 67
+// TFLOP/s (7.77 ms at topk_hybrid's [4096 x 34] x [34 x 1,867,776]; 0.76 ms
+// at phase 3b's [256 x 98] x [98 x 1,015,808]).  Counting the window max's
+// LOP3 and FMNMX too, it is B N_pad (DA + 2) CUDA-core instructions at 132
+// SMs x 128 lanes x 1.98 GHz = 33.5e12 a second: 8.22 ms at DA 34.  The
+// kernel before it gave each thread one lane and 32 queries: each FFMA came
+// with a ninth of a global load and a quarter of a shared load, and the
+// table was read from L2 once per 32 queries.  Here:
+//
+// - A block owns 16 MQ query rows (128 at MQ = 8), one chunk and all 128
+//   lanes of its windows.  Two consumer warpgroups (256 threads) each own a
+//   micro-tile of MQ queries x 8 lanes: queries qg + 16 i (i < MQ) and lanes
+//   4 lg .. 4 lg + 3 and 64 + 4 lg .. +3, with qg, lg in 0..15.  A thread's
+//   lanes stay fixed while the block walks the 128 positions a, so the
+//   window max best[MQ][8] folds in registers with no shuffle.
+// - The query tile is staged once as float32 in groups of 4 k: group g
+//   holds [16 MQ rows][4] (zeros past DA and past B), so one 16-byte load
+//   gives a query's next 4 k, the MQ queries of a thread sit at fixed
+//   offsets, and the four query groups of a warp read 64 contiguous
+//   bytes.  A k step costs MQ/4 + 2 shared loads (two 16-byte loads of the
+//   table tile, 128 contiguous bytes a warp) for 8 MQ FFMA: 4 loads per 64
+//   FFMA at MQ = 8, against the parent's 9 per 32.
+// - The table arrives in k chunks: a tile is [kc, 128] (kc <= 64 rows of
+//   position a's 128 consecutive columns, row pitch N_pad), one TMA box,
+//   rows past DA zero-filled.  A producer warpgroup (one thread works)
+//   keeps a ring of up to 4 tiles in flight behind `full` (TMA bytes) and
+//   `empty` (one arrival per consumer warp) mbarriers; the consumers never
+//   meet at a block barrier.  Each position takes ceil(DA / 64) tiles, so
+//   the depth is bounded by the query tile alone: the launcher takes the
+//   largest MQ of 8, 4, 2, 1 whose tile fits beside a ring of two tiles,
+//   which holds DA <= 2,048 at MQ = 1.  A k chunk's rows past DA are never
+//   multiplied (a chunk's last 1-3 rows take a scalar step), so each score
+//   takes exactly DA FMAs, and a position's first FMA adds to +0.0 (the
+//   zero register), so the accumulators need no reset between positions.
+// - The grid is (query tiles, chunks), the query tiles fastest: the blocks
+//   of one chunk run together and share its table slice in L2.  A batch of
+//   B <= 64 rows takes the smallest tile that holds it (16, 32 or 64 rows)
+//   rather than computing empty rows.  At phase 3b's B = 256 the grid is 2
+//   x 62 = 124 blocks, one a card's SM: any split of 62 chunks by a power
+//   of two fills 132 SMs no better (62 n / (132 ceil(62 n / 132)) = 94%).
+//
+// Measured on an H100 (700 W, the SM clock at 1,980 MHz throughout;
+// tools/compare_parent_kernels.py k1fma, in turns with the kernel before
+// it): 12.29 ms at [4096 x 34] x [34 x 1,867,776], 63.2% of the operations
+// bound (the one-thread-a-lane kernel 21.71 ms); 1.194 ms at [256 x 98] x
+// [98 x 1,015,808], 63.7% (3.232 ms).  The k loop issues 279 instructions
+// per 256 FFMA (cuobjdump).  What holds it below the bound: the window max
+// (64 LOP3 and 64 FMNMX a position, on the half-rate integer pipe) and the
+// group's first shared loads meet both of a scheduler's two warps at once,
+// since their tiles arrive together; a third consumer warpgroup does not
+// fit in the registers, and four warpgroups of MQ = 4, a k loop unrolled or
+// software-pipelined by hand, and tiles of 128 rows each timed slower or no
+// faster in turns.
 
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is fetched
-// through the runtime's entry-point query, so the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
+constexpr int K1F_CONSUMERS = 2;                  // consumer warpgroups
+constexpr int K1F_CTHREADS = 128 * K1F_CONSUMERS;  // consumer threads
+constexpr int K1F_THREADS = K1F_CTHREADS + 128;    // and the producer warpgroup
+constexpr int K1F_KC_MAX = 64;                    // table rows a tile
+constexpr int K1F_MAX_STAGES = 4;
+constexpr int K1F_MIN_STAGES = 2;
+constexpr int K1F_MAX_DA = 2048;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Lanes 4 lg .. +3 and 64 + 4 lg .. +3 of row k of a table tile, as float32.
+__device__ __forceinline__ void tile_lanes(const float* row, int lg, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(row)[lg];
+  const float4 hi = reinterpret_cast<const float4*>(row + 64)[lg];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
 }
 
-// The table t [DA, N_pad] bf16 as a tensor map of [box_rows, 64] boxes (64
-// bf16 = one 128-byte swizzle row; rows past DA zero-filled).  Returns 0,
-// -1 when cuTensorMapEncodeTiled is not found, or -1000 - CUresult when the
-// map is refused.
-int encode_table_map(CUtensorMap* map, const void* t, int DA, long long n_pad, int box_rows) {
+__device__ __forceinline__ void tile_lanes(const __nv_bfloat16* row, int lg, float (&v)[8]) {
+  const uint2 lo = reinterpret_cast<const uint2*>(row)[lg];
+  const uint2 hi = reinterpret_cast<const uint2*>(row + 64)[lg];
+  const uint32_t w[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its float32
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One group of 4 k of a thread's micro-tile: qk the group's query values,
+// tile the group's first table row.  FIRST: the first k starts from +0.0.
+template <typename T, int MQ, bool FIRST>
+__device__ __forceinline__ void fma_group(float (&acc)[MQ][8], const float4* qk, const T* tile,
+                                          int lg) {
+  float4 qv[MQ];
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) qv[i] = qk[16 * i];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float tv[8];
+    tile_lanes(tile + kk * WINDOW, lg, tv);
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+      const float x = lane_of(qv[i], kk);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[i][c] = fmaf(x, tv[c], FIRST && kk == 0 ? 0.0f : acc[i][c]);
+    }
+  }
+}
+
+// Row k of a chunk (the group qk holds it) alone.
+template <typename T, int MQ, bool FIRST>
+__device__ __forceinline__ void fma_row(float (&acc)[MQ][8], const float4* qk, const T* tile,
+                                        int lg, int k) {
+  float tv[8];
+  tile_lanes(tile + k * WINDOW, lg, tv);
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) {
+    const float x = reinterpret_cast<const float*>(qk + 16 * i)[k % 4];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(x, tv[c], FIRST ? 0.0f : acc[i][c]);
+  }
+}
+
+template <typename T, int MQ>
+__global__ void __launch_bounds__(K1F_THREADS, 1)
+fused_stage1_fma_kernel(const __grid_constant__ CUtensorMap table, const T* __restrict__ q,
+                        float* __restrict__ out, int B, int DA, int kc, int nk, int stages,
+                        long long n_pad) {
+  constexpr int TQ = 16 * MQ;
+  extern __shared__ __align__(16) uint8_t k1f_smem[];
+  // [ring: stages x kc x 128 T][query tile: nk kc / 4 groups x TQ x 4
+  // float][full][empty],
+  // the ring 1024-byte aligned
+  const uint32_t base = smem_u32(k1f_smem);
+  const uint32_t ring = (base + 1023u) & ~1023u;
+  uint8_t* ring_ptr = k1f_smem + (ring - base);
+  const uint32_t tile_bytes = (uint32_t)kc * WINDOW * sizeof(T);
+  float* qs = reinterpret_cast<float*>(ring_ptr + (size_t)stages * tile_bytes);
+  const uint32_t full0 = ring + (uint32_t)stages * tile_bytes + (uint32_t)(TQ * nk * kc * 4);
+  const uint32_t empty0 = full0 + 8u * stages;
+  const long long chunk = blockIdx.y;
+  const int b0 = blockIdx.x * TQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8u * s, 1);
+      mbar_init(empty0 + 8u * s, K1F_CTHREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= K1F_CTHREADS) {
+    // ---- producer: position a's k chunks j = 0 .. nk-1, in that order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == K1F_CTHREADS) {
+      const int col0 = (int)(chunk * CHUNK);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < WINDOW * nk; ++i) {
+        const int a = i / nk;
+        if (i >= stages) mbar_wait(empty0 + 8u * s, phase ^ 1u);
+        const uint32_t full = full0 + 8u * s;
+        mbar_expect_tx(full, tile_bytes);
+        tma_load_2d(ring + (uint32_t)s * tile_bytes, &table, full, col0 + a * WINDOW,
+                    (i - a * nk) * kc);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int tid = threadIdx.x;
+  for (int i = tid; i < TQ * nk * kc; i += K1F_CTHREADS) {
+    const int g = i / (4 * TQ);
+    const int r = (i / 4) % TQ;
+    const int d = 4 * g + i % 4;
+    const int b = b0 + r;
+    qs[i] = (b < B && d < DA) ? to_f32(q[(long long)b * DA + d]) : 0.0f;
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(K1F_CTHREADS) : "memory");  // consumers only
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qg = (warp >> 1) * 4 + (lane >> 3);  // a warp: 4 query groups x 8 lane groups
+  const int lg = (warp & 1) * 8 + (lane & 7);
+  // group g of query i of the thread: q4[g TQ + 16 i]
+  const float4* q4 = reinterpret_cast<const float4*>(qs) + qg;
+
+  float acc[MQ][8], best[MQ][8];  // acc set by each position's first FMA
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      best[i][j] = -CUDART_INF_F;
+    }
+  }
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int a = 0; a < WINDOW; ++a) {
+    for (int j = 0; j < nk; ++j) {
+      mbar_wait(full0 + 8u * s, phase);
+      const T* tile = reinterpret_cast<const T*>(ring_ptr + (size_t)s * tile_bytes);
+      const float4* qk = q4 + (j * kc / 4) * TQ;
+      const int rows = min(kc, DA - j * kc);
+      int k = 0;
+      if (j == 0) {  // the position's first FMA adds to +0.0 (no reset of acc)
+        if (rows >= 4) {
+          fma_group<T, MQ, true>(acc, qk, tile, lg);
+          k = 4;
+          qk += TQ;
+        } else {
+          fma_row<T, MQ, true>(acc, qk, tile, lg, 0);
+          k = 1;
+        }
+      }
+      for (; k + 4 <= rows; k += 4, qk += TQ)
+        fma_group<T, MQ, false>(acc, qk, tile + k * WINDOW, lg);
+      for (; k < rows; ++k) fma_row<T, MQ, false>(acc, qk, tile, lg, k);
+      __syncwarp();  // the warp's reads of the slot are done
+      if (lane == 0) mbar_arrive(empty0 + 8u * s);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    const unsigned code = (unsigned)a;
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        best[i][c] =
+            fmaxf(best[i][c], __uint_as_float((__float_as_uint(acc[i][c]) & ~LANE_MASK) | code));
+      }
+    }
+  }
+
+  const long long nw = n_pad / WINDOW;
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) {
+    const int b = b0 + qg + 16 * i;
+    if (b < B) {
+      float* o = out + (long long)b * nw + chunk * WINDOW;
+      reinterpret_cast<float4*>(o)[lg] =
+          make_float4(best[i][0], best[i][1], best[i][2], best[i][3]);
+      reinterpret_cast<float4*>(o + 64)[lg] =
+          make_float4(best[i][4], best[i][5], best[i][6], best[i][7]);
+    }
+  }
+}
+
+// A tensor map of the table t [DA, N_pad] (elements of `type`, `elem`
+// bytes) in boxes of [box_rows, box_cols]; rows past DA zero-filled.
+// Returns 0, -1 when cuTensorMapEncodeTiled is not found, or -1000 -
+// CUresult when the map is refused.
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* t, int DA,
+               long long n_pad, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -1;
   const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)DA};
-  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)K1B_BOX, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t), dims,
-                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  CUresult r = encode(map, type, 2, const_cast<void*>(t), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
+// The bf16 table as the wgmma kernels read it: [box_rows, 64] boxes (64
+// bf16 = one 128-byte swizzle row).
+int encode_table_map(CUtensorMap* map, const void* t, int DA, long long n_pad, int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, t, DA, n_pad, K1B_BOX, box_rows,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 constexpr int K1B_MAX_DA = 256;   // a TMA box has at most 256 rows
@@ -707,27 +846,50 @@ int launch_fused_stage1_deep(const void* q, const void* t, void* out, int B, int
   return (int)cudaGetLastError();
 }
 
-// Errors: a cudaError_t; cudaErrorInvalidValue when the query tile of DA
-// rows does not fit in the card's per-block shared memory.
+// The FMA route.  Launch shape, from DA and B: k chunks of kc <= 64 rows,
+// nk a position; the query tile the smallest of 16, 32 and 64 rows that
+// holds B (128 rows for larger B), halved while it does not fit beside two
+// ring slots in the card's per-block shared memory; as many ring slots (up
+// to 4) as fit.  Errors: a cudaError_t (cudaErrorInvalidValue for B < 1 or
+// DA outside 1..2,048), -1 when cuTensorMapEncodeTiled is not found, or
+// -1000 - CUresult when the tensor map is refused.
 template <typename T>
 int launch_fused_stage1_fma(const void* q, const void* t, void* out, int B, int DA,
                             long long n_pad, int device, void* stream) {
-  cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (B < 1 || DA < 1 || DA > K1F_MAX_DA) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   int smem_max = 0;
-  dev_err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const size_t smem = (size_t)DA * K1_TQ * sizeof(float);
-  if (DA < 1 || smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_stage1_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((B + K1_TQ - 1) / K1_TQ, (unsigned)(n_pad / CHUNK));
-  fused_stage1_fma_kernel<T><<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(t), static_cast<float*>(out), B, DA,
-      n_pad);
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return (int)e;
+  const int nk = (DA + K1F_KC_MAX - 1) / K1F_KC_MAX;
+  const int kc = ((DA + nk - 1) / nk + 3) / 4 * 4;
+  const int slot_bytes = kc * WINDOW * (int)sizeof(T) + 16;  // a tile and its two mbarriers
+  const auto q_bytes = [&](int mq) { return 16 * mq * nk * kc * 4; };
+  int mq = 8;
+  while (mq > 1 && 8 * mq >= B) mq /= 2;
+  while (mq > 1 && 1024 + K1F_MIN_STAGES * slot_bytes + q_bytes(mq) > smem_max) mq /= 2;
+  const int stages = std::min(K1F_MAX_STAGES, (smem_max - 1024 - q_bytes(mq)) / slot_bytes);
+  if (stages < K1F_MIN_STAGES) return (int)cudaErrorInvalidValue;
+  const int smem = 1024 + stages * slot_bytes + q_bytes(mq);
+  CUtensorMap map;
+  const bool f32 = sizeof(T) == 4;
+  const int map_err = encode_map(&map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                 (int)sizeof(T), t, DA, n_pad, WINDOW, kc,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (map_err != 0) return map_err;
+  typedef void (*Kernel)(const CUtensorMap, const T*, float*, int, int, int, int, int,
+                         long long);
+  const Kernel kernel = mq == 8   ? fused_stage1_fma_kernel<T, 8>
+                        : mq == 4 ? fused_stage1_fma_kernel<T, 4>
+                        : mq == 2 ? fused_stage1_fma_kernel<T, 2>
+                                  : fused_stage1_fma_kernel<T, 1>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((B + 16 * mq - 1) / (16 * mq)), (unsigned)(n_pad / CHUNK));
+  kernel<<<grid, K1F_THREADS, smem, (cudaStream_t)stream>>>(
+      map, static_cast<const T*>(q), static_cast<float*>(out), B, DA, kc, nk, stages, n_pad);
   return (int)cudaGetLastError();
 }
 
@@ -781,14 +943,6 @@ constexpr int K2_WARPS = 4;                       // warps per block
 constexpr int K2_ROW_BYTES = (WINDOW + 4) * 4;    // a staged window, padded: 528
 constexpr int K2_SLOT_BYTES = K2_TILE * K2_ROW_BYTES;
 constexpr int K2_SMEM = K2_WARPS * K2_SLOT_BYTES + 8 * K2_WARPS;  // slots, then mbarriers
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // One round over a window in registers: the largest value strictly below
 // `below` (any value when kFirst) and the smallest column holding it, or

@@ -5,7 +5,8 @@ started together, and the objects are linked into one shared library with a
 plain C interface, loaded with :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds.  The build happens at the first
 CUDA call, into ``otto_tpu_torch/_build/``; the library's name carries a
-hash of all the sources and the flags, so an edited source is rebuilt.
+hash of all the sources, the headers they include and the flags, so an
+edited source is rebuilt.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 
@@ -28,6 +29,7 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((PKG_DIR / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((PKG_DIR / "csrc").glob("*.cuh")))  # included by sources
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0 optimises a source's kernels in parallel threads, as many
@@ -53,7 +55,7 @@ def _nvcc() -> str:
 
 def library_path(sources=SOURCES) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *HEADERS):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libotto_kernels_{h.hexdigest()[:16]}.so"
@@ -165,12 +167,13 @@ def launch_fused_stage1_deep(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor
 
 
 def launch_fused_stage1_fma(q: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
-    """q [B, DA], t [DA, N_pad], both f32 or both bf16, out [B, N_pad/128]
-    f32, on the CUDA-core FMA kernel (``fused_stage1_fma_kernel<T>``; the
-    wrapper sends it float32 tables and bf16 deeper than 512, but it takes
-    any DA whose query tile fits).  The launcher returns
-    cudaErrorInvalidValue when the query tile of DA rows does not fit in
-    shared memory."""
+    """q [B, DA], t [DA, N_pad] (16-byte aligned), both f32 or both bf16,
+    out [B, N_pad/128] f32, on the CUDA-core FMA kernel
+    (``fused_stage1_fma_kernel<T, MQ>``: register tiles, the table by TMA;
+    the wrapper sends it float32 tables and bf16 deeper than 512, but it
+    takes any DA in 1..2,048).  The launcher returns cudaErrorInvalidValue
+    for DA outside that range, and the TMA errors of
+    :func:`launch_fused_stage1_bf16`."""
     fn = lib().fused_stage1_f32 if q.dtype == torch.float32 else lib().fused_stage1_bf16_fma
     err = fn(q.data_ptr(), t.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], t.shape[1],
              t.device.index, _stream(t))
@@ -185,7 +188,8 @@ def launch_fused_stage1_int8(q8: torch.Tensor, q_scale: torch.Tensor, table8: to
     and item_bias [N_pad] f32 (all 16-byte aligned) -> out [B, N_pad/128] f32
     packed window maxima (``csrc/int8_retrieval_kernels.cu``); the launcher
     returns cudaErrorInvalidValue for D_pad outside 32..256 or not a
-    multiple of 32, a ragged N_pad or a misaligned operand."""
+    multiple of 32, a ragged N_pad or a misaligned operand, and the TMA
+    errors of :func:`launch_fused_stage1_bf16` for the table's map."""
     err = lib().fused_stage1_int8(q8.data_ptr(), q_scale.data_ptr(), table8.data_ptr(),
                                   item_scale.data_ptr(), item_bias.data_ptr(), out.data_ptr(),
                                   q8.shape[0], q8.shape[1], table8.shape[0], n_items, shift,

@@ -64,16 +64,17 @@ _REFERENCE_STEP_ELEMS = 1 << 28
 # wgmma kernel whose table tile of DA rows is one TMA box (at most 256
 # rows), or through the deep wgmma kernel, whose tile is two boxes and whose
 # query rows sit in registers as wgmma A fragments (at most 512).  Float32
-# tables, and bf16 tables deeper than that, go to the FMA kernel, whose
-# [DA, 32] float32 query tile must fit in a block's 232,448 bytes of shared
-# memory on an H100.
+# tables, and bf16 tables deeper than that, go to the FMA kernel, which
+# streams the table in tiles of at most 64 rows and keeps its query tile of
+# 16-128 rows in shared memory: 16 float32 rows of DA 2,048 (128 KB) beside
+# two float32 table tiles (64 KB) fit a block's 232,448 bytes on an H100.
 K1_WGMMA_MAX_DA = 256
 K1_WGMMA_DEEP_MAX_DA = 512
-K1_FMA_MAX_DA = 232_448 // (32 * 4)  # 1,816
-# The int8 kernel's contraction: a multiple of 32 (mma.m16n8k32's depth) of
+K1_FMA_MAX_DA = 2048
+# The int8 kernel's contraction: a multiple of 32 (wgmma's k32 step) of
 # at most 8 k steps.  Its integer products are exact in float32 (the twin's
-# route) while 127^2 * D_pad < 2^24, and the kernel's conversion of the sums
-# while they stay below 2^22 in magnitude: both hold to D_pad 256.
+# route, and the kernel's conversion of its int32 sums) while 127^2 * D_pad
+# < 2^24, which holds to D_pad 256.
 K1_INT8_MAX_DPAD = 256
 
 
@@ -81,7 +82,7 @@ def stage1_route(dtype: torch.dtype, da: int) -> str:
     """The kernel :func:`fused_stage1` launches for a card's operands of
     ``dtype`` and depth ``da``: ``"wgmma"`` (bf16, DA <= 256),
     ``"wgmma_deep"`` (bf16, 256 < DA <= 512) or ``"fma"`` (float32, and bf16
-    deeper than 512).  Raises for DA outside 1..1,816 and for other dtypes."""
+    deeper than 512).  Raises for DA outside 1..2,048 and for other dtypes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_stage1: no kernel for {dtype}")
     if not 1 <= da <= K1_FMA_MAX_DA:
@@ -129,7 +130,8 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
     in ``fused_stage1.launches``), ``fused_stage1_deep_kernel`` (tensor
     cores, bf16 with 256 < DA <= 512; ``fused_stage1.deep_launches``) or
     ``fused_stage1_fma_kernel`` (CUDA-core FMA: float32, and bf16 with DA >
-    512; ``fused_stage1.fma_launches``), and raises for DA > 1,816; on a CPU
+    512; ``fused_stage1.fma_launches``), and raises for DA > 2,048 and for a
+    table off a 16-byte boundary (each kernel loads it by TMA); on a CPU
     tensor it runs :func:`_stage1_reference`.
     """
     b, da = q_aug.shape
@@ -151,7 +153,7 @@ def fused_stage1(q_aug: torch.Tensor, items_aug_t: torch.Tensor) -> torch.Tensor
     route = stage1_route(q_aug.dtype, da)
     q_aug = q_aug.contiguous()
     items_aug_t = items_aug_t.contiguous()
-    if route != "fma" and items_aug_t.data_ptr() % 16:
+    if items_aug_t.data_ptr() % 16:
         raise ValueError("fused_stage1: the table must start on a 16-byte boundary (TMA)")
     out = torch.empty((b, n_pad // WINDOW), dtype=torch.float32, device=q_aug.device)
     if b:

@@ -10,7 +10,9 @@ Shapes are the full-width ones of the serving path (1,855,603 items: stage 1
 over 1,867,776 padded columns, the peel over [B, 14,592] at the neighbor
 table's batches, 4096 and 115 rows; the bf16 stage-1 kernel also at those
 batches over 6 chunks, its deep wgmma route at DA 257-512 and a ragged
-batch at DA 294, and its FMA route at DA 528 and on a float32 table).  Tolerances:
+batch at DA 294, and its FMA route at DA 513-2,048; the FMA kernel on
+float32 tables at DA 1-2,048, across its 64-row k chunks, and at batches of
+1-333 rows).  Tolerances:
 the peel and stage 1 on integer-valued inputs are bit-equal; stage 1 on
 normal data may move a packed maximum by one truncation step and change its
 7-bit position code, so values agree within 2^8 ulps = 2^-15 relative and
@@ -115,24 +117,33 @@ def _counts():
     return {"wgmma": f.launches, "wgmma_deep": f.deep_launches, "fma": f.fma_launches}
 
 
+# the FMA kernel's table tiles hold at most 64 rows: DA 63-65, 128, 129 and
+# 1,025 straddle its k-chunk boundaries
+_BF16_DEPTHS = [1, 34, 98, 198, 256, 257, 294, 300, 390, 510, 512, 513, 528, 1816, 2048]
+_F32_DEPTHS = [1, 34, 63, 64, 65, 98, 128, 129, 513, 1025, 1816, 2048]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("da", [1, 198, 256, 257, 294, 300, 390, 510, 512, 528])
-def test_cuda_stage1_kernel_contraction_depths(cuda_device, da):
-    """The bf16 kernels at the other depths they take: one k step, a 64-dim
+@pytest.mark.parametrize("dtype,da", [(torch.bfloat16, da) for da in _BF16_DEPTHS]
+                         + [(torch.float32, da) for da in _F32_DEPTHS])
+def test_cuda_stage1_kernel_contraction_depths(cuda_device, dtype, da):
+    """The kernels at the depths they take: bf16 at one k step, a 64-dim
     compensated table (198), the wgmma kernel's deepest (256, a 3-slot
     ring); past it the deep wgmma kernel (257; 294, 390 and 510, the
     compensated tables of 96, 128 and 168 dims; 300; its deepest, 512), and
-    past that (528) the FMA kernel; deeper than the FMA kernel's query tile
-    holds (1,817) raises.  Each depth moves its own route's counter alone.
-    The queries carry the retriever's positive shift in their last
+    past that (513 on) the FMA kernel; float32 on the FMA kernel at every
+    depth, across its k-chunk boundaries, to its deepest (2,048, a 16-row
+    query tile); deeper raises.  Each depth moves its own route's counter
+    alone.  The queries carry the retriever's positive shift in their last
     dimension, so no row is all zeros (whose scores the padded product
     would give as +0.0 where the twin gives -0.0)."""
     g = torch.Generator(device=cuda_device).manual_seed(da)
-    q = torch.randint(-8, 9, (130, da), generator=g, device=cuda_device).to(torch.bfloat16)
+    q = torch.randint(-8, 9, (130, da), generator=g, device=cuda_device).to(dtype)
     q[:, -1] = 64
-    t = torch.randint(-8, 9, (da, 2 * 16384), generator=g, device=cuda_device).to(torch.bfloat16)
-    route = tfr.stage1_route(torch.bfloat16, da)
-    assert route == ("wgmma" if da <= 256 else "wgmma_deep" if da <= 512 else "fma")
+    t = torch.randint(-8, 9, (da, 2 * 16384), generator=g, device=cuda_device).to(dtype)
+    route = tfr.stage1_route(dtype, da)
+    assert route == ("fma" if dtype == torch.float32 or da > 512 else
+                     "wgmma" if da <= 256 else "wgmma_deep")
     before = _counts()
     k = tfr.fused_stage1(q, t)
     torch.cuda.synchronize()
@@ -140,9 +151,10 @@ def test_cuda_stage1_kernel_contraction_depths(cuda_device, da):
     assert after == {name: n + (name == route) for name, n in before.items()}
     r = tfr._stage1_reference(q, t)
     assert torch.equal(k.view(torch.int32), r.view(torch.int32))
+    deep = tfr.K1_FMA_MAX_DA + 1
     with pytest.raises(ValueError):
-        tfr.fused_stage1(torch.zeros((4, 1817), dtype=torch.bfloat16, device=cuda_device),
-                         torch.zeros((1817, 16384), dtype=torch.bfloat16, device=cuda_device))
+        tfr.fused_stage1(torch.zeros((4, deep), dtype=dtype, device=cuda_device),
+                         torch.zeros((deep, 16384), dtype=dtype, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -175,16 +187,33 @@ def test_cuda_stage1_deep_ragged_batch(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_stage1_f32_table_and_ragged_batch(cuda_device):
-    """A float32 table stays on the FMA kernel."""
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    q = torch.randint(-8, 9, (37, 34), generator=g, device=cuda_device).float()
-    t = torch.randint(-8, 9, (34, 3 * 16384), generator=g, device=cuda_device).float()
+@pytest.mark.parametrize("b,da", [(1, 34), (37, 34), (63, 98), (65, 34), (256, 98), (333, 34)])
+def test_cuda_stage1_f32_table_and_ragged_batch(cuda_device, b, da):
+    """A float32 table stays on the FMA kernel, at batches that take each
+    query tile (16 rows for B 1, 64 for 37 and 63, 128 from 65 on) and a
+    last tile part-empty (333), over 3 chunks whose last ends in pad
+    columns: bit-equal to the twin on integer inputs, within 2^-15 relative
+    and the same window position on >= 99.9% of windows on normal ones."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + da)
+    n_pad = 3 * 16384
+    q = torch.randint(-8, 9, (b, da), generator=g, device=cuda_device).float()
+    q[:, -1] = 64
+    t = torch.randint(-8, 9, (da, n_pad), generator=g, device=cuda_device).float()
+    t[:, n_pad - 5_000:] = 0  # pad columns
     before = _counts()
     k = tfr.fused_stage1(q, t)
     assert _counts() == {**before, "fma": before["fma"] + 1}
     r = tfr._stage1_reference(q, t)
     assert torch.equal(k.view(torch.int32), r.view(torch.int32))
+
+    qn = torch.randn((b, da), generator=g, device=cuda_device)
+    qn[:, -1] = 128.0
+    tn = torch.randn((da, n_pad), generator=g, device=cuda_device)
+    tn[-1] = 1.0
+    k, r = tfr.fused_stage1(qn, tn), tfr._stage1_reference(qn, tn)
+    torch.testing.assert_close(k, r, rtol=2.0**-15, atol=0)
+    same = (k.view(torch.int32) & 127) == (r.view(torch.int32) & 127)
+    assert same.float().mean().item() >= 0.999
 
 
 @pytest.mark.cuda

@@ -8,10 +8,12 @@ mode).  The module imports no JAX:
 
 ``fused_stage1_int8_kernel`` computes exact integer dots on the int8 tensor
 cores and a float32 epilogue written step by step (``__f*_rn``), so it is
-bit-equal to ``_stage1_int8_reference`` on any operands: at 1 and 2 k steps
-(D 8-64) and at its deepest (D_pad 256), at B 1, 100 and 4,096, over tables
-whose item count is not a multiple of 16,384, for both metrics, with
-negative scores and a zero query row.  The int8 retriever's whole top-k on
+bit-equal to ``_stage1_int8_reference`` on any operands: at every depth it
+takes (D_pad 32-256, 1-8 k steps), at B 1-4,096 (33, 65, 100, 130, 200,
+333: a last query tile part-empty), over tables whose item count is not a
+multiple of 16,384 nor of 128 (the pad chunk's masked branch) and one
+that fills its chunks, for both metrics, with negative scores and a zero
+query row.  The int8 retriever's whole top-k on
 the card equals the same path on the CPU to the bit (integer rescoring,
 elementwise float32, stable sorts).
 """
@@ -59,7 +61,9 @@ def _operands(dim, b, n_items, dev, seed):
 @pytest.mark.parametrize("metric", ["dot", "euclidean"])
 @pytest.mark.parametrize("dim,b,n_items", [
     (8, 100, 3 * CHUNK - 77), (16, 1, 2 * CHUNK + 5), (32, 4096, 6 * CHUNK - 12_173),
-    (48, 100, 3 * CHUNK - 77), (64, 333, 2 * CHUNK), (256, 100, 2 * CHUNK - 1)])
+    (48, 100, 3 * CHUNK - 77), (64, 333, 2 * CHUNK), (80, 65, 2 * CHUNK - 200),
+    (128, 130, CHUNK + 1), (160, 64, 2 * CHUNK - 129), (192, 33, 3 * CHUNK - 1_000),
+    (224, 200, CHUNK + 127), (256, 100, 2 * CHUNK - 1)])
 def test_cuda_int8_kernel_bit_equal_to_twin(cuda_device, dim, b, n_items, metric):
     ops, shift = _operands(dim, b, n_items, cuda_device, seed=dim + b)
     before = tfr.fused_stage1_int8.launches

@@ -238,14 +238,17 @@ def test_stage1_twin_unchanged_by_zero_padded_contraction(da):
     (torch.bfloat16, 257, "wgmma_deep"), (torch.bfloat16, 294, "wgmma_deep"),
     (torch.bfloat16, tfr.K1_WGMMA_DEEP_MAX_DA, "wgmma_deep"),
     (torch.bfloat16, tfr.K1_WGMMA_DEEP_MAX_DA + 16, "fma"), (torch.bfloat16, 1816, "fma"),
-    (torch.bfloat16, 1817, None), (torch.float32, 34, "fma"), (torch.float32, 300, "fma"),
+    (torch.bfloat16, 1817, "fma"), (torch.bfloat16, 2048, "fma"), (torch.bfloat16, 2049, None),
+    (torch.float32, 34, "fma"), (torch.float32, 300, "fma"), (torch.float32, 2048, "fma"),
+    (torch.float32, 2049, None),
 ])
 def test_stage1_route(dtype, da, route):
     """The card's kernel for each dtype and depth: bf16 on the tensor cores up
     to the deep kernel's limit (at least 512, a compensated table of 168
     dims), float32 (which the tensor cores would round to TF32) and deeper
-    bf16 on the FMA kernel, nothing past the FMA kernel's 1,816."""
-    assert tfr.K1_WGMMA_DEEP_MAX_DA >= 512
+    bf16 on the FMA kernel, nothing past the FMA kernel's 2,048 (its query
+    tile of 16 rows beside two table tiles in shared memory)."""
+    assert tfr.K1_WGMMA_DEEP_MAX_DA >= 512 and tfr.K1_FMA_MAX_DA == 2048
     if route is None:
         with pytest.raises(ValueError):
             tfr.stage1_route(dtype, da)

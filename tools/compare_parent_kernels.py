@@ -1,7 +1,8 @@
 """Time a parent commit's CUDA kernels against this tree's, in turns, on one card.
 
     git archive <parent> otto_tpu_torch/csrc | tar -x -C tmp/parent
-    python3 tools/compare_parent_kernels.py tmp/parent/otto_tpu_torch/csrc [k1 k2 k3 k4 k5]
+    python3 tools/compare_parent_kernels.py tmp/parent/otto_tpu_torch/csrc \
+        [k1 k1fma k1int8 k2 k3 k4 k5]
 
 Builds both sides with ``otto_tpu_torch.ops._kernels`` (its nvcc, flags and
 build), and first (when every kernel is asked for) times this tree's build
@@ -14,6 +15,18 @@ this tree, this tree, parent.
 
 - K1 (``fused_stage1_bf16``) at [4096 x 102] x [102 x 1,867,776], the
   neighbor table's batch, seeded normal bf16 operands;
+- K1's FMA route (``fused_stage1_f32``, ``k1fma``) on seeded normal
+  float32 operands with the retriever's shift column at ``topk_hybrid``'s
+  [4096 x 34] x [34 x 1,867,776] (the float32 neighbor table's batch) and
+  at phase 3b's [256 x 98] x [98 x 1,015,808], with its bound and, as
+  context, ``torch.matmul``'s bare float32 product (TF32 off) in column
+  slices of whole chunks;
+- the int8 stage 1 (``fused_stage1_int8``, ``k1int8``) at the int8 neighbor
+  table's [4096 x 32] x [32 x 1,867,776] over 1,855,603 items, both
+  metrics, on seeded int8 operands and float32 scales and norms, with its
+  bound (the epilogue's instructions, as ``chip_smoke.py`` prices them);
+  for both, the card's SM clock and power draw are sampled by
+  ``nvidia-smi`` while the turns run;
 - K2 (``peel_rows_f32``) at [4096, 14,592], R = 6, on K1's packed maxima of
   that batch (the path's own input);
 - K3 (``aid_vote_f32``) on the aid-weight runner's own input (200,000
@@ -41,7 +54,7 @@ this tree, this tree, parent.
   give the same bits (the same fixed-point scale).
 
 An entry point that either library lacks is skipped, and so is a kernel left
-out of the names after the path (all five when none is named).  Prints the card's
+out of the names after the path (k1-k5 when none is named).  Prints the card's
 name and power limit and one JSON line: seconds for the builds, milliseconds
 for the kernels.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
@@ -179,11 +192,118 @@ def k5_turns(torch, dev, libs, stream, res: dict) -> None:
                                       for lv in range(len(launches)))]
 
 
+def sampled_turns(turns, key, calls, res: dict) -> None:
+    """``turns(key, calls)`` with the card's SM clock (MHz) and power draw
+    (W) read by ``nvidia-smi`` every 100 ms meanwhile: their minimum,
+    median and maximum go to ``res`` beside the times."""
+    cmd = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+           "-lms", "100"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        turns(key, calls)
+    finally:
+        proc.terminate()
+        out = proc.communicate()[0]
+    rows = [line.split(",") for line in out.splitlines() if line.count(",") == 1]
+    for i, name in enumerate(("sm_clock_mhz", "power_w")):
+        vals = sorted(float(r[i]) for r in rows if r[i].strip().replace(".", "", 1).isdigit())
+        if vals:
+            res[f"{key}_{name}"] = [vals[0], vals[len(vals) // 2], vals[-1]]
+
+
+def float32_product_ms(torch, q, t, reps: int = 3) -> tuple[float, int]:
+    """CUDA-event ms of ``torch.matmul``'s bare float32 product q @ t (TF32
+    off; no pack, no window max) in equal column slices of whole chunks
+    into one reused output, summed over the slices; context only."""
+    import chip_smoke as cs
+    from otto_tpu_torch.utils.runtime import full_f32_matmul
+
+    n_pad = t.shape[1]
+    n_chunks = n_pad // 16384
+    per = max(d for d in range(1, 17) if n_chunks % d == 0) * 16384
+    buf = torch.empty((q.shape[0], per), dtype=q.dtype, device=q.device)
+
+    def run():
+        for c0 in range(0, n_pad, per):
+            torch.matmul(q, t[:, c0:c0 + per], out=buf)
+
+    with full_f32_matmul():
+        return cs.cuda_ms(torch, run, reps), n_pad // per
+
+
+def k1fma_turns(torch, dev, libs, stream, turns, res: dict) -> None:
+    """K1's FMA route at the float32 shapes of the paths: the same bits on
+    both sides, timed in turns; the bound and the bare float32 product."""
+    import chip_smoke as cs
+
+    for b, da, n_pad, n_items in ((4096, 34, N_PAD, N_ITEMS), (256, 98, 62 * 16384, 1_000_000)):
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + da)
+        q = torch.randn((b, da), generator=g, device=dev)
+        q[:, -1] = 128.0
+        t = torch.randn((da, n_pad), generator=g, device=dev)
+        t[-1] = 1.0
+        t[:, n_items:] = 0
+        out = {s: torch.empty((b, n_pad // 128), device=dev) for s in libs}
+        calls = {s: [lambda s=s: agree(libs[s].fused_stage1_f32(
+            q.data_ptr(), t.data_ptr(), out[s].data_ptr(), b, da, n_pad, 0, stream()) == 0,
+            "launches")] for s in libs}
+        for fns in calls.values():
+            fns[0]()
+        torch.cuda.synchronize()
+        agree(torch.equal(out["parent"].view(torch.int32), out["tree"].view(torch.int32)),
+              f"FMA stage-1 maxima at [{b} x {da}]")
+        key = f"k1fma_{b}x{da}"
+        sampled_turns(turns, key, calls, res)
+        bound = cs.stage1_bound(q, t)
+        res[f"{key}_shape"] = [b, da, n_pad]
+        res[f"{key}_bound_ms"] = [bound[0]]
+        if b == 4096:
+            ms, slices = float32_product_ms(torch, q, t)
+            res[f"{key}_matmul_f32_product_ms"] = [ms, slices]
+        del q, t, out
+        torch.cuda.empty_cache()
+
+
+def k1int8_turns(torch, dev, libs, stream, turns, res: dict) -> None:
+    """The int8 stage 1 at the int8 neighbor table's batch, both metrics:
+    the same bits on both sides, timed in turns; the bound."""
+    import chip_smoke as cs
+
+    b, d_pad = 4096, 32
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 32)
+    q8 = torch.randint(-127, 128, (b, d_pad), generator=g, device=dev, dtype=torch.int8)
+    t8 = torch.randint(-127, 128, (N_PAD, d_pad), generator=g, device=dev, dtype=torch.int8)
+    t8[N_ITEMS:] = 0
+    q_scale = torch.rand(b, generator=g, device=dev) * 0.02 + 1e-3
+    item_scale = torch.rand(N_PAD, generator=g, device=dev) * 0.02 + 1e-3
+    item_bias = torch.rand(N_PAD, generator=g, device=dev) * 60.0
+    item_scale[N_ITEMS:] = 0
+    item_bias[N_ITEMS:] = 0
+    shift = 128.0  # a power of two above 2 * 127^2 * 32 * 0.021^2 + 60
+    for metric in ("dot", "euclidean"):
+        out = {s: torch.empty((b, N_PAD // 128), device=dev) for s in libs}
+        calls = {s: [lambda s=s: agree(libs[s].fused_stage1_int8(
+            q8.data_ptr(), q_scale.data_ptr(), t8.data_ptr(), item_scale.data_ptr(),
+            item_bias.data_ptr(), out[s].data_ptr(), b, d_pad, N_PAD, N_ITEMS, shift,
+            int(metric == "euclidean"), 0, stream()) == 0, "launches")] for s in libs}
+        for fns in calls.values():
+            fns[0]()
+        torch.cuda.synchronize()
+        agree(torch.equal(out["parent"].view(torch.int32), out["tree"].view(torch.int32)),
+              f"int8 stage-1 maxima ({metric})")
+        key = f"k1int8_{metric}"
+        sampled_turns(turns, key, calls, res)
+        bound = cs.int8_stage1_bound(b, d_pad, N_PAD, metric)
+        res[f"{key}_bound_ms"] = [bound[0], bound[1], bound[2]]
+        del out
+
+
 def main() -> int:
     import torch
 
-    names = set(sys.argv[2:]) or {"k1", "k2", "k3", "k4", "k5"}
-    if len(sys.argv) < 2 or not names <= {"k1", "k2", "k3", "k4", "k5"} \
+    every = {"k1", "k2", "k3", "k4", "k5"}
+    names = set(sys.argv[2:]) or every
+    if len(sys.argv) < 2 or not names <= every | {"k1fma", "k1int8"} \
             or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -199,7 +319,7 @@ def main() -> int:
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     (REPO / "tmp").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="parent_kernels_", dir=REPO / "tmp"))
-    if len(names) == 5:
+    if names == every:
         res = timed_builds(_kernels, work)
     else:  # a subset: this tree's library built once
         res = {}
@@ -219,6 +339,14 @@ def main() -> int:
         """fns: side -> list of calls, each timed as one graph."""
         for side in ("parent", "tree", "tree", "parent"):
             res.setdefault(f"{key}_{side}", []).append(cs.graph_ms(torch, fns[side]))
+
+    if "k1fma" in names and "fused_stage1_f32" in both:
+        k1fma_turns(torch, dev, libs, stream, turns, res)
+    if "k1int8" in names and "fused_stage1_int8" in both:
+        k1int8_turns(torch, dev, libs, stream, turns, res)
+    if not names & every:
+        print(json.dumps(res), flush=True)
+        return 0
 
     # K1 at the neighbor table's batch
     q = torch.randn((4096, 102), generator=g, device=dev)

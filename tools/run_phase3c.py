@@ -10,10 +10,13 @@ against its twin on one 4,096-query batch of the full catalog, both
 metrics, with its times, ``torch._int_mm``'s bare product and the bound;
 3c-ii ``build_neighbor_table(backend="int8")`` with its launches, bytes and
 recall; 3c-iii ``topk_hybrid`` and ``topk_approx`` on the float32 and bf16
-tables; 3c-iv ``rescore_survivors=True``.  Prints the card's name and power
-limit first, the ptxas report of the int8 kernel, each phase's seconds, the
-kernel's record, and ``phase 3c ok`` last; needs a CUDA card and imports
-nothing of JAX.
+tables; 3c-iv ``rescore_survivors=True``; then, outside ``chip_smoke.py``,
+one ``build_neighbor_table(backend="hybrid")`` on phase 3's float32 table
+(stage 1's FMA kernel, 454 launches), with its seconds, launches and recall
+on 256 aids against the exact scan.  Prints the card's name and power limit
+first, the ptxas report of the int8 and FMA kernels, each phase's seconds,
+the kernel's record, and ``phase 3c ok`` last; needs a CUDA card and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +37,39 @@ import chip_smoke as cs  # noqa: E402
 WORK = cs.REPO / "tmp" / "run_phase3c"
 
 
+def hybrid_neighbor_table(torch, dev, w_in, zero_counters, read_counters,
+                          n_recall: int = 256) -> dict:
+    """``build_neighbor_table(backend="hybrid")`` over the float32 table:
+    its seconds, the FMA kernel and the peel once a query batch and no other
+    stage-1 route, and recall on ``n_recall`` aids against the exact scan."""
+    import numpy as np
+
+    from otto_tpu_torch.ops.retrieval import build_neighbor_table, topk_scan
+
+    n = w_in.shape[0]
+    zero_counters()
+    t0 = time.perf_counter()
+    table = build_neighbor_table(w_in, k=cs.K_NNS, backend="hybrid", device=dev)
+    secs = time.perf_counter() - t0
+    launches = read_counters("float32 hybrid neighbor table", ("fused_stage1_fma", "peel_rows"))
+    batches = -(-n // cs.QUERY_BATCH)
+    cs.check(launches["fused_stage1_fma"] == batches and launches["peel_rows"] == batches
+             and not any(launches[r] for r in ("fused_stage1", "fused_stage1_deep",
+                                               "fused_stage1_int8")),
+             f"hybrid table: {launches} for {batches} query batches")
+    ids = torch.as_tensor(np.random.default_rng(cs.SEED + 9).choice(n, n_recall, replace=False),
+                          device=dev)
+    rows = ids.cpu().numpy()
+    want = cs.without_self(topk_scan(w_in[ids], w_in, k=cs.K_NNS + 1, block=cs.SCAN_BLOCK,
+                                     metric="euclidean")[1].cpu().numpy(), rows, cs.K_NNS)
+    rec = cs.overlap(table[rows], want)
+    print(f"build_neighbor_table(backend='hybrid') {n} x {w_in.shape[1]} float32, "
+          f"k={cs.K_NNS}: {secs:.3f} s; launches {launches}; recall on {n_recall} aids vs the "
+          f"exact scan {rec:.4f} (limit {cs.INT8_RECALL})", flush=True)
+    cs.check(rec >= cs.INT8_RECALL, f"hybrid table: recall {rec}")
+    return {"s": secs, "launches": launches, "recall": rec}
+
+
 def main() -> int:
     from otto_tpu_torch.ops import _kernels, fused_retrieval, row_topk
 
@@ -49,7 +85,8 @@ def main() -> int:
     print(f"torch {torch.__version__}; kernel build {time.perf_counter() - t0:.1f} s", flush=True)
     report = path.with_suffix(".ptxas.txt").read_text().splitlines()
     for i, line in enumerate(report):
-        if "fused_stage1_int8_kernel" in line and "Compiling entry" in line:
+        if ("fused_stage1_int8_kernel" in line or "fused_stage1_fma_kernel" in line) \
+                and "Compiling entry" in line:
             print("\n".join(x.strip() for x in report[i:i + 4]), flush=True)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
                 "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
@@ -85,9 +122,12 @@ def main() -> int:
     with cs.phase("3c-iv rescore_survivors on the compensated retriever"):
         survivors = cs.survivors_batch(torch, dev, table.pop("retriever"), cs.QUERY_BATCH, zero,
                                        read)
+    with cs.phase("build_neighbor_table(backend='hybrid') on the full catalog"):
+        hybrid_table = hybrid_neighbor_table(torch, dev, model.w_in, zero, read)
     record["launches"] = table["launches"]["fused_stage1_int8"]
     print(json.dumps({"kernel": record, "int8_table": table, "hybrid_approx": hybrid,
-                      "rescore_survivors": survivors}), flush=True)
+                      "rescore_survivors": survivors, "hybrid_table": hybrid_table}),
+          flush=True)
     print("phase 3c ok", flush=True)
     return 0
 
