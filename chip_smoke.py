@@ -4,8 +4,9 @@ two-stage prediction path, the file CLI, GBDT training, SGNS training, the
 listwise tower ranker, the TF-IDF recommender, the sequence recommenders,
 matrix factorization and collaborative filtering with the training
 utilities, sharded serving over a process mesh, data-parallel training
-(the GBDT, the tower, the sequence models, ZeRO-1), and model and expert
-parallelism (tensor, sequence, pipeline, 3-D, expert-parallel MoE).
+(the GBDT, the tower, the sequence models, ZeRO-1), model and expert
+parallelism (tensor, sequence, pipeline, 3-D, expert-parallel MoE), the
+oracle-parity tool and three of the examples.
 
     python3 chip_smoke.py
 
@@ -296,7 +297,18 @@ exit code):
    (1, 1) and (1, 1, 1), bit-equality printed), 18b in 16b's two gloo ranks
    (mesh (1, 2), the 3-D step at (1, 2, 1) and (1, 1, 2)); each step's ms,
    the bytes it handed to collectives and the Adam state a rank holds; no
-   hand kernel launched (``tools/run_phase18.py`` runs the phase alone).
+   hand kernel launched (``tools/run_phase18.py`` runs the phase alone);
+19. the oracle parity and the examples (``tools/run_phase19.py`` runs the
+   phase alone): 19a ``tools/parity_run_torch.py``'s functions at 100,000
+   sessions over its 100,000 aids (a depth cut from 1,000,000, printed as a
+   ``phase 19 cut:`` line): the heuristic's covisitation route and the
+   uncapped candidates exactly the oracle's lists (1.0 each type), the
+   float64 host recency route at least 0.999, the device recency route
+   printed; 19b ``examples/torch`` 03, 06 and 07 through their ``main`` at
+   small sizes: 03's path launches K1-K3, K4, K4 bin and K5 (over 70,000
+   aids, so that the kNN tables take stage 1's fused route), 06's K1 and K2
+   and its serving process's lists equal this process's, 07's K5 and K4
+   bin; each path joins ``launches_by_path``.
 
 The line before the last is a JSON object describing each kernel (its
 launches on the path it serves and on each path, largest error against the
@@ -653,12 +665,6 @@ def _host_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip()
 
 
 def sync(torch, dev) -> None:
@@ -4856,6 +4862,8 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
     launches at world 1 and 2."""
     import os
 
+    from otto_tpu_torch.utils.runtime import device_line
+
     import torch.distributed as dist
 
     from otto_tpu_torch.config import MeshConfig
@@ -4903,7 +4911,7 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
             mp_a["s"] = time.perf_counter() - t0
             print(f"18a model and expert parallelism, one NCCL rank, meshes (1, 1) and "
                   f"(1, 1, 1), {mp_a['s']:.2f} s; each step against the single-device step "
-                  f"({card_line()}): " + json.dumps(mp_a), flush=True)
+                  f"({device_line(dev)}): " + json.dumps(mp_a), flush=True)
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -4940,7 +4948,7 @@ def sharded_paths(torch, dev, bench_train, bench_mats, bench_aids: int, phase7: 
                   f"or K2: {r['mp']['launches']}")
             print(f"18b rank {r['rank']} at mesh (1, 2) and the 3-D meshes (1, 2, 1) and "
                   f"(1, 1, 2), {r['mp']['s']:.2f} s; each step within 14a's bars of the "
-                  f"single-device step ({card_line()}): " + json.dumps(r["mp"]), flush=True)
+                  f"single-device step ({device_line(dev)}): " + json.dumps(r["mp"]), flush=True)
         print(f"16b, 17b and 18b, two gloo ranks sharing cuda:0, meshes (1, 2) and (2, 1): "
               f"{b_s:.2f} s (17b {max(r['dp']['s'] for r in ranks):.2f} s, 18b "
               f"{max(r['mp']['s'] for r in ranks):.2f} s of it)", flush=True)
@@ -5434,18 +5442,48 @@ def mp_steps(torch, dev, mesh, meshes3, tag: str, read_launches) -> dict:
     return out
 
 
-def main() -> int:
-    import torch
+# ------------------------------------------------------------- phase 19
+# The oracle-parity tool and the examples on the card.  19a:
+# tools/parity_run_torch.py's functions at PARITY_SESSIONS sessions over the
+# tool's full 100,000 aids (val fraction 0.12, seed 0): the covisitation
+# route's and the uncapped candidates' exact agreement with the oracle held
+# to 1.0 (what the JAX package measured at 1,000,000 sessions,
+# PARITY_1M.json), the float64 host recency route to PARITY_HOST_F64 (the
+# bar of tests/test_oracle_parity.py::test_recency_route_host_f64_exact),
+# the device recency route printed with no bar (float32 sums order near-ties
+# otherwise: ROADMAP §3).  19b: examples/torch 03, 06 and 07 in this process
+# through their main at small sizes; each path's kernels launched, 06's
+# serving process's lists equal to this process's.
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
-              "CUDA card", file=sys.stderr)
-        return 2
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 16b
-        return mesh_rank_main(Path(sys.argv[2]))
-    from otto_tpu_torch.ops import _kernels, forest, fused_retrieval, fused_sessions, hist, row_topk
+PARITY_SESSIONS = 100_000
+PARITY_AIDS = 100_000
+PARITY_HOST_F64 = 0.999
+PARITY_CUTS = (f"19a: tools/parity_run_torch.py at {PARITY_SESSIONS:,} sessions (its default "
+               f"1,000,000) over its full {PARITY_AIDS:,} aids",
+               "19b: examples 03, 06 and 07 at the small sizes of EXAMPLE_RUNS (03 and 06 over "
+               "70,000 aids, the least round catalog whose kNN table takes stage 1's fused "
+               "route; epochs 1; 03's GBDT at 20 trees and the rows that reach the kernels)")
+# 19b: each example's arguments and the kernels its path must launch
+EXAMPLE_RUNS = {
+    "03": (["--sessions", "4000", "--aids", "70000", "--epochs", "1", "--gbdt-trees", "20",
+            "--models", "aid_weight,embedding_knn,two_stage (+sgns),two_stage (gbdt engine)"],
+           ("fused_stage1", "peel_rows", "aid_vote", "predict_forest", "bin_rows",
+            "node_histograms")),
+    "06": (["--sessions", "2000", "--aids", "70000", "--fresh", "256", "--epochs", "1"],
+           ("fused_stage1", "peel_rows")),
+    "07": (["--sessions", "5000", "--aids", "20000", "--tower-steps", "5",
+            "--gbdt-sessions", "500", "--gbdt-trees", "5"],
+           ("node_histograms", "bin_rows")),
+}
 
-    # each kernel's launch counter: (the wrapper, its attribute)
+
+def kernel_counters():
+    """``(zero_counters, read_counters)`` over each kernel's launch counter
+    (the wrapper and its attribute): ``read_counters(path, expected)``
+    prints the counts and fails unless each kernel named in ``expected``
+    was launched."""
+    from otto_tpu_torch.ops import forest, fused_retrieval, fused_sessions, hist, row_topk
+
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
                 "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),
                 "fused_stage1_fma": (fused_retrieval.fused_stage1, "fma_launches"),
@@ -5468,12 +5506,119 @@ def main() -> int:
             check(launches[name] > 0, f"{name} was not launched by the {path}")
         return launches
 
+    return zero_counters, read_counters
+
+
+def parity_on_card(torch, dev) -> dict:
+    """Phase 19a: the oracle-parity tool's routes on the card."""
+    from otto_tpu_torch import EVENT_TYPES
+    from otto_tpu_torch.utils.runtime import device_line, load_file
+
+    pr = load_file(REPO / "tools" / "parity_run_torch.py", "parity_run_torch")
+    t0 = time.perf_counter()
+    prep = pr.prepare(PARITY_SESSIONS, PARITY_AIDS, 0.12, 0, dev)
+    prep_s = time.perf_counter() - t0
+    routes = {k: int(len(v)) for k, v in prep["routes"].items()}
+    print(f"19a: {prep['store']}; val {prep['split'].val_input.n_sessions} sessions, routes "
+          f"{routes}; data and build {prep_s:.2f} s (build {prep['build_s']:.3f} s, "
+          f"{device_line(dev)})", flush=True)
+    device = pr.heuristic_parity(prep)
+    host = pr.heuristic_parity(prep, recency_host_f64=True)
+    cand = pr.candidate_parity(prep)
+    out = {"routes": routes, "build_s": prep["build_s"], "prep_s": prep_s,
+           "heuristic_s": device["framework_s"], "heuristic_host_f64_s": host["framework_s"],
+           "oracle_heuristic_s": device["oracle_s"], "candidates_s": cand["framework_s"],
+           "oracle_candidates_s": cand["oracle_s"],
+           "cap_binding_fraction": cand["cap_binding_fraction"]}
+    for t in EVENT_TYPES:
+        cov = device[t]["routes"]["covisitation"]["exact"]
+        rec = device[t]["routes"].get("recency_weight", {}).get("exact")
+        rec_host = host[t]["routes"].get("recency_weight", {}).get("exact")
+        out[t] = {"covisit_route_exact": cov, "recency_route_exact_device": rec,
+                  "recency_route_exact_host_f64": rec_host, "exact": device[t]["exact"],
+                  "candidates_exact": cand[t]["exact"],
+                  "candidates_exact_uncapped": cand[t]["exact_uncapped"],
+                  "recall": device["recall_framework"][t],
+                  "oracle_recall": device["recall_oracle"][t]}
+        print(f"19a {t}: covisitation route exact {cov}; recency route exact: device {rec} "
+              f"(no bar), host f64 {rec_host}; candidates exact {cand[t]['exact']}, uncapped "
+              f"{cand[t]['exact_uncapped']}", flush=True)
+        check(cov == 1.0, f"19a {t}: the covisitation route's exact agreement {cov} < 1.0")
+        check(cand[t]["exact_uncapped"] == 1.0, f"19a {t}: the uncapped candidates' exact "
+              f"agreement {cand[t]['exact_uncapped']} < 1.0")
+        check(rec_host is not None and rec_host >= PARITY_HOST_F64,
+              f"19a {t}: the host f64 recency route's exact agreement {rec_host}")
+    print(f"19a times ({device_line(dev)}): heuristic {device['framework_s']} s (host f64 route "
+          f"{host['framework_s']} s), candidates {cand['framework_s']} s; the oracle "
+          f"{device['oracle_s']} s and {cand['oracle_s']} s on the host", flush=True)
+    return out
+
+
+def examples_on_card(torch, dev, zero_counters, read_counters) -> dict:
+    """Phase 19b: examples 03, 06 and 07 through their main on the card,
+    counters zeroed before each and read after."""
+    from otto_tpu_torch.utils.runtime import device_line, load_file
+
+    out = {}
+    for number, (argv, expected) in EXAMPLE_RUNS.items():
+        path = next((REPO / "examples" / "torch").glob(f"{number}_*.py"))
+        module = load_file(path, f"otto_example_{path.stem}")
+        torch.cuda.empty_cache()
+        zero_counters()
+        t0 = time.perf_counter()
+        got = module.main(["--device", dev.type, *argv])
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters(f"example {path.name}", expected)
+        out[number] = {"s": secs, "launches": launches}
+        if number == "03":
+            out[number]["weighted"] = {k: v["weighted"] for k, v in got["rows"].items()}
+        elif number == "06":
+            check(got["lists_equal"], "19b: 06's serving process's lists differ from this "
+                  "process's")
+            out[number].update({k: got[k] for k in ("weighted", "serve_s", "sessions_per_s",
+                                                    "process_s", "process_steps",
+                                                    "lists_equal")})
+        else:
+            out[number].update({k: got[k] for k in ("sgns", "cf", "tower", "gbdt", "sequence")})
+        print(f"19b example {path.name}: {secs:.2f} s ({device_line(dev)})", flush=True)
+    return out
+
+
+def phase19(torch, dev, zero_counters, read_counters) -> dict:
+    """Phase 19: 19a and 19b, with their cut lines and metrics line.
+    Returns each path's launches (19a's, and each example's)."""
+    from otto_tpu_torch.utils.runtime import device_line
+
+    for cut in PARITY_CUTS:
+        print(f"phase 19 cut: {cut}", flush=True)
+    zero_counters()
+    with phase("19a tools/parity_run_torch.py on the card: the port against the oracle"):
+        a = parity_on_card(torch, dev)
+    a["launches"] = read_counters("oracle-parity path (19a)", ())
+    with phase("19b examples 03, 06 and 07 on the card through their main"):
+        b = examples_on_card(torch, dev, zero_counters, read_counters)
+    print(f"phase 19 metrics ({device_line(dev)}): " + json.dumps({"19a": a, "19b": b}), flush=True)
+    return {"oracle_parity": a["launches"],
+            **{f"example_{k}": v["launches"] for k, v in b.items()}}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
+              "CUDA card", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 16b
+        return mesh_rank_main(Path(sys.argv[2]))
+    from otto_tpu_torch.ops import _kernels
+    from otto_tpu_torch.utils.runtime import device_line
+
+    zero_counters, read_counters = kernel_counters()
     dev = torch.device("cuda", 0)
     with phase("1 device and build"):
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"],
-                             check=True, capture_output=True, text=True).stdout.strip()
-        print(smi, flush=True)
+        print(device_line(dev), flush=True)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"{torch.cuda.get_device_name(0)}", flush=True)
         t0 = time.perf_counter()
@@ -5823,10 +5968,13 @@ def main() -> int:
         "17b": {f"rank{r['rank']}": r["dp"] for r in mesh16["b"]}}), flush=True)
     print("phase 18 launches none of K1-K5 or K4 bin: its steps are torch ops and "
           "collectives", flush=True)
-    print(f"phase 18 metrics ({card_line()}): " + json.dumps({
+    print(f"phase 18 metrics ({device_line(dev)}): " + json.dumps({
         "18a": {k: v for k, v in mesh16["mp_a"].items() if k != "launches"},
         "18b": {f"rank{r['rank']}": {k: v for k, v in r["mp"].items() if k != "launches"}
                 for r in mesh16["b"]}}), flush=True)
+
+    torch.cuda.empty_cache()
+    paths19 = phase19(torch, dev, zero_counters, read_counters)
 
     # launches: each kernel's count on the path it serves (the FMA route on
     # the wide table, the vote on the baselines' path, whose shape is timed;
@@ -5838,7 +5986,9 @@ def main() -> int:
     # the sharded top-k at world 1 (phase 16a) and the data-parallel fit at
     # world 1 (phase 17a); launches_by_path adds the file CLI's aid_weight
     # and two_stage runs, its training and resumed two_stage runs, each 16b
-    # rank's sharded top-k at mesh (1, 2) and each 17b rank's fit at (2, 1)
+    # rank's sharded top-k at mesh (1, 2) and each 17b rank's fit at (2, 1);
+    # phase 19's oracle-parity path and examples 03, 06 and 07 count as
+    # extra paths too
     sgns_paths = {"sgns_trained_table": planted["launches"],
                   "cli_embedding_knn_validation": cli_s1["embedding_knn validation"]["launches"],
                   "cli_doc2vec_validation": cli_s1["doc2vec validation"]["launches"],
@@ -5863,7 +6013,7 @@ def main() -> int:
              "cli_two_stage_resumed": cli_train_run["resumed"], **sgns_paths,
              **{f"two_stage_tower_{k}": v for k, v in tower_b["launches"].items()},
              **seq_paths, "sharded_topk_world1": a16["launches"],
-             "dp_fit_world1": dp_a["launches"]}
+             "dp_fit_world1": dp_a["launches"], **paths19}
     home = {"fused_stage1": knn, "fused_stage1_deep": wide, "fused_stage1_fma": wide_f32,
             "fused_stage1_int8": int8_run["launches"], "peel_rows": knn, "aid_vote": heur,
             "predict_forest": prebinned, "predict_forest_rows": two_stage,
@@ -5871,7 +6021,8 @@ def main() -> int:
     for rec in records:
         rec["launches"] = home[rec["name"]][rec["name"]] + sum(
             c[rec["name"]] for c in (*sgns_paths.values(), *seq_paths.values(),
-                                     a16["launches"], dp_a["launches"], *paths3c.values())
+                                     a16["launches"], dp_a["launches"], *paths3c.values(),
+                                     *paths19.values())
             if c is not home[rec["name"]])
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
         if rec["name"] in ("fused_stage1", "peel_rows"):  # each rank of 16b, mesh (1, 2)

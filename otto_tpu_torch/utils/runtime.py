@@ -1,4 +1,4 @@
-"""Device selection and numeric settings.
+"""Device selection, numeric settings, and the loader of the script files.
 
 Port of ``otto_tpu/utils/runtime.py``.  The JAX module configures XLA's
 compilation cache; PyTorch runs eagerly and needs none.  What the port needs
@@ -10,6 +10,7 @@ the CPU.
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
 
 import torch
 
@@ -38,3 +39,28 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def device_line(device: str | torch.device) -> str:
+    """What ran the numbers: ``nvidia-smi``'s name and power limit of the
+    card (a card below its maximum power runs slower under load), or "cpu"."""
+    import subprocess
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+
+
+def load_file(path: str | Path, name: str):
+    """A module imported from the file ``path`` under the name ``name``
+    (the examples and tools are scripts, not packages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

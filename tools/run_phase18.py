@@ -26,6 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from otto_tpu_torch.utils.runtime import device_line  # noqa: E402
 
 
 def rank_main() -> int:
@@ -61,7 +62,7 @@ def main() -> int:
         print("run_phase18: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    print(cs.card_line(), flush=True)
+    print(device_line("cuda"), flush=True)
     print(f"torch {torch.__version__}", flush=True)
     counters = {"fused_stage1": (fused_retrieval.fused_stage1, "launches"),
                 "fused_stage1_deep": (fused_retrieval.fused_stage1, "deep_launches"),

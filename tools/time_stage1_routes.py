@@ -27,6 +27,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from otto_tpu_torch.ops import _kernels  # noqa: E402
 from otto_tpu_torch.ops import fused_retrieval as fr  # noqa: E402
+from otto_tpu_torch.utils.runtime import device_line  # noqa: E402
 
 N_3B = 1_015_808  # phase 3b's padded table: 1,000,000 items
 N_FULL = 1_867_776  # the full catalog's: 1,855,603 items
@@ -119,7 +120,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_stage1_routes: needs a CUDA card", file=sys.stderr)
         return 2
-    print(cs.card_line(), flush=True)
+    print(device_line("cuda"), flush=True)
     path = _kernels.build()
     _kernels.lib()
     ptxas_lines(path.with_suffix(".ptxas.txt").read_text())
