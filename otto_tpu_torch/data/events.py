@@ -1,6 +1,9 @@
 """Columnar event store.
 
 Copied from ``otto_tpu/data/events.py`` (numpy only); imports name this package.
+:meth:`EventStore.select_sessions` and :meth:`EventStore.pack` open the
+profiler spans ``otto::sessions.select`` and ``otto::sessions.pack``
+(:func:`otto_tpu_torch.utils.profiling.span`).
 
 The reference represents OTTO data as pandas DataFrames of event rows
 ``(session: uint32, aid: uint32, ts: uint64, type: uint8)`` (reference:
@@ -22,6 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from otto_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -146,18 +151,19 @@ class EventStore:
     # ------------------------------------------------------------- selection
     def select_sessions(self, keep: np.ndarray) -> "EventStore":
         """Subset sessions by boolean mask or index array over session axis."""
-        keep = np.asarray(keep)
-        if keep.dtype == bool:
-            keep = np.flatnonzero(keep)
-        event_mask = np.isin(self.session_idx, keep)
-        # Re-index sessions compactly while preserving order.
-        return EventStore.from_flat(
-            self.session_ids[self.session_idx[event_mask]],
-            self.aid[event_mask],
-            self.ts[event_mask],
-            self.type[event_mask],
-            assume_sorted=True,
-        )
+        with span("otto::sessions.select"):
+            keep = np.asarray(keep)
+            if keep.dtype == bool:
+                keep = np.flatnonzero(keep)
+            event_mask = np.isin(self.session_idx, keep)
+            # Re-index sessions compactly while preserving order.
+            return EventStore.from_flat(
+                self.session_ids[self.session_idx[event_mask]],
+                self.aid[event_mask],
+                self.ts[event_mask],
+                self.type[event_mask],
+                assume_sorted=True,
+            )
 
     def sessions_between(self, lo: int | None = None, hi: int | None = None) -> "EventStore":
         """Sessions with ``lo <= session_id < hi`` (either bound optional)."""
@@ -195,39 +201,40 @@ class EventStore:
 
     # --------------------------------------------------------------- packing
     def pack(self, max_len: int, keep: str = "last") -> PackedSessions:
-        lengths = self.lengths
-        L = int(max_len)
-        S = self.n_sessions
-        clipped = np.minimum(lengths, L)
-        pos = self.position_in_session
-        if keep == "last":
-            # shift each session so its last event lands at column clipped-1
-            col = pos - (lengths[self.session_idx] - clipped[self.session_idx])
-        elif keep == "first":
-            col = pos
-        else:
-            raise ValueError(f"keep must be 'last' or 'first', got {keep!r}")
-        sel = (col >= 0) & (col < L)
-        rows = self.session_idx[sel].astype(np.int64)
-        cols = col[sel].astype(np.int64)
-        flat = rows * L + cols
+        with span("otto::sessions.pack"):
+            lengths = self.lengths
+            L = int(max_len)
+            S = self.n_sessions
+            clipped = np.minimum(lengths, L)
+            pos = self.position_in_session
+            if keep == "last":
+                # shift each session so its last event lands at column clipped-1
+                col = pos - (lengths[self.session_idx] - clipped[self.session_idx])
+            elif keep == "first":
+                col = pos
+            else:
+                raise ValueError(f"keep must be 'last' or 'first', got {keep!r}")
+            sel = (col >= 0) & (col < L)
+            rows = self.session_idx[sel].astype(np.int64)
+            cols = col[sel].astype(np.int64)
+            flat = rows * L + cols
 
-        aids = np.zeros(S * L, dtype=np.int32)
-        types = np.zeros(S * L, dtype=np.int8)
-        ts = np.zeros(S * L, dtype=np.int64)
-        mask = np.zeros(S * L, dtype=bool)
-        aids[flat] = self.aid[sel]
-        types[flat] = self.type[sel]
-        ts[flat] = self.ts[sel]
-        mask[flat] = True
-        return PackedSessions(
-            aids=aids.reshape(S, L),
-            types=types.reshape(S, L),
-            ts=ts.reshape(S, L),
-            mask=mask.reshape(S, L),
-            lengths=lengths,
-            session_ids=self.session_ids,
-        )
+            aids = np.zeros(S * L, dtype=np.int32)
+            types = np.zeros(S * L, dtype=np.int8)
+            ts = np.zeros(S * L, dtype=np.int64)
+            mask = np.zeros(S * L, dtype=bool)
+            aids[flat] = self.aid[sel]
+            types[flat] = self.type[sel]
+            ts[flat] = self.ts[sel]
+            mask[flat] = True
+            return PackedSessions(
+                aids=aids.reshape(S, L),
+                types=types.reshape(S, L),
+                ts=ts.reshape(S, L),
+                mask=mask.reshape(S, L),
+                lengths=lengths,
+                session_ids=self.session_ids,
+            )
 
     def length_buckets(self, edges=(16, 64, 256)) -> list[np.ndarray]:
         """Session index groups by length for bucketed fixed-shape kernels.

@@ -56,6 +56,7 @@ from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.logging_utils import get_logger
 from otto_tpu_torch.ops.moe import init_moe, moe_apply
 from otto_tpu_torch.ops.retrieval import topk_scan
+from otto_tpu_torch.utils.profiling import span
 from otto_tpu_torch.utils.runtime import full_f32_matmul, resolve_device
 
 log = get_logger(__name__)
@@ -441,11 +442,12 @@ class SequenceModel:
         cfg = self.config
         dev = self.device
         packed = store.pack(max_len=cfg.max_len, keep="last")
-        seq = torch.as_tensor(np.where(packed.mask, packed.aids, cfg.n_aids).astype(np.int32),
-                              device=dev)
-        mask = torch.as_tensor(packed.mask, device=dev)
+        with span("otto::sessions.pack"):  # the upload counts as packing
+            seq = torch.as_tensor(np.where(packed.mask, packed.aids, cfg.n_aids).astype(np.int32),
+                                  device=dev)
+            mask = torch.as_tensor(packed.mask, device=dev)
         out = torch.empty((store.n_sessions, cfg.dim), dtype=torch.float32, device=dev)
-        with full_f32_matmul():
+        with span("otto::encode"), full_f32_matmul():
             for start in range(0, store.n_sessions, batch):
                 end = min(start + batch, store.n_sessions)
                 s, m = seq[start:end], mask[start:end]
@@ -486,7 +488,8 @@ class SequenceModel:
                 _, i = retriever.topk(q, k=k)
             else:
                 _, i = topk_scan(q, items, k=k, block=16384, metric="dot")
-            out[start:start + batch] = i.cpu().numpy()
+            with span("otto::serve.readback"):
+                out[start:start + batch] = i.cpu().numpy()
         return out
 
     def save(self, path) -> None:
@@ -660,36 +663,55 @@ def sequence_serving_predictions(
     - last aid seen in training -> the model's full-sort top-k
     - otherwise -> the embedding-kNN row of the last aid (``-1`` without
       ``ft_neighbors``)
+
+    Adds each route's sessions to ``sequence_serving_predictions.sessions``.
     """
     from otto_tpu_torch.models.covisitation import session_unique_counts
     from otto_tpu_torch.ops.sessions import recency_weighted_top_aids
 
-    dev = model.device
-    counts = session_unique_counts(store)
-    last = store.last_aid()
-    S = store.n_sessions
-    in_vocab = trained_aid_mask[last] if trained_aid_mask is not None else np.ones(S, bool)
+    with span("otto::serve"):
+        dev = model.device
+        with span("otto::serve.route"):
+            counts = session_unique_counts(store)
+            last = store.last_aid()
+            S = store.n_sessions
+            in_vocab = (trained_aid_mask[last] if trained_aid_mask is not None
+                        else np.ones(S, bool))
+            route_recency = counts >= 20
+            route_model = ~route_recency & in_vocab
+            route_fallback = ~route_recency & ~in_vocab
+        routed = sequence_serving_predictions.sessions
+        for route, on in (("recency", route_recency), ("model", route_model),
+                          ("fallback", route_fallback)):
+            routed[route] += int(on.sum())
 
-    route_recency = counts >= 20
-    route_model = ~route_recency & in_vocab
-    route_fallback = ~route_recency & ~in_vocab
+        preds = np.full((S, k), -1, np.int32)
+        if route_recency.any():
+            with span("otto::serve.recency"):
+                idx = np.flatnonzero(route_recency)
+                packed = store.select_sessions(idx).pack(max_len=256, keep="last")
+                with span("otto::sessions.pack"):  # the upload counts as packing
+                    rows = [torch.as_tensor(a, device=dev) for a in (
+                        packed.aids, packed.types, packed.mask, packed.lengths)]
+                top, _ = recency_weighted_top_aids(
+                    *rows, torch.tensor([1.0, 6.0, 3.0], dtype=torch.float32, device=dev),
+                    k=k, lo=0.1, hi=1.0,
+                )
+                del rows  # free the uploads before the model route runs
+                with span("otto::serve.readback"):
+                    preds[idx] = top.cpu().numpy()
+        if route_model.any():
+            with span("otto::serve.model"):
+                idx = np.flatnonzero(route_model)
+                preds[idx] = model.full_sort_topk(store.select_sessions(idx), k=k)
+        if route_fallback.any() and ft_neighbors is not None:
+            with span("otto::serve.fallback"):
+                idx = np.flatnonzero(route_fallback)
+                rows = ft_neighbors[last[idx]][:, :k]
+                preds[idx, :rows.shape[1]] = rows
+        return {etype: preds.copy() for etype in EVENT_TYPES}
 
-    preds = np.full((S, k), -1, np.int32)
-    if route_recency.any():
-        idx = np.flatnonzero(route_recency)
-        packed = store.select_sessions(idx).pack(max_len=256, keep="last")
-        top, _ = recency_weighted_top_aids(
-            *(torch.as_tensor(a, device=dev) for a in (packed.aids, packed.types, packed.mask,
-                                                       packed.lengths)),
-            torch.tensor([1.0, 6.0, 3.0], dtype=torch.float32, device=dev),
-            k=k, lo=0.1, hi=1.0,
-        )
-        preds[idx] = top.cpu().numpy()
-    if route_model.any():
-        idx = np.flatnonzero(route_model)
-        preds[idx] = model.full_sort_topk(store.select_sessions(idx), k=k)
-    if route_fallback.any() and ft_neighbors is not None:
-        idx = np.flatnonzero(route_fallback)
-        rows = ft_neighbors[last[idx]][:, :k]
-        preds[idx, :rows.shape[1]] = rows
-    return {etype: preds.copy() for etype in EVENT_TYPES}
+
+# sessions served by each route, summed over calls (the fallback's get no
+# list without ``ft_neighbors``)
+sequence_serving_predictions.sessions = {"recency": 0, "model": 0, "fallback": 0}

@@ -47,6 +47,7 @@ import torch
 
 from otto_tpu_torch.ops import _kernels
 from otto_tpu_torch.ops.row_topk import peel_rows
+from otto_tpu_torch.utils.profiling import span
 from otto_tpu_torch.utils.runtime import full_f32_matmul, resolve_device
 
 NEG = float(np.float32(-3.0e38))
@@ -365,26 +366,27 @@ class FusedRetriever:
                 "bf16 or use precision='single'")
         if table_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"table_dtype must be bfloat16 or float32, got {table_dtype}")
-        self.device = resolve_device(device)
-        itf = torch.as_tensor(items, dtype=torch.float32, device=self.device)
-        self.n_items, self.dim = itf.shape
-        self.metric = metric
-        self.block = block
-        self.precision = precision
-        n_pad = (-self.n_items) % block
+        with span("otto::retrieval.build"):
+            self.device = resolve_device(device)
+            itf = torch.as_tensor(items, dtype=torch.float32, device=self.device)
+            self.n_items, self.dim = itf.shape
+            self.metric = metric
+            self.block = block
+            self.precision = precision
+            n_pad = (-self.n_items) % block
 
-        sq = (itf * itf).sum(dim=1)
-        self.max_sq = float(sq.max())
-        self.items = itf.to(rescore_dtype)  # [N, D], for rescoring
-        self.sq = sq      # [N] float32
-        ones = torch.ones((self.n_items, 1), dtype=torch.float32, device=self.device)
-        aug = torch.cat([itf, -sq[:, None], ones], dim=1)  # rows [x, -||x||^2, 1]
-        if precision == "compensated":
-            hi, lo = _bf16_split(aug)
-            table = torch.cat([hi, lo, hi], dim=1)  # [N, 3(D+2)] bf16
-        else:
-            table = aug.to(table_dtype)
-        self.items_aug_t = torch.nn.functional.pad(table.T, (0, n_pad)).contiguous()
+            sq = (itf * itf).sum(dim=1)
+            self.max_sq = float(sq.max())
+            self.items = itf.to(rescore_dtype)  # [N, D], for rescoring
+            self.sq = sq      # [N] float32
+            ones = torch.ones((self.n_items, 1), dtype=torch.float32, device=self.device)
+            aug = torch.cat([itf, -sq[:, None], ones], dim=1)  # rows [x, -||x||^2, 1]
+            if precision == "compensated":
+                hi, lo = _bf16_split(aug)
+                table = torch.cat([hi, lo, hi], dim=1)  # [N, 3(D+2)] bf16
+            else:
+                table = aug.to(table_dtype)
+            self.items_aug_t = torch.nn.functional.pad(table.T, (0, n_pad)).contiguous()
 
     def topk(self, queries, k: int, rounds: int = 6, exact_scores: bool = False,
              rescore_survivors: bool = False, recall_target: float | None = None):
@@ -399,16 +401,17 @@ class FusedRetriever:
         table's type only picks the survivor pool.  A ``recall_target`` makes
         ``rounds`` a floor (:func:`window_rounds`).
         """
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        n_pad = self.items_aug_t.shape[1]
-        rounds = window_rounds(self.n_items, n_pad, k, rounds, recall_target, self.block)
-        if rounds is None:
-            return _dense_topk(self.items, self.sq, q, metric=self.metric,
-                               k=min(k, self.n_items))
-        return _topk_impl(self.items_aug_t, self.items, self.sq, q, metric=self.metric,
-                          n_items=self.n_items, max_sq=self.max_sq, rounds=rounds, k=k,
-                          exact_scores=exact_scores, rescore_survivors=rescore_survivors,
-                          precision=self.precision)
+        with span("otto::retrieval.topk"):
+            q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+            n_pad = self.items_aug_t.shape[1]
+            rounds = window_rounds(self.n_items, n_pad, k, rounds, recall_target, self.block)
+            if rounds is None:
+                return _dense_topk(self.items, self.sq, q, metric=self.metric,
+                                   k=min(k, self.n_items))
+            return _topk_impl(self.items_aug_t, self.items, self.sq, q, metric=self.metric,
+                              n_items=self.n_items, max_sq=self.max_sq, rounds=rounds, k=k,
+                              exact_scores=exact_scores, rescore_survivors=rescore_survivors,
+                              precision=self.precision)
 
 
 def quantize_rows_int8(x: torch.Tensor):

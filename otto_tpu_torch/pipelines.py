@@ -212,7 +212,11 @@ def run_sequence(
     model = train_sequence_model(train, cfg, device=device)
     seen = np.zeros(n_aids, bool)
     seen[train.aid] = True
+    before = dict(sequence_serving_predictions.sessions)
     preds = sequence_serving_predictions(target, model, trained_aid_mask=seen, k=k)
+    routed = {r: n - before[r] for r, n in sequence_serving_predictions.sessions.items()}
+    log.info("sequence (%s) routes: %d sessions recency, %d model, %d fallback (no list)",
+             cfg.architecture, routed["recency"], routed["model"], routed["fallback"])
     return BaselineResult(preds, _report(f"sequence ({cfg.architecture})", labels, preds,
                                          device))
 

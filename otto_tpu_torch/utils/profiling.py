@@ -6,8 +6,9 @@ all (SURVEY §5.1 — only tqdm bars).  Here:
 - :func:`trace` context manager runs ``torch.profiler`` (the host, and the
   card when there is one) and writes a Chrome / Perfetto trace into a
   directory
-- :class:`StepTimer` measures per-step wall time, synchronising on the
-  device of the step's output (launches return before the card finishes)
+- :func:`span` names a stretch of the program's host work inside such a
+  trace (the ``otto::`` ranges of the serving path); free when no profiler
+  records
 - :func:`device_memory_stats` snapshots the card's memory in use
 """
 
@@ -18,7 +19,6 @@ import os
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from otto_tpu_torch.logging_utils import get_logger
@@ -45,33 +45,23 @@ def trace(log_dir: str | Path):
     log.info("profiler trace written to %s", path)
 
 
-class StepTimer:
-    """Rolling step timer; call ``stop(out)`` with the step's output tensor
-    to wait for its device before the clock is read."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times: list[float] = []
-        self._t0 = None
 
-    def start(self):
-        self._t0 = time.perf_counter()
+def span(name: str):
+    """A context that records ``name`` as a ``torch.profiler.record_function``
+    range while a profiler records on this thread (started by ``profile()``'s
+    ``with`` block or its ``start()``), and does nothing otherwise.
 
-    def stop(self, out=None) -> float:
-        if isinstance(out, torch.Tensor) and out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else float("nan")
-
-    def rate(self, items_per_step: int) -> float:
-        return items_per_step / self.mean if self.times else float("nan")
+    The ranges are the profiler's own host events: they share its clock and
+    its correlation with the card's kernels, nest by the ``with`` blocks that
+    enclose them, and are written out with the rest of the trace (by
+    :func:`trace`, or by whoever holds the profiler).  With no profiler
+    recording, a call costs one check of the profiler's state and returns a
+    shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def device_memory_stats(device: str | torch.device) -> dict:

@@ -29,21 +29,26 @@ PEAKS = {
 }
 
 
-def peaks_for_name(name: str) -> ChipPeaks:
-    """Peaks of a card by its name (``torch.cuda.get_device_name``);
-    defaults to the H100, the port's target part."""
+def peaks_for_name(name: str) -> ChipPeaks | None:
+    """Peaks of a card by its name (``torch.cuda.get_device_name``), or
+    ``None`` for a card this table does not know."""
     name = name.lower().replace(" ", "")
     for key, peaks in PEAKS.items():
         if key in name:
             return peaks
-    return PEAKS["h100"]
+    return None
 
 
 def chip_peaks(device: str | torch.device | None = None) -> ChipPeaks:
-    """Peaks of ``device`` (a CUDA device's name from ``torch.cuda``);
-    the H100's for ``None`` or the CPU."""
+    """Peaks of ``device`` (a CUDA device's name from ``torch.cuda``); the
+    H100's, the port's target part, for ``None`` or the CPU.  Raises for a
+    CUDA card with no peaks in the table, rather than rate it as an H100."""
     if device is not None and torch.device(device).type == "cuda":
-        return peaks_for_name(torch.cuda.get_device_name(torch.device(device)))
+        name = torch.cuda.get_device_name(torch.device(device))
+        peaks = peaks_for_name(name)
+        if peaks is None:
+            raise ValueError(f"no published peaks for the card {name!r}")
+        return peaks
     return PEAKS["h100"]
 
 

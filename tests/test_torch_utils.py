@@ -20,7 +20,7 @@ from otto_tpu_torch.eval import oracle as toracle
 from otto_tpu_torch.utils.checkpoint import CheckpointManager
 from otto_tpu_torch.utils.failure import TrainingGuard, nonfinite_count
 from otto_tpu_torch.utils.prng import host_rng, set_seed
-from otto_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
+from otto_tpu_torch.utils.profiling import device_memory_stats, trace
 from otto_tpu_torch.utils.roofline import PEAKS, chip_peaks, peaks_for_name, roofline
 
 torch.set_num_threads(1)
@@ -208,17 +208,6 @@ def test_set_seed_returns_a_seeded_generator():
     np.testing.assert_array_equal(host_rng(3).random(4), np.random.default_rng(3).random(4))
 
 
-def test_step_timer():
-    t = StepTimer(window=3)
-    x = torch.ones(4)
-    for _ in range(5):
-        t.start()
-        t.stop(x * 2)
-    assert len(t.times) == 3
-    assert t.mean > 0
-    assert t.rate(100) > 0
-
-
 def test_memory_stats_of_the_cpu_are_empty():
     assert device_memory_stats("cpu") == {}
 
@@ -257,6 +246,18 @@ def test_chip_peaks():
     assert peaks_for_name("NVIDIA H100 80GB HBM3") == PEAKS["h100"]
     assert PEAKS["h100"].hbm_gbps == 3350.0 and PEAKS["h100"].bf16_tflops == 989.0
     assert PEAKS["h100"].f32_tflops == 67.0
+
+
+def test_unknown_card_has_no_peaks(monkeypatch):
+    assert peaks_for_name("NVIDIA A100-SXM4-80GB") is None
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "Tesla T4")
+    with pytest.raises(ValueError, match="Tesla T4"):
+        chip_peaks("cuda:0")
+    with pytest.raises(ValueError, match="Tesla T4"):
+        roofline(1.0, hbm_bytes=1e9, device="cuda:0")
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "NVIDIA H100 80GB HBM3")
+    assert chip_peaks("cuda:0") == PEAKS["h100"]
 
 
 @pytest.mark.parametrize("k,derate", [(16, 1.0), (32, 1.0), (34, 34 / 48), (8, 0.5),
