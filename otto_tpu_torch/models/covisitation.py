@@ -264,13 +264,51 @@ FT_BONUS = {"clicks": 0.05, "carts": 0.05, "orders": 0.15}
 COVISIT_BONUS = {"clicks": 0.05, "carts": 0.05, "orders": 0.15}
 
 
+def _distinct_pair_sessions(session_idx: np.ndarray, aid: np.ndarray) -> np.ndarray:
+    """The session of each distinct (session, aid) pair among the events:
+    one sort of the int64 key ``session << 32 | aid`` (the aid's 32 bits
+    unsigned, so every int32 aid keeps its own key)."""
+    key = (session_idx.astype(np.int64) << 32) | (aid.astype(np.int64) & 0xFFFFFFFF)
+    key.sort()
+    head = np.empty(len(key), bool)
+    head[:1] = True
+    np.not_equal(key[1:], key[:-1], out=head[1:])
+    return key[head] >> 32
+
+
 def session_unique_counts(store: EventStore) -> np.ndarray:
     """Exact distinct-aid count per session (vectorized host-side)."""
-    order = np.lexsort((store.aid, store.session_idx))
-    s = store.session_idx[order]
-    a = store.aid[order]
-    head = np.concatenate([[True], (s[1:] != s[:-1]) | (a[1:] != a[:-1])])
-    return np.bincount(s[head], minlength=store.n_sessions).astype(np.int32)
+    sessions = _distinct_pair_sessions(store.session_idx, store.aid)
+    return np.bincount(sessions, minlength=store.n_sessions).astype(np.int32)
+
+
+def sessions_with_distinct_at_least(store: EventStore, n: int) -> np.ndarray:
+    """``session_unique_counts(store) >= n``, counting only the sessions that
+    can reach ``n``: one of fewer than ``n`` events is ``False`` by its
+    length alone, and the others' events (contiguous CSR ranges) go through
+    one key sort.
+
+    Adds the sessions decided each way to
+    ``sessions_with_distinct_at_least.sessions``.
+    """
+    lengths = store.lengths
+    S = len(lengths)
+    long = np.flatnonzero(lengths >= n)
+    decided = sessions_with_distinct_at_least.sessions
+    decided["by_length"] += S - len(long)
+    decided["counted"] += len(long)
+    lens = lengths[long]
+    # a gathered event's index: its position plus its session's offset less
+    # the position of the session's first gathered event
+    shift = store.offsets[long] - (np.cumsum(lens) - lens)
+    ev = np.arange(int(lens.sum())) + np.repeat(shift, lens)
+    sessions = _distinct_pair_sessions(np.repeat(long, lens), store.aid[ev])
+    return np.bincount(sessions, minlength=S) >= n
+
+
+# sessions decided by their length alone and sessions whose distinct aids
+# were counted, summed over calls
+sessions_with_distinct_at_least.sessions = {"by_length": 0, "counted": 0}
 
 
 def _derive_mask_last(aids: torch.Tensor, lengths: torch.Tensor):
@@ -420,13 +458,13 @@ def covisit_heuristic_predictions(
     layout = ServingLayout(mesh, device)
     dev = layout.device
     chunk_sessions = layout.chunk(chunk_sessions)
-    counts = session_unique_counts(store)
+    recency = sessions_with_distinct_at_least(store, 20)
     packed = store.pack(max_len=max_len, keep="last")
     S = store.n_sessions
     preds = {etype: np.full((S, k), -1, np.int32) for etype in EVENT_TYPES}
 
-    cov_idx = np.flatnonzero(counts < 20)
-    rec_idx = np.flatnonzero(counts >= 20)
+    cov_idx = np.flatnonzero(~recency)
+    rec_idx = np.flatnonzero(recency)
     log.info("heuristic routing: %d covisitation, %d recency-weight sessions",
              len(cov_idx), len(rec_idx))
 

@@ -673,16 +673,16 @@ def embedding_knn_predictions(
 ) -> dict[str, np.ndarray]:
     """Full serving path of the embedding model over an EventStore; the
     recency route runs on ``device``, the kNN route on the host."""
-    from otto_tpu_torch.models.covisitation import session_unique_counts
+    from otto_tpu_torch.models.covisitation import sessions_with_distinct_at_least
     from otto_tpu_torch.ops.sessions import recency_weighted_top_aids
 
     dev = resolve_device(device)
-    counts = session_unique_counts(store)
+    recency = sessions_with_distinct_at_least(store, 20)
     S = store.n_sessions
     preds = np.full((S, k), -1, np.int32)
 
-    rec_idx = np.flatnonzero(counts >= 20)
-    knn_idx = np.flatnonzero(counts < 20)
+    rec_idx = np.flatnonzero(recency)
+    knn_idx = np.flatnonzero(~recency)
 
     if len(rec_idx):
         sub = store.select_sessions(rec_idx)

@@ -666,18 +666,17 @@ def sequence_serving_predictions(
 
     Adds each route's sessions to ``sequence_serving_predictions.sessions``.
     """
-    from otto_tpu_torch.models.covisitation import session_unique_counts
+    from otto_tpu_torch.models.covisitation import sessions_with_distinct_at_least
     from otto_tpu_torch.ops.sessions import recency_weighted_top_aids
 
     with span("otto::serve"):
         dev = model.device
         with span("otto::serve.route"):
-            counts = session_unique_counts(store)
+            route_recency = sessions_with_distinct_at_least(store, 20)
             last = store.last_aid()
             S = store.n_sessions
             in_vocab = (trained_aid_mask[last] if trained_aid_mask is not None
                         else np.ones(S, bool))
-            route_recency = counts >= 20
             route_model = ~route_recency & in_vocab
             route_fallback = ~route_recency & ~in_vocab
         routed = sequence_serving_predictions.sessions

@@ -202,6 +202,7 @@ def run_sequence(
     ``SequenceModelConfig()``) on ``device`` and serves the target there;
     sessions whose last aid was not seen in training get no list (no kNN
     table is passed, as in the reference)."""
+    from otto_tpu_torch.models.covisitation import sessions_with_distinct_at_least
     from otto_tpu_torch.models.sequence import (
         sequence_serving_predictions,
         train_sequence_model,
@@ -212,11 +213,13 @@ def run_sequence(
     model = train_sequence_model(train, cfg, device=device)
     seen = np.zeros(n_aids, bool)
     seen[train.aid] = True
-    before = dict(sequence_serving_predictions.sessions)
+    counters = (sequence_serving_predictions.sessions, sessions_with_distinct_at_least.sessions)
+    before = [dict(c) for c in counters]
     preds = sequence_serving_predictions(target, model, trained_aid_mask=seen, k=k)
-    routed = {r: n - before[r] for r, n in sequence_serving_predictions.sessions.items()}
-    log.info("sequence (%s) routes: %d sessions recency, %d model, %d fallback (no list)",
-             cfg.architecture, routed["recency"], routed["model"], routed["fallback"])
+    routed, decided = ({r: n - b[r] for r, n in c.items()} for c, b in zip(counters, before))
+    log.info("sequence (%s) routes: %d sessions recency, %d model, %d fallback (no list); "
+             "%d decided by length, %d counted", cfg.architecture, routed["recency"],
+             routed["model"], routed["fallback"], decided["by_length"], decided["counted"])
     return BaselineResult(preds, _report(f"sequence ({cfg.architecture})", labels, preds,
                                          device))
 

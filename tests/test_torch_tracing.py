@@ -9,7 +9,9 @@
   over 65,536 aids (the fused retriever's CPU twins under
   ``otto::retrieval.build`` and ``otto::retrieval.topk``);
 - ``sequence_serving_predictions.sessions`` counts each route's sessions,
-  and ``run_sequence`` logs its call's counts.
+  ``sessions_with_distinct_at_least.sessions`` the sessions its route test
+  decided by length (fewer than 20 events) and those it counted, and
+  ``run_sequence`` logs its call's counts of both.
 """
 
 import contextlib
@@ -24,6 +26,7 @@ from otto_tpu_torch import pipelines
 from otto_tpu_torch.config import SequenceModelConfig
 from otto_tpu_torch.data.events import EventStore
 from otto_tpu_torch.models import sequence as tseq
+from otto_tpu_torch.models.covisitation import sessions_with_distinct_at_least
 from otto_tpu_torch.utils.profiling import span
 
 torch.set_num_threads(1)
@@ -144,11 +147,16 @@ def test_route_counters_equal_the_routes(monkeypatch, caplog):
     known = trained[store.last_aid()]
     want = {"recency": int(recency.sum()), "model": int((~recency & known).sum()),
             "fallback": int((~recency & ~known).sum())}
-    assert all(want.values())
+    short = int((store.lengths < 20).sum())
+    decided = {"by_length": short, "counted": store.n_sessions - short}
+    assert all(want.values()) and all(decided.values())
     before = dict(tseq.sequence_serving_predictions.sessions)
+    before_decided = dict(sessions_with_distinct_at_least.sessions)
     preds = tseq.sequence_serving_predictions(store, model, trained, None, k=5)
     after = tseq.sequence_serving_predictions.sessions
     assert {r: after[r] - before[r] for r in want} == want
+    after_decided = sessions_with_distinct_at_least.sessions
+    assert {d: after_decided[d] - before_decided[d] for d in decided} == decided
     assert (preds["clicks"][~recency & ~known] == -1).all()
 
     # run_sequence logs its own call's counts (the training replaced by the
@@ -165,4 +173,5 @@ def test_route_counters_equal_the_routes(monkeypatch, caplog):
     known = store.last_aid() == 3
     assert line == [f"sequence (gru) routes: {int(recency.sum())} sessions recency, "
                     f"{int((~recency & known).sum())} model, "
-                    f"{int((~recency & ~known).sum())} fallback (no list)"]
+                    f"{int((~recency & ~known).sum())} fallback (no list); "
+                    f"{decided['by_length']} decided by length, {decided['counted']} counted"]
